@@ -1,0 +1,139 @@
+"""Build the port's objects from the JAX package's values.
+
+The JAX package has no weights: its state is point layers and module
+configs. These functions take them as numpy arrays and plain dicts (for a
+module, ``dataclasses.asdict(module)`` and its class name), so they never
+import jax, and both packages can be fed the same problem.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
+from mp2p_icp_tpu_torch.core.se3 import Pose
+from mp2p_icp_tpu_torch.icp import ICP
+from mp2p_icp_tpu_torch.matchers import (
+    LayerMatch,
+    MatcherAdaptive,
+    MatcherPointsDistanceThreshold,
+)
+from mp2p_icp_tpu_torch.quality.paired_ratio import QualityPairedRatio
+from mp2p_icp_tpu_torch.solvers.common import PairWeights, WeightParameters
+from mp2p_icp_tpu_torch.solvers.gauss_newton import GNParams
+from mp2p_icp_tpu_torch.solvers.robust import RobustKernel
+from mp2p_icp_tpu_torch.solvers.solver import SolverGaussNewton, SolverHorn
+
+# JAX-side fields with no counterpart in the port: the hash-grid candidate
+# budget (the grid path is not ported), the crop-sizing range hint (only
+# read by the large-map crop) and the shard count (read only when
+# spatial_axis is set, which raises)
+_DROPPED_FIELDS = {"k_per_cell", "angular_range_hint", "spatial_num_shards"}
+
+
+def pointcloud_from_numpy(xyz, count, device=None, **channels) -> PointCloud:
+    """A PointCloud from a padded [C, 3] array and its valid count, with the
+    padding rows kept as given (row-for-row with the JAX cloud)."""
+    xyz = np.array(xyz, dtype=np.float32).reshape(-1, 3)
+    extra = {
+        k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+        for k, v in channels.items() if v is not None
+    }
+    return PointCloud(
+        xyz=torch.from_numpy(xyz).to(device),
+        count=torch.tensor(int(count), dtype=torch.int32, device=device),
+        **extra,
+    )
+
+
+def pose_from_numpy(R, t, device=None) -> Pose:
+    return Pose(
+        torch.from_numpy(np.array(R, dtype=np.float32)).to(device),
+        torch.from_numpy(np.array(t, dtype=np.float32)).to(device),
+    )
+
+
+def _kernel(v) -> RobustKernel:
+    """A robust kernel from the JAX package's enum member (by its value) or
+    from a name."""
+    v = getattr(v, "value", v)
+    try:
+        return RobustKernel(v)
+    except ValueError:
+        return RobustKernel.from_string(v)
+
+
+def _module_fields(cfg: dict) -> dict:
+    cfg = dict(cfg)
+    if cfg.pop("spatial_axis", None) is not None:
+        raise NotImplementedError("spatially sharded matchers are not ported yet")
+    for k in _DROPPED_FIELDS:
+        cfg.pop(k, None)
+    if "layer_matches" in cfg:
+        cfg["layer_matches"] = tuple(LayerMatch(**lm) for lm in cfg["layer_matches"])
+    return cfg
+
+
+def matcher_from_config(name: str, cfg: dict):
+    """A port matcher from a JAX matcher's class name and asdict."""
+    cfg = _module_fields(cfg)
+    if name == "MatcherPointsDistanceThreshold":
+        return MatcherPointsDistanceThreshold(**cfg)
+    if name == "MatcherAdaptive":
+        return MatcherAdaptive(**cfg)
+    raise NotImplementedError(f"matcher {name} is not ported yet")
+
+
+def solver_from_config(name: str, cfg: dict):
+    """A port solver from a JAX solver's class name and asdict."""
+    cfg = dict(cfg)
+    if name == "SolverHorn":
+        wp = dict(cfg.pop("weight_params"))
+        wp["pair_weights"] = PairWeights(**wp["pair_weights"])
+        wp["robust_kernel"] = _kernel(wp["robust_kernel"])
+        return SolverHorn(weight_params=WeightParameters(**wp), **cfg)
+    if name == "SolverGaussNewton":
+        gp = dict(cfg.pop("gn_params"))
+        gp["pair_weights"] = PairWeights(**gp["pair_weights"])
+        gp["kernel"] = _kernel(gp["kernel"])
+        return SolverGaussNewton(gn_params=GNParams(**gp), **cfg)
+    raise NotImplementedError(f"solver {name} is not ported yet")
+
+
+def quality_from_config(name: str, cfg: dict):
+    """A port quality evaluator from a JAX evaluator's class name and asdict."""
+    if name != "QualityPairedRatio":
+        raise NotImplementedError(f"quality evaluator {name} is not ported yet")
+    cfg = dict(cfg)
+    if cfg.get("matcher") is not None:
+        cfg["matcher"] = matcher_from_config(
+            "MatcherPointsDistanceThreshold", cfg["matcher"]
+        )
+    return QualityPairedRatio(**cfg)
+
+
+def icp_from_config(matchers, solvers, quality_evaluators=None,
+                    quality_weights=None) -> ICP:
+    """An ICP from ``[(class name, dataclasses.asdict(module)), ...]`` lists
+    of the JAX package's modules. Without ``quality_evaluators`` the ICP
+    keeps its default (one paired-ratio evaluator)."""
+    kw = {}
+    if quality_evaluators is not None:
+        kw["quality_evaluators"] = tuple(
+            quality_from_config(n, c) for n, c in quality_evaluators
+        )
+    if quality_weights is not None:
+        kw["quality_weights"] = list(quality_weights)
+    return ICP(
+        matchers=[matcher_from_config(n, c) for n, c in matchers],
+        solvers=[solver_from_config(n, c) for n, c in solvers],
+        **kw,
+    )
+
+
+def config_of(module) -> tuple:
+    """(class name, asdict) of a dataclass module — the input format above."""
+    return type(module).__name__, dataclasses.asdict(module)

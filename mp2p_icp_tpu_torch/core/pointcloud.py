@@ -1,0 +1,105 @@
+"""Padded structure-of-arrays point clouds.
+
+Port of ``mp2p_icp_tpu/core/pointcloud.py``. The layout is kept as it is: a
+fixed-capacity ``[C, 3]`` tensor plus a validity ``count``, with padding rows
+at the ``PAD_VALUE`` sentinel and capacities rounded by ``round_capacity``.
+Row-for-row parity with the JAX package follows from that, and fixed shapes
+keep CUDA-graph capture possible later.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def round_capacity(n: int, minimum: int = 256) -> int:
+    """Round n up to the next power of two (>= minimum)."""
+    c = max(int(minimum), 1)
+    while c < n:
+        c *= 2
+    return c
+
+
+@dataclasses.dataclass(frozen=True)
+class PointCloud:
+    """Fixed-capacity SoA point cloud.
+
+    xyz:    [C, 3] float32; rows >= count are padding at PAD_VALUE.
+    count:  scalar int32 tensor on the cloud's device — number of valid
+            leading rows.
+    intensity / ring / time: optional [C] channels; normals: optional [C, 3].
+    """
+
+    xyz: torch.Tensor
+    count: torch.Tensor
+    intensity: Optional[torch.Tensor] = None
+    ring: Optional[torch.Tensor] = None
+    time: Optional[torch.Tensor] = None
+    normals: Optional[torch.Tensor] = None
+
+    PAD_VALUE = 1.0e8  # sentinel coordinate for padding rows
+
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.xyz.device
+
+    def valid_mask(self) -> torch.Tensor:
+        return torch.arange(self.capacity, device=self.device) < self.count
+
+    @staticmethod
+    def from_numpy(
+        xyz: np.ndarray,
+        capacity: Optional[int] = None,
+        intensity: Optional[np.ndarray] = None,
+        ring: Optional[np.ndarray] = None,
+        time: Optional[np.ndarray] = None,
+        device=None,
+    ) -> "PointCloud":
+        xyz = np.asarray(xyz, dtype=np.float32).reshape(-1, 3)
+        n = xyz.shape[0]
+        cap = capacity or round_capacity(n)
+        if cap < n:
+            raise ValueError(f"capacity {cap} < point count {n}")
+        buf = np.full((cap, 3), PointCloud.PAD_VALUE, dtype=np.float32)
+        buf[:n] = xyz
+
+        def pad_channel(ch):
+            if ch is None:
+                return None
+            ch = np.asarray(ch, dtype=np.float32).reshape(-1)
+            if ch.shape[0] != n:
+                raise ValueError("channel length mismatch")
+            out = np.zeros((cap,), dtype=np.float32)
+            out[:n] = ch
+            return torch.from_numpy(out).to(device)
+
+        return PointCloud(
+            xyz=torch.from_numpy(buf).to(device),
+            count=torch.tensor(n, dtype=torch.int32, device=device),
+            intensity=pad_channel(intensity),
+            ring=pad_channel(ring),
+            time=pad_channel(time),
+        )
+
+    def to_numpy(self) -> np.ndarray:
+        return self.xyz[: int(self.count)].cpu().numpy()
+
+    def transformed(self, pose) -> "PointCloud":
+        """Rigidly transform valid points (padding rows stay at the
+        sentinel); normals rotate with the pose."""
+        from mp2p_icp_tpu_torch.core import se3
+
+        m = self.valid_mask()[:, None]
+        new_xyz = torch.where(m, se3.apply(pose, self.xyz), self.xyz)
+        nrm = self.normals
+        if nrm is not None:
+            nrm = torch.where(m, nrm @ pose.R.T, nrm)
+        return dataclasses.replace(self, xyz=new_xyz, normals=nrm)

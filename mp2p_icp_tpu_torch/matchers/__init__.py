@@ -1,0 +1,10 @@
+from mp2p_icp_tpu_torch.matchers.base import (  # noqa: F401
+    LayerMatch,
+    MatchContext,
+    MatchState,
+    Matcher,
+)
+from mp2p_icp_tpu_torch.matchers.distance_threshold import (  # noqa: F401
+    MatcherPointsDistanceThreshold,
+)
+from mp2p_icp_tpu_torch.matchers.adaptive import MatcherAdaptive  # noqa: F401

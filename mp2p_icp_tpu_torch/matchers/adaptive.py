@@ -1,0 +1,195 @@
+"""Adaptive two-stage robust matcher.
+
+Port of ``mp2p_icp_tpu/matchers/adaptive.py`` (reference:
+Matcher_Adaptive.cpp:32-314), the path with ``enable_detect_planes=False``
+that the KITTI configuration runs:
+
+1. the nearest neighbour of every transformed local point within
+   ``absolute_max_search_distance``; a 50-bin histogram of the squared
+   distances gives the adaptive threshold as its (1+CI)/2 quantile;
+2. pt2pt pairs below that threshold (and within the first-to-second
+   distance ratio when more than one correspondence is asked for).
+
+Plane detection needs the batched 3x3 eigen solver (``ops/eigen.py``),
+which is not ported yet: ``enable_detect_planes=True`` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from mp2p_icp_tpu_torch.core.pairings import PairsPt2Pl, PairsPt2Pt, concat_blocks
+from mp2p_icp_tpu_torch.matchers.base import (
+    LayerMatch,
+    MatchContext,
+    Matcher,
+    MatchState,
+    claim,
+    point_layers,
+    static_value,
+    transformed_local,
+)
+from mp2p_icp_tpu_torch.ops.nn_bruteforce import knn_bruteforce
+
+_BIG = 3.0e37
+_HIST_BINS = 50  # reference: CHistogram(min, max, 50), Matcher_Adaptive.cpp:193
+
+
+def adaptive_threshold_sq(res, confidence_interval: float, minimum_corr_dist: float):
+    """The adaptive squared-distance threshold: the (1+CI)/2 quantile of a
+    50-bin histogram of the valid 1st/2nd NN squared distances, floored at
+    ``minimum_corr_dist²`` (reference: Matcher_Adaptive.cpp:191-218)."""
+    m = min(2, res.dist_sq.shape[1])
+    d12 = torch.where(res.valid[:, :m], res.dist_sq[:, :m], _BIG).reshape(-1)
+    sample_ok = d12 < _BIG
+    d_min = torch.min(torch.where(sample_ok, d12, _BIG))
+    d_max = torch.max(torch.where(sample_ok, d12, -_BIG))
+    span = torch.clamp(d_max - d_min, min=1e-12)
+    bins = torch.clamp(
+        ((d12 - d_min) / span * _HIST_BINS).to(torch.int32), 0, _HIST_BINS - 1
+    )
+    # index_add_ rather than bincount: no host sync on CUDA (counts are
+    # small integers, exact in f32 in any order)
+    hist = torch.zeros(_HIST_BINS + 1, device=d12.device).index_add_(
+        0, torch.where(sample_ok, bins, _HIST_BINS).long(),
+        torch.ones_like(d12),
+    )[:_HIST_BINS]
+    cdf = torch.cumsum(hist, dim=0) / torch.clamp(torch.sum(hist), min=1.0)
+    # reference: confidenceIntervalsFromHistogram(..., 1-CI) — the upper
+    # limit is the (1+CI)/2 quantile of the binned samples
+    q = (1.0 + confidence_interval) * 0.5
+    bin_idx = torch.argmax((cdf >= q).to(torch.int32))
+    ci_high = d_min + (bin_idx + 1).to(torch.float32) / _HIST_BINS * span
+    return torch.clamp(ci_high, min=minimum_corr_dist**2)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatcherAdaptive(Matcher):
+    """Params (reference: Matcher_Adaptive.h)."""
+
+    confidence_interval: float = 0.80
+    first_to_second_distance_max: float = 1.2
+    absolute_max_search_distance: float = 5.0
+    minimum_corr_dist: float = 0.1
+    enable_detect_planes: bool = False
+    plane_search_points: int = 8
+    plane_minimum_found_points: int = 4
+    plane_minimum_distance: float = 0.10
+    plane_eigen_threshold: float = 0.01
+    max_pt2pt_correspondences: int = 1
+    allow_match_already_matched_points: bool = False
+    allow_match_already_matched_global_points: bool = False
+    layer_matches: Tuple[LayerMatch, ...] = (LayerMatch(),)
+
+    def __post_init__(self):
+        if self.enable_detect_planes:
+            raise NotImplementedError(
+                "MatcherAdaptive(enable_detect_planes=True) needs ops/eigen.py, "
+                "not ported yet (ROADMAP item A.6)"
+            )
+
+    def out_blocks(self, local_map):
+        layers = point_layers(local_map)
+        caps = [layers[lm.local_layer].capacity for lm in self.layer_matches]
+        return {
+            "pt2pt": sum(caps) * self.max_pt2pt_correspondences,
+            "pt2pl": sum(caps),
+        }
+
+    def match(self, global_map, local_map, pose, state: MatchState, ctx: MatchContext):
+        gate = self.gate(ctx.icp_iteration)
+        conf_int = static_value(self.confidence_interval, "confidence_interval")
+        amsd = static_value(
+            self.absolute_max_search_distance, "absolute_max_search_distance"
+        )
+        kk = self.max_pt2pt_correspondences  # == the kNN k with planes off
+        l_layers, g_layers = point_layers(local_map), point_layers(global_map)
+        new_local = dict(state.local_paired) if state is not None else None
+        new_global = dict(state.global_paired) if state is not None else None
+        pt_blocks, pl_blocks = [], []
+        potential = 0
+        for lm in self.layer_matches:
+            local = l_layers[lm.local_layer]
+            glayer = g_layers[lm.global_layer]
+            pts, valid = transformed_local(local, pose)
+            potential = potential + local.count * int(gate)
+            if state is not None and not self.allow_match_already_matched_points:
+                valid = valid & ~state.local_paired[lm.local_layer]
+
+            res = knn_bruteforce(
+                pts, valid, glayer.xyz, glayer.valid_mask(), k=kk,
+                max_radius_sq=amsd**2,
+            )
+
+            # --- stage 1: adaptive threshold from the 1st/2nd NN histogram
+            max_corr_dist_sq = adaptive_threshold_sq(
+                res, conf_int, self.minimum_corr_dist
+            )
+
+            # --- stage 2a: plane detection is off; the pt2pl block is empty
+            C = local.capacity
+            pl_blocks.append(
+                PairsPt2Pl(
+                    local=local.xyz,
+                    plane_centroid=torch.zeros_like(local.xyz),
+                    plane_normal=torch.zeros_like(local.xyz),
+                    weight=torch.zeros(C, device=pts.device),
+                    local_idx=torch.full(
+                        (C,), -1, dtype=torch.int32, device=pts.device
+                    ),
+                )
+            )
+
+            # --- stage 2b: pt2pt pairs, stopping at the first ratio violation
+            dk = res.dist_sq[:, :kk]
+            first = dk[:, :1]
+            ratio_ok = dk <= first * (self.first_to_second_distance_max**2)
+            ratio_ok[:, 0] = True
+            ratio_ok = torch.cumprod(ratio_ok.to(torch.int32), dim=1).bool()
+            keep = res.valid[:, :kk] & ratio_ok & (dk < max_corr_dist_sq)
+            keep = keep & valid[:, None]
+            gidx = res.idx[:, :kk]
+            g_cap = glayer.capacity
+            safe_gk = torch.clamp(gidx, 0, g_cap - 1).long()
+            if state is not None and not self.allow_match_already_matched_global_points:
+                # skip globals an earlier matcher already paired
+                # (Matcher_Adaptive.cpp:278-281)
+                keep = keep & ~state.global_paired[lm.global_layer][safe_gk]
+            w = torch.where(keep, lm.weight * gate, 0.0)
+            wf = w.reshape(-1)
+            gflat = gidx.reshape(-1)
+            local_idx = torch.arange(C, dtype=torch.int32, device=wf.device)
+            pt_blocks.append(
+                PairsPt2Pt(
+                    local=torch.repeat_interleave(local.xyz, kk, dim=0),
+                    globl=glayer.xyz[safe_gk].reshape(-1, 3),
+                    weight=wf,
+                    local_idx=torch.where(
+                        wf > 0, torch.repeat_interleave(local_idx, kk), -1
+                    ),
+                    global_idx=torch.where(wf > 0, gflat, -1),
+                )
+            )
+            if state is not None:
+                new_local[lm.local_layer] = (
+                    state.local_paired[lm.local_layer] | torch.any(w > 0, dim=-1)
+                )
+                if not self.allow_match_already_matched_global_points:
+                    # claim this matcher's pt2pt globals (the reference marks
+                    # globals only on the pt2pt path, Matcher_Adaptive.cpp:293-299)
+                    new_global[lm.global_layer] = claim(
+                        new_global[lm.global_layer], gflat, wf > 0
+                    )
+
+        out = {
+            "pt2pt": concat_blocks(pt_blocks, PairsPt2Pt),
+            "pt2pl": concat_blocks(pl_blocks, PairsPt2Pl),
+        }
+        new_state = (
+            MatchState(local_paired=new_local, global_paired=new_global)
+            if state is not None else None
+        )
+        return out, new_state, potential

@@ -1,0 +1,134 @@
+"""Matcher base machinery.
+
+Port of ``mp2p_icp_tpu/matchers/base.py``. A matcher is a frozen config
+object whose ``match()`` maps (global layers, local layers, pose, state,
+context) to fixed-capacity pairing blocks. The ICP loop runs on the host,
+so ``gate`` is a plain 0/1 float and the loop simply skips a matcher whose
+window does not cover the iteration.
+
+Not ported: ``GridCache`` / ``HashGrid`` (every production call of the JAX
+package passes an empty grid cache) and ``MetricMap`` inputs — layers come
+as a plain ``{name: PointCloud}`` dict.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from mp2p_icp_tpu_torch.core import se3
+from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
+from mp2p_icp_tpu_torch.core.se3 import Pose
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerMatch:
+    """One entry of the ``pointLayerMatches`` weight table."""
+
+    global_layer: str = "raw"
+    local_layer: str = "raw"
+    weight: float = 1.0
+
+
+def point_layers(m) -> Dict[str, PointCloud]:
+    """The point layers of a map given as a ``{name: PointCloud}`` dict."""
+    if not isinstance(m, dict):
+        raise NotImplementedError(
+            f"maps are passed as a dict of PointCloud layers; {type(m).__name__} "
+            "input (MetricMap) is not ported yet"
+        )
+    return {k: v for k, v in m.items() if isinstance(v, PointCloud)}
+
+
+def static_value(value, name: str) -> float:
+    """A module parameter as a float. The JAX package also accepts
+    ICP_ITERATION expressions (core/params.py), which are not ported yet."""
+    if isinstance(value, (int, float)) and not isinstance(value, bool):
+        return float(value)
+    raise NotImplementedError(
+        f"{name}={value!r}: only numeric values are supported; ICP_ITERATION "
+        "expressions (core/params.py) are not ported yet"
+    )
+
+
+class MatchState(NamedTuple):
+    """Per-layer boolean "already paired" masks (the reference's paired
+    bitfields)."""
+
+    local_paired: Dict[str, torch.Tensor]
+    global_paired: Dict[str, torch.Tensor]
+
+    @staticmethod
+    def create(local_map, global_map) -> "MatchState":
+        return MatchState(
+            local_paired={
+                name: torch.zeros(layer.capacity, dtype=torch.bool,
+                                  device=layer.device)
+                for name, layer in point_layers(local_map).items()
+            },
+            global_paired={
+                name: torch.zeros(layer.capacity, dtype=torch.bool,
+                                  device=layer.device)
+                for name, layer in point_layers(global_map).items()
+            },
+        )
+
+
+class MatchContext(NamedTuple):
+    """The reference's MatchContext{icpIteration}; a host int here."""
+
+    icp_iteration: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Matcher:
+    """Common gating params (reference: Matcher.h:90-112)."""
+
+    enabled: bool = True
+    run_from_iteration: int = 0
+    run_up_to_iteration: int = 0  # 0 = no upper bound
+
+    def gate(self, iteration: int) -> float:
+        """1.0 when this matcher runs at ``iteration``, else 0.0."""
+        on = self.enabled and iteration >= self.run_from_iteration
+        if self.run_up_to_iteration > 0:
+            on = on and iteration <= self.run_up_to_iteration
+        return 1.0 if on else 0.0
+
+    # subclasses implement:
+    # def match(self, global_map, local_map, pose, state, ctx)
+    #     -> (pairing blocks, new MatchState, potential_pairings)
+    # def out_blocks(self, local_map) -> {block name: capacity}
+
+
+def subsample_mask(
+    valid: torch.Tensor, count: torch.Tensor, max_points: int
+) -> torch.Tensor:
+    """Deterministic even-stride subsampling of valid points down to
+    ``max_points`` (0 = keep all)."""
+    if max_points <= 0:
+        return valid
+    C = valid.shape[0]
+    idx = torch.arange(C, dtype=torch.float32, device=valid.device)
+    stride = torch.clamp(count.to(torch.float32) / float(max_points), min=1.0)
+    keep = torch.floor(idx / stride) != torch.floor((idx - 1) / stride)
+    keep[0] = True
+    return valid & keep
+
+
+def transformed_local(local: PointCloud, pose: Pose) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Local points mapped into the global frame + validity. Padding rows
+    transform to huge coordinates and are masked by ``valid`` downstream."""
+    return se3.apply(pose, local.xyz), local.valid_mask()
+
+
+def claim(mask: torch.Tensor, gidx: torch.Tensor, won: torch.Tensor) -> torch.Tensor:
+    """``mask`` with the global ids of the rows in ``won`` set. Losing rows
+    write to a dump slot past the end, which is cut off."""
+    g_cap = mask.shape[0]
+    slots = torch.where(won, torch.clamp(gidx, 0, g_cap - 1), g_cap).long()
+    claimed = torch.zeros(g_cap + 1, dtype=torch.bool, device=mask.device)
+    claimed[slots] = True
+    return mask | claimed[:g_cap]

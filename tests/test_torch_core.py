@@ -1,0 +1,162 @@
+"""Parity of the port's core types with the JAX package, on the CPU:
+SE(3) math (including angles near 0 and near π), the padded PointCloud,
+pairings, and the package's promise never to import jax.
+
+SE(3) tolerance: atol 1e-5 — both sides are f32 with the same formulas;
+the libraries' sin/cos/arccos differ in the last ulp, which the near-π
+branch amplifies to a few 1e-7.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mp2p_icp_tpu.core import se3 as jse3
+from mp2p_icp_tpu.core.pointcloud import PointCloud as JPointCloud
+from mp2p_icp_tpu_torch.core import pairings as tpairings
+from mp2p_icp_tpu_torch.core import se3
+from mp2p_icp_tpu_torch.core.pointcloud import PointCloud, round_capacity
+
+ATOL = 1e-5
+
+
+def _tangents(angle, n=16, seed=0):
+    """[n, 6] tangents whose rotation angle is ``angle`` (random axes and
+    translations)."""
+    rng = np.random.RandomState(seed)
+    axis = rng.randn(n, 3)
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    rho = rng.uniform(-3, 3, (n, 3))
+    return np.concatenate([rho, axis * angle], axis=1).astype(np.float32)
+
+
+def _close(a, b, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=atol, rtol=0)
+
+
+ANGLES = [0.0, 1e-6, 1e-3, 0.5, 2.0, np.pi - 1e-3, np.pi - 1e-5]
+
+
+@pytest.mark.parametrize("angle", ANGLES)
+def test_exp_log_match_jax(angle):
+    xi = _tangents(angle)
+    pj = jse3.exp(jnp.asarray(xi))
+    pt = se3.exp(torch.from_numpy(xi))
+    _close(pt.R, pj.R)
+    _close(pt.t, pj.t)
+    # log of the SAME rotation on both sides (near π the axis sign is a
+    # branch choice that must follow the reference's)
+    R = np.array(pj.R)
+    t = np.array(pj.t)
+    lj = jse3.log(jse3.Pose(jnp.asarray(R), jnp.asarray(t)))
+    lt = se3.log(se3.Pose(torch.from_numpy(R), torch.from_numpy(t)))
+    _close(lt, lj)
+
+
+@pytest.mark.parametrize("angle", [0.0, 0.3, np.pi - 1e-4])
+def test_quaternions_match_jax(angle):
+    R = np.array(jse3.exp(jnp.asarray(_tangents(angle, seed=1))).R)
+    qj = jse3.rot_to_quat(jnp.asarray(R))
+    qt = se3.rot_to_quat(torch.from_numpy(R))
+    _close(qt, qj)
+    _close(se3.quat_to_rot(qt), jse3.quat_to_rot(qj))
+
+
+def test_compose_inverse_apply_rotate_match_jax():
+    a = _tangents(0.7, n=4, seed=2)
+    b = _tangents(2.5, n=4, seed=3)
+    pa, pb = jse3.exp(jnp.asarray(a)), jse3.exp(jnp.asarray(b))
+    ta, tb = se3.exp(torch.from_numpy(a)), se3.exp(torch.from_numpy(b))
+    _close(se3.compose(ta, tb).R, jse3.compose(pa, pb).R)
+    _close(se3.compose(ta, tb).t, jse3.compose(pa, pb).t, atol=3e-5)
+    _close(se3.inverse(ta).t, jse3.inverse(pa).t)
+    pts = np.random.RandomState(4).uniform(-60, 60, (4, 50, 3)).astype(np.float32)
+    # |x| ~ 100 m: f32 rounding of R x + t is ~1e-5 relative -> 5e-5 m
+    _close(se3.apply(ta, torch.from_numpy(pts)), jse3.apply(pa, jnp.asarray(pts)), atol=5e-5)
+    _close(se3.rotate(ta, torch.from_numpy(pts)), jse3.rotate(pa, jnp.asarray(pts)), atol=5e-5)
+    # a single point [3] against a single pose
+    p1 = se3.Pose(ta.R[0], ta.t[0])
+    j1 = jse3.Pose(pa.R[0], pa.t[0])
+    _close(se3.apply(p1, torch.from_numpy(pts[0, 0])), jse3.apply(j1, jnp.asarray(pts[0, 0])), atol=5e-5)
+
+
+def test_ypr_delta_norms_error_log_norm_match_jax():
+    args = (1.1, 0.05, 0.01, 0.01, 0.002, 0.001)
+    gj, gt = jse3.from_xyz_ypr(*args), se3.from_xyz_ypr(*args)
+    _close(gt.R, gj.R)
+    _close(gt.t, gj.t)
+    est = _tangents(0.01, n=1, seed=5)[0] * 0.1
+    ej, et = jse3.exp(jnp.asarray(est)), se3.exp(torch.from_numpy(est))
+    for a, b in zip(se3.delta_norms(gt, et), jse3.delta_norms(gj, ej)):
+        _close(a, b)
+    _close(se3.error_log_norm(gt, et), jse3.error_log_norm(gj, ej))
+    _close(se3.hat(torch.from_numpy(est[:3])), jse3.hat(jnp.asarray(est[:3])))
+    _close(se3.vee(se3.hat(torch.from_numpy(est[:3]))), est[:3])
+
+
+def test_se3_right_jacobian_inv_matches_jax():
+    xi = _tangents(0.4, n=3, seed=6)
+    _close(se3.se3_right_jacobian_inv(torch.from_numpy(xi)),
+           jse3.se3_right_jacobian_inv(jnp.asarray(xi)))
+
+
+@pytest.mark.parametrize("n,capacity", [(300, None), (1000, 4096), (256, None)])
+def test_pointcloud_padding_matches_jax(n, capacity):
+    xyz = np.random.RandomState(n).uniform(-10, 10, (n, 3)).astype(np.float32)
+    pj = JPointCloud.from_numpy(xyz, capacity=capacity)
+    pt = PointCloud.from_numpy(xyz, capacity=capacity)
+    assert pt.capacity == pj.capacity == (capacity or round_capacity(n))
+    np.testing.assert_array_equal(pt.xyz.numpy(), np.asarray(pj.xyz))
+    assert int(pt.count) == int(pj.count) == n
+    assert pt.count.dtype == torch.int32
+    np.testing.assert_array_equal(pt.valid_mask().numpy(), np.asarray(pj.valid_mask()))
+    np.testing.assert_array_equal(pt.to_numpy(), xyz)
+
+
+def test_pointcloud_transformed_keeps_padding_at_sentinel():
+    xyz = np.random.RandomState(0).uniform(-10, 10, (100, 3)).astype(np.float32)
+    pose = se3.exp(torch.from_numpy(_tangents(1.0, n=1)[0]))
+    pt = PointCloud.from_numpy(xyz).transformed(pose)
+    assert (pt.xyz[100:] == PointCloud.PAD_VALUE).all()
+    pj = JPointCloud.from_numpy(xyz).transformed(
+        jse3.Pose(jnp.asarray(pose.R.numpy()), jnp.asarray(pose.t.numpy()))
+    )
+    _close(pt.xyz[:100], np.asarray(pj.xyz)[:100], atol=5e-5)
+
+
+def test_pointcloud_rejects_small_capacity_and_bad_channels():
+    with pytest.raises(ValueError):
+        PointCloud.from_numpy(np.zeros((10, 3)), capacity=4)
+    with pytest.raises(ValueError):
+        PointCloud.from_numpy(np.zeros((10, 3)), intensity=np.zeros(3))
+
+
+def test_pairings_empty_and_size():
+    p = tpairings.Pairings.empty(pt2pt_cap=5, pt2pl_cap=3)
+    assert p.pt2pt.capacity == 5 and p.pt2pl.capacity == 3 and p.pt2ln.capacity == 1
+    assert (p.pt2pt.local_idx == -1).all() and p.pt2pt.local_idx.dtype == torch.int32
+    assert int(p.size()) == 0
+    w = torch.tensor([1.0, 0.0, 2.0, 0.0, 1.0])
+    p2 = tpairings.Pairings(
+        pt2pt=tpairings.PairsPt2Pt(p.pt2pt.local, p.pt2pt.globl, w,
+                                   p.pt2pt.local_idx, p.pt2pt.global_idx),
+        pt2ln=p.pt2ln, pt2pl=p.pt2pl, ln2ln=p.ln2ln, pl2pl=p.pl2pl,
+        potential_pairings=p.potential_pairings,
+    )
+    assert int(p2.size()) == 3
+
+
+def test_package_does_not_import_jax():
+    code = (
+        "import sys, mp2p_icp_tpu_torch, mp2p_icp_tpu_torch.icp, "
+        "mp2p_icp_tpu_torch.convert, mp2p_icp_tpu_torch.parity; "
+        "assert 'jax' not in sys.modules, 'jax was imported'"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr

@@ -1,0 +1,228 @@
+"""Parity of the port's DistanceThreshold and Adaptive matchers with the
+JAX package on the CPU: the same street-scene layers (bench.make_scene /
+sample_scan, 2048 points) and the same pose go through both.
+
+Pair weights, local indices, global indices and global points must be
+equal row for row, except on tie rows: rows whose neighbours' true d²
+differ by less than 2e-3 m², or sit within 2e-3 m² of the threshold — the
+band of the JAX package's own kNN rounding at street scale. At most 1% of
+the rows may be such ties. The adaptive threshold must match the
+reference's histogram formula to 1e-4 m² on the same kNN result; end to
+end, the port's exact distances may move it within the 2e-3 m² band.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bench
+from mp2p_icp_tpu.core import se3 as jse3
+from mp2p_icp_tpu.core.pairings import Pairings as JPairings
+from mp2p_icp_tpu.core.pointcloud import PointCloud as JPointCloud
+from mp2p_icp_tpu.matchers import MatchContext as JMatchContext
+from mp2p_icp_tpu.matchers import MatcherAdaptive as JAdaptive
+from mp2p_icp_tpu.matchers import MatcherPointsDistanceThreshold as JDistance
+from mp2p_icp_tpu.matchers import MatchState as JMatchState
+from mp2p_icp_tpu.ops.nn_bruteforce import knn_bruteforce as jknn
+from mp2p_icp_tpu.quality.paired_ratio import QualityPairedRatio as JQuality
+from mp2p_icp_tpu_torch import convert
+from mp2p_icp_tpu_torch.core import se3
+from mp2p_icp_tpu_torch.core.pairings import Pairings
+from mp2p_icp_tpu_torch.matchers import (
+    MatchContext,
+    MatcherAdaptive,
+    MatcherPointsDistanceThreshold,
+    MatchState,
+)
+from mp2p_icp_tpu_torch.matchers.adaptive import adaptive_threshold_sq
+from mp2p_icp_tpu_torch.ops.nn_bruteforce import NNResult, knn_bruteforce
+from mp2p_icp_tpu_torch.parity import TIE_TOL, true_dist_sq
+
+N = 2048
+
+
+@pytest.fixture(scope="module")
+def layers():
+    scene = bench.make_scene(np.random.RandomState(0))
+    g = bench.sample_scan(scene, np.random.RandomState(1), n=N)
+    loc = bench.sample_scan(scene, np.random.RandomState(2), n=N)
+    gj, lj = {"raw": JPointCloud.from_numpy(g)}, {"raw": JPointCloud.from_numpy(loc)}
+    gt = {"raw": convert.pointcloud_from_numpy(np.asarray(gj["raw"].xyz), N)}
+    lt = {"raw": convert.pointcloud_from_numpy(np.asarray(lj["raw"].xyz), N)}
+    return gj, lj, gt, lt
+
+
+def _poses(xyz_ypr):
+    pj = jse3.from_xyz_ypr(*xyz_ypr)
+    return pj, convert.pose_from_numpy(np.asarray(pj.R), np.asarray(pj.t))
+
+
+def _to_port(jm):
+    name, cfg = convert.config_of(jm)
+    return convert.matcher_from_config(name, cfg)
+
+
+def assert_blocks_match(bj, bt, local_pts, global_pts, thr_sq):
+    """Row-for-row equality of two pt2pt blocks except explained tie rows."""
+    wj, wt = np.asarray(bj.weight), bt.weight.numpy()
+    gj, gt = np.asarray(bj.global_idx), bt.global_idx.numpy()
+    np.testing.assert_array_equal(np.asarray(bj.local), bt.local.numpy())
+    same = (wj == wt) & (gj == gt) & (np.asarray(bj.local_idx) == bt.local_idx.numpy())
+    rows = np.nonzero(~same)[0]
+    q = local_pts[rows // (len(wj) // len(local_pts))]
+    dj = true_dist_sq(q, global_pts, gj[rows, None])[:, 0]
+    dt = true_dist_sq(q, global_pts, gt[rows, None])[:, 0]
+    tie = np.abs(np.nan_to_num(dj, nan=np.inf) - np.nan_to_num(dt, nan=np.inf)) <= TIE_TOL
+    at_thr = (np.abs(np.nan_to_num(dj, nan=np.inf) - thr_sq) <= TIE_TOL) | (
+        np.abs(np.nan_to_num(dt, nan=np.inf) - thr_sq) <= TIE_TOL)
+    assert (tie | at_thr).all(), f"unexplained rows {rows[~(tie | at_thr)]}"
+    assert len(rows) <= 0.01 * max((wj > 0).sum(), 1)
+    ok = same & (wj > 0)
+    np.testing.assert_array_equal(np.asarray(bj.globl)[ok], bt.globl.numpy()[ok])
+
+
+def _run(jm, tm, layers, xyz_ypr, iteration):
+    gj, lj, gt, lt = layers
+    pj, pt = _poses(xyz_ypr)
+    outj = jm.match({}, gj, lj, pj, None, JMatchContext(icp_iteration=jnp.asarray(iteration)))
+    outt = tm.match(gt, lt, pt, None, MatchContext(icp_iteration=iteration))
+    assert int(outj[2]) == int(outt[2])  # potential pairings
+    return outj, outt, pt
+
+
+@pytest.mark.parametrize("xyz_ypr", [(0.0,) * 6, (0.3, 0.1, 0.0, 0.01, 0.0, 0.0)])
+@pytest.mark.parametrize("angular_deg,max_local", [(0.0, 0), (0.5, 700)])
+def test_distance_threshold_matches_jax(layers, xyz_ypr, angular_deg, max_local):
+    jm = JDistance(threshold=2.0, threshold_angular_deg=angular_deg,
+                   max_local_points_per_layer=max_local, run_up_to_iteration=5)
+    tm = _to_port(jm)
+    assert tm == MatcherPointsDistanceThreshold(
+        threshold=2.0, threshold_angular_deg=angular_deg,
+        max_local_points_per_layer=max_local, run_up_to_iteration=5)
+    (bj, _, _), (bt, _, _), pt = _run(jm, tm, layers, xyz_ypr, 0)
+    local = se3.apply(pt, layers[3]["raw"].xyz).numpy()[:N]
+    # the threshold band only matters without the angular term (per-point
+    # thresholds then differ by row; their ties show as d² ties too)
+    assert_blocks_match(bj["pt2pt"], bt["pt2pt"], local,
+                        layers[2]["raw"].xyz.numpy(), 4.0)
+    assert int(bt["pt2pt"].count()) > 100
+
+
+@pytest.mark.parametrize("xyz_ypr", [(1.1, 0.05, 0.01, 0.01, 0.002, 0.001),
+                                     (0.05, 0.01, 0.0, 0.001, 0.0, 0.0)])
+def test_adaptive_matches_jax(layers, xyz_ypr):
+    jm = JAdaptive(confidence_interval=0.75, first_to_second_distance_max=1.2,
+                   absolute_max_search_distance=2.0, run_from_iteration=6)
+    tm = _to_port(jm)
+    (bj, _, _), (bt, _, _), pt = _run(jm, tm, layers, xyz_ypr, 6)
+    gj, lj, gt, lt = layers
+    pts = se3.apply(pt, lt["raw"].xyz)
+    res = knn_bruteforce(pts, lt["raw"].valid_mask(), gt["raw"].xyz,
+                         gt["raw"].valid_mask(), k=1, max_radius_sq=4.0)
+    thr = float(adaptive_threshold_sq(res, 0.75, 0.1))
+    assert_blocks_match(bj["pt2pt"], bt["pt2pt"], pts.numpy()[:N],
+                        gt["raw"].xyz.numpy(), thr)
+    # pt2pl stays empty with plane detection off
+    assert (bt["pt2pl"].weight == 0).all() and (np.asarray(bj["pt2pl"].weight) == 0).all()
+
+    # the threshold: on the JAX kNN result itself, the port's function
+    # gives the reference formula's value (matchers/adaptive.py:160-182)
+    rj = jknn(jse3.apply(jse3.Pose(jnp.asarray(pt.R.numpy()), jnp.asarray(pt.t.numpy())),
+                         lj["raw"].xyz),
+              lj["raw"].valid_mask(), gj["raw"].xyz, gj["raw"].valid_mask(), k=1,
+              max_radius_sq=4.0)
+    ref = _reference_threshold(np.asarray(rj.dist_sq)[:, 0], np.asarray(rj.valid)[:, 0])
+    on_jax = NNResult(*(torch.from_numpy(np.array(x)) for x in (rj.idx, rj.dist_sq, rj.valid)))
+    assert abs(float(adaptive_threshold_sq(on_jax, 0.75, 0.1)) - ref) < 1e-4
+    # end to end the port's exact distances move it by at most the JAX
+    # kNN's rounding band (measured 2e-4 m² here)
+    assert abs(thr - ref) < TIE_TOL
+    # and the JAX matcher's kept / rejected pairs bracket it
+    dj = np.asarray(rj.dist_sq)[:, 0]
+    kept = np.asarray(bj["pt2pt"].weight) > 0
+    assert dj[kept].max() < thr + TIE_TOL
+    rejected = np.asarray(rj.valid)[:, 0] & ~kept
+    assert not rejected.any() or dj[rejected].min() > thr - TIE_TOL
+
+
+def _reference_threshold(d, ok, ci=0.75, min_corr=0.1, bins=50):
+    """matchers/adaptive.py:160-182 in numpy (f32, as the JAX code runs)."""
+    d = np.where(ok, d, 0.0).astype(np.float32)  # invalid rows are not binned
+    d_min, d_max = d[ok].min(), d[ok].max()
+    span = np.float32(max(d_max - d_min, 1e-12))
+    b = np.clip(((d - d_min) / span * np.float32(bins)).astype(np.int64), 0, bins - 1)
+    hist = np.bincount(b[ok], minlength=bins)[:bins].astype(np.float32)
+    cdf = np.cumsum(hist) / max(hist.sum(), 1.0)
+    idx = int(np.argmax(cdf >= (1.0 + ci) * 0.5))
+    return max(np.float32(min_corr) ** 2, d_min + np.float32(idx + 1) / bins * span)
+
+
+def test_adaptive_threshold_matches_reference_formula(layers):
+    _, _, gt, lt = layers
+    pt = _poses((0.2, 0.0, 0.0, 0.0, 0.0, 0.0))[1]
+    res = knn_bruteforce(se3.apply(pt, lt["raw"].xyz), lt["raw"].valid_mask(),
+                         gt["raw"].xyz, gt["raw"].valid_mask(), k=1, max_radius_sq=4.0)
+    thr = float(adaptive_threshold_sq(res, 0.75, 0.1))
+    ref = _reference_threshold(res.dist_sq.numpy()[:, 0], res.valid.numpy()[:, 0])
+    assert abs(thr - ref) < 1e-6
+
+
+def test_two_matchers_share_paired_masks(layers):
+    """DistanceThreshold then Adaptive in one iteration: the paired masks
+    and the second matcher's output match the JAX package."""
+    jd = JDistance(threshold=0.3)
+    ja = JAdaptive(confidence_interval=0.75, absolute_max_search_distance=2.0)
+    td, ta = _to_port(jd), _to_port(ja)
+    gj, lj, gt, lt = layers
+    pj, pt = _poses((0.05, 0.01, 0.0, 0.001, 0.0, 0.0))
+    ctx_j, ctx_t = JMatchContext(icp_iteration=jnp.asarray(3)), MatchContext(icp_iteration=3)
+    sj, st = JMatchState.create(lj, gj), MatchState.create(lt, gt)
+    bdj, sj, _ = jd.match({}, gj, lj, pj, sj, ctx_j)
+    bdt, st, _ = td.match(gt, lt, pt, st, ctx_t)
+    baj, sj, _ = ja.match({}, gj, lj, pj, sj, ctx_j)
+    bat, st, _ = ta.match(gt, lt, pt, st, ctx_t)
+    local = se3.apply(pt, lt["raw"].xyz).numpy()[:N]
+    glob = gt["raw"].xyz.numpy()
+    assert_blocks_match(bdj["pt2pt"], bdt["pt2pt"], local, glob, 0.09)
+    for name in ("local_paired", "global_paired"):
+        a, b = np.asarray(getattr(sj, name)["raw"]), getattr(st, name)["raw"].numpy()
+        assert (a != b).sum() <= 0.01 * a.sum()
+    # the adaptive threshold is not returned: rows may only differ as ties
+    wj, wt = np.asarray(baj["pt2pt"].weight), bat["pt2pt"].weight.numpy()
+    assert (wj != wt).sum() <= 0.01 * max((wj > 0).sum(), 1)
+    assert (wt > 0).sum() > 0
+
+
+def test_adaptive_plane_detection_raises():
+    with pytest.raises(NotImplementedError, match="A.6"):
+        MatcherAdaptive(enable_detect_planes=True)
+    with pytest.raises(NotImplementedError):
+        _to_port(dataclasses.replace(JDistance(), spatial_axis="space"))
+
+
+@pytest.mark.parametrize("reuse", [True, False])
+def test_paired_ratio_quality_matches_jax(layers, reuse):
+    """The quality evaluator, on given pairings or with its own
+    distance-threshold matcher (allow_match_already_matched_global_points,
+    as the reference configures it); quality to 0.01 (tie rows)."""
+    gj, lj, gt, lt = layers
+    xyz_ypr = (0.05, 0.01, 0.0, 0.001, 0.0, 0.0)
+    jd = JDistance(threshold=1.0)
+    (bj, _, potj), (bt, _, pott), pt = _run(jd, _to_port(jd), layers, xyz_ypr, 0)
+    pairs_j = dataclasses.replace(JPairings.empty(1), pt2pt=bj["pt2pt"],
+                                  potential_pairings=potj)
+    pairs_t = dataclasses.replace(Pairings.empty(1), pt2pt=bt["pt2pt"],
+                                  potential_pairings=pott)
+    jq = JQuality(reuse_icp_pairings=reuse, absolute_minimum_pairing_ratio=0.5,
+                  matcher=JDistance(threshold=0.3,
+                                    allow_match_already_matched_global_points=True))
+    tq = convert.quality_from_config(*convert.config_of(jq))
+    rj = jq.evaluate(pairs_j, grids={}, global_map=gj, local_map=lj, pose=_poses(xyz_ypr)[0],
+                     ctx=JMatchContext(icp_iteration=jnp.asarray(0)))
+    rt = tq.evaluate(pairs_t, global_map=gt, local_map=lt, pose=pt,
+                     ctx=MatchContext(icp_iteration=0))
+    assert abs(float(rt.quality) - float(rj.quality)) <= 0.01
+    assert bool(rt.hard_discard) == bool(rj.hard_discard)
