@@ -6,29 +6,48 @@
 Phases (each prints its lines; any failure raises and exits non-zero):
 
 1. name the card (nvidia-smi name and power limit); no CUDA -> fail;
-2. build the CUDA kernels from mp2p_icp_tpu_torch/csrc with nvcc;
-3. hold the kNN kernel against its plain PyTorch version on the card:
-   two 8192-point street scans for k=1 and k=8, and a ragged 777x3001 case
-   with invalid rows and a per-query radius, compared tie-tolerantly;
-   median times of kernel and plain version by CUDA events;
-4. the main path: ICP.align with the KITTI scan-to-scan configuration on
-   the bench street pair at 8192 points, then 8 further pairs served one
-   after another; each SE(3) error must be < 0.1 and the kernel's launch
-   count must equal the number of matcher calls; one pair is also aligned
-   on the CPU (plain path) and its pose compared with the GPU's;
-5. with --profile only: where a warm align's time goes (torch.profiler
-   over 2 aligns, then per-section host times with a sync around each
-   section); the profiler's table goes to chiprun_out/profile_tables.txt;
-6. one JSON line with the kernels' numbers, then the last line
+2. build the three CUDA kernels from mp2p_icp_tpu_torch/csrc, one nvcc
+   each, all at once; print each kernel's registers, spills and shared
+   memory;
+3. hold each kNN kernel against its plain PyTorch version on the card, bit
+   for bit (max |d2 - d2_plain| must be 0): K1 on two 8192-point street
+   scans for k=1 and k=8 and a ragged 777x3001 case with invalid rows and a
+   per-query radius; K3 (the streamed sweep) on 8192 scan points against a
+   262144-point corridor map for k=1 and k=8 and a ragged case; K2 (the
+   batched sweep) on 8 scans of 8192 points against 8 maps of 65536 points
+   and against one shared map, plus a ragged case; median times of kernels
+   and plain versions by CUDA events;
+4. the scan-to-scan path: ICP.align with the KITTI configuration on the
+   bench street pair at 8192 points, then 8 further pairs served one after
+   another; each SE(3) error must be < 0.1 and K1's launch count must equal
+   the number of matcher calls; one pair is also aligned on the CPU (plain
+   path) and its pose compared with the GPU's;
+5. the scan-to-large-map path (bench.py:367-522): an 8192-point scan
+   against 1M, 2M and 16M-point corridor maps, cropped at the guess to
+   2^16 (K1), 2^18 (K3) and 2^18 (K3) points; SE(3) error < 0.1, launches
+   of the path's kernel == matcher calls, iterations and termination
+   printed beside the JAX CPU reference;
+6. the batched path (bench.py:419-482): 8 scans against the shared 1M map
+   in one make_batched_align call; each SE(3) error < 0.1, each pose
+   within 1e-5 of the port's sequential align on the card with the same
+   iterations and termination, K2 launches == matcher calls, no K1 launch;
+7. with --profile only: where the time goes, by torch.profiler over 2
+   warm calls (device busy share, launches, the kNN kernels' time) of a
+   scan-to-scan align, a scan to the 2M map and the batched call, then
+   per-section host times of a scan-to-scan align with a sync around each
+   section; the profiler's tables go to chiprun_out/profile_tables.txt;
+8. one JSON line with the kernels' numbers, then the last line
    {"ok": true, "device": {...}}.
 
-Imports torch, numpy, the port and bench.py's scene generator (numpy
-only); never jax.
+Every kernel's launch count is set to 0 just before each path and read
+just after it. Imports torch, numpy, the port and bench.py's scene
+generator (numpy only); never jax.
 """
 
 import argparse
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -40,10 +59,15 @@ import torch
 import bench
 from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
-from mp2p_icp_tpu_torch.icp import ICP, ICPParameters
-from mp2p_icp_tpu_torch.matchers import MatcherAdaptive, MatcherPointsDistanceThreshold
+from mp2p_icp_tpu_torch.icp import ICP, ICPParameters, IterTermReason
+from mp2p_icp_tpu_torch.matchers import (
+    LayerMatch,
+    MatcherAdaptive,
+    MatcherPointsDistanceThreshold,
+)
 from mp2p_icp_tpu_torch.ops import cuda_build
 from mp2p_icp_tpu_torch.ops import nn_bruteforce as nnb
+from mp2p_icp_tpu_torch.parallel import make_batched_align, stack_pytrees
 from mp2p_icp_tpu_torch.parity import knn_mismatch
 from mp2p_icp_tpu_torch.solvers.gauss_newton import GNParams
 from mp2p_icp_tpu_torch.solvers.robust import RobustKernel
@@ -53,8 +77,27 @@ N_POINTS = 8192  # the bench pair: a decimated KITTI scan
 N_REQUESTS = 8
 GT = (1.1, 0.05, 0.01, 0.01, 0.002, 0.001)
 ERR_LIMIT = 0.1  # the reference's end-to-end bound on ||log(gt^-1 T)||
-KERNEL_SOURCE = "mp2p_icp_tpu_torch/csrc/knn_bruteforce.cu"
-REPLACES = "mp2p_icp_tpu/ops/nn_bruteforce.py:154"  # _nnk_kernel_gridless
+# sweep -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "knn_sweep": ("mp2p_icp_tpu_torch/csrc/knn_bruteforce.cu",
+                  "mp2p_icp_tpu/ops/nn_bruteforce.py:154"),  # _nnk_kernel_gridless
+    "knn_sweep_streamed": ("mp2p_icp_tpu_torch/csrc/knn_streamed.cu",
+                           "mp2p_icp_tpu/ops/nn_bruteforce.py:509"),  # _nnk_kernel_streamed_dbuf
+    "knn_sweep_batched": ("mp2p_icp_tpu_torch/csrc/knn_batched.cu",
+                          "mp2p_icp_tpu/ops/nn_bruteforce.py:214"),  # _nnk_kernel_gridless_batched
+}
+LIBRARY = {"knn_sweep": "knn_bruteforce", "knn_sweep_streamed": "knn_streamed",
+           "knn_sweep_batched": "knn_batched"}
+# the scan-to-map problem of bench.py:367-408 and the JAX package's result
+# for it on the CPU (SE(3) error, iterations, termination)
+MAP_CASES = (("1M", 1 << 20, 1 << 16, (0.00133, 30, "STALLED")),
+             ("2M", 1 << 21, 1 << 18, (0.00087, 33, "STALLED")),
+             ("16M", 1 << 24, 1 << 18, (0.00139, 32, "STALLED")))
+MAP_TIMED = {"1M": 5, "2M": 3, "16M": 2}  # warm aligns timed per map
+BATCH = 8
+# JAX CPU reference of the batched problem (bench.py:431-463): iterations
+# per problem, all STALLED, SE(3) errors 0.0012-0.0081
+BATCH_JAX_ITERS = [17, 27, 24, 19, 25, 34, 28, 15]
 
 
 def check(ok, what):
@@ -88,6 +131,57 @@ def street_pair(scene, seed_g, seed_l, device):
             {"raw": PointCloud.from_numpy(g, device=device)})
 
 
+def corridor_scene(rng2, n, length=400.0):
+    """bench.py:349-365: a long corridor, ground + side walls + cross-walls
+    every 25 m, so every SE(3) axis is constrained locally."""
+    t = rng2.uniform(0, length, n)
+    kind = rng2.randint(0, 4, n)
+    y = np.where(kind == 0, -6.0, np.where(kind == 1, 6.0, rng2.uniform(-6, 6, n)))
+    z = np.where(kind < 2, rng2.uniform(0, 4, n),
+                 np.where(kind == 2, 0.0, rng2.uniform(0, 2.5, n)))
+    x = np.where(kind == 3, np.round(t / 25.0) * 25.0, t)
+    return np.stack([x, y, z], 1).astype(np.float32)
+
+
+def local_window(scene_pts, cx, rng3, n=8192, radius=50.0):
+    """bench.py:372-376: n noisy points of the corridor within radius of x=cx."""
+    m = np.abs(scene_pts[:, 0] - cx) < radius
+    pts = scene_pts[m]
+    idx = rng3.choice(pts.shape[0], size=n, replace=False)
+    return (pts[idx] + 0.02 * rng3.randn(n, 3)).astype(np.float32)
+
+
+def map_icp():
+    """The scan-to-map ICP of bench.py:382-398."""
+    return ICP(
+        matchers=[MatcherPointsDistanceThreshold(
+            threshold=2.0, layer_matches=(LayerMatch(global_layer="map", local_layer="raw"),))],
+        solvers=[SolverHorn(run_up_to_iteration=5),
+                 SolverGaussNewton(run_from_iteration=6, gn_params=GNParams(max_iterations=3))],
+    )
+
+
+def sensor_scan(corridor, cx, seed, err_ypr, device):
+    """(sensor-frame scan layers, guess = sensor pose, true pose) of one
+    scan of the corridor at x=cx, as bench.py:380-383 and :436-451 make it."""
+    scan = local_window(corridor, cx, np.random.RandomState(seed))
+    sensor = se3.from_xyz_ypr(cx, 0.0, 1.5, 0.0, 0.0, 0.0)
+    gt = se3.compose(sensor, se3.from_xyz_ypr(*err_ypr))
+    local = se3.apply(se3.inverse(gt), torch.from_numpy(scan)).numpy()
+    return ({"raw": PointCloud.from_numpy(local, capacity=8192, device=device)},
+            se3.Pose(sensor.R.to(device), sensor.t.to(device)),
+            se3.Pose(gt.R.to(device), gt.t.to(device)))
+
+
+def reset_counts():
+    for name in KERNELS:
+        getattr(nnb, name).launches = 0
+
+
+def counts():
+    return {name: getattr(nnb, name).launches for name in KERNELS}
+
+
 def matcher_calls(icp, n_iterations):
     """kNN sweeps the ICP loop ran: one per active matcher and layer pair
     on each iteration (the paired-ratio quality reuses the ICP pairings)."""
@@ -114,45 +208,77 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def compare_sweep(q, p, k, label):
-    """Kernel vs knn_plain on the same card tensors; returns max |Δd²|."""
-    d, i = nnb.knn_sweep(q, p, k)
-    d_ref, i_ref = nnb.knn_plain(q, p, k)
+def compare(label, kernel, plain, *args):
+    """A kernel against its plain version on the same card tensors: the
+    distances must be equal bit for bit (both round (q-p)^2 per product and
+    per sum in the same order) and so must the indices (both take the
+    lowest index on ties). Returns max |d2 - d2_plain| (0)."""
+    d, i = kernel(*args)
+    d_ref, i_ref = plain(*args)
     torch.cuda.synchronize()
-    d, i, d_ref, i_ref = (x.cpu().numpy() for x in (d, i, d_ref, i_ref))
-    ok = np.isfinite(d_ref)
-    check((np.isfinite(d) == ok).all(), f"{label}: filled slots differ")
-    bad = knn_mismatch(q.cpu().numpy(), p.cpu().numpy(), i, ok, i_ref, d_ref, ok)
-    check(not bad.any(), f"{label}: {bad.sum()} entries disagree beyond ties")
-    err = float(np.abs(d[ok] - d_ref[ok]).max()) if ok.any() else 0.0
-    # both round (q-p)^2 per product and per sum in the same order: bit for bit
+    filled = torch.isfinite(d_ref)
+    check(torch.equal(torch.isfinite(d), filled), f"{label}: filled slots differ")
+    err = float((d[filled] - d_ref[filled]).abs().max()) if bool(filled.any()) else 0.0
     check(err == 0.0, f"{label}: max |d2 - d2_plain| = {err} m^2, not 0")
-    same_idx = float((i == i_ref).mean())
+    n_bad = int((i != i_ref).sum())
+    check(n_bad == 0, f"{label}: {n_bad} indices differ from the plain version's")
     print(f"[kernel] {label}: ok, max |d2 - d2_plain| = {err:.3g} m^2 (must be 0), "
-          f"same index {same_idx:.6f} (indices tie-tolerant 2e-3 m^2)")
+          f"indices equal on all {i.numel()} entries")
     return err
 
 
-def timed_aligns(icp, loc, glob, params, n):
+def timed_aligns(icp, loc, glob, params, n, guess=None):
     """n synchronised aligns; returns (host-clock seconds of each, last result)."""
-    dev = loc["raw"].xyz.device
+    guess = guess or se3.identity(device=loc["raw"].xyz.device)
     walls = []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = icp.align(loc, glob, se3.identity(device=dev), params)
+        res = icp.align(loc, glob, guess, params)
         float(res.optimal_tf.t[0])  # syncs
         walls.append(time.perf_counter() - t0)
     return walls, res
 
 
-def profile_align(icp, loc, glob, params, smi):
-    """Where a warm align's time goes: torch.profiler over 2 aligns (device
-    busy share, launch/copy/sync counts), then the sections' host times with
-    a sync around each (which adds its own cost)."""
+def profile_window(label, run, n, smi, tables):
+    """torch.profiler over n warm calls of run() (each ends in a host sync):
+    wall time, device kernel time and busy share, launch/copy/sync counts
+    and the kNN kernels' rows; appends the profiler's tables to tables."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(2):
+        run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+    # kernel rows only: an op row's self device time repeats its kernels'
+    dev_ms = sum(e.self_device_time_total for e in ka
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    n_kernels = sum(e.count for e in ka if e.device_type == DeviceType.CUDA)
+    print(f"[profile] {label}: {n} calls under torch.profiler: wall {wall_ms:.1f} ms, "
+          f"device kernel time {dev_ms:.3f} ms ({n_kernels} kernels), busy "
+          f"{dev_ms / wall_ms:.4f}, idle {1 - dev_ms / wall_ms:.4f} on {smi}")
+    for e in ka:
+        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemcpyAsync",
+                     "cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            print(f"[profile]   {e.key}: {e.count} calls, "
+                  f"host {e.self_cpu_time_total / 1e3:.2f} ms")
+        name = re.search(r"knn_\w+", e.key)
+        if e.device_type == DeviceType.CUDA and name:
+            print(f"[profile]   {name.group(0)}: {e.count} launches, "
+                  f"{e.self_device_time_total / 1e3:.3f} ms")
+    tables.append(f"== {label}\n" + ka.table(sort_by="self_cpu_time_total", row_limit=40)
+                  + "\n\n" + ka.table(sort_by="self_device_time_total", row_limit=20))
+
+
+def profile_align(icp, loc, glob, params, smi, tables):
+    """Where a warm scan-to-scan align's time goes: torch.profiler over 2
+    aligns, then the sections' host times with a sync around each (which
+    adds its own cost)."""
     from mp2p_icp_tpu_torch import icp as icp_mod
     from mp2p_icp_tpu_torch.matchers import adaptive, distance_threshold
     from mp2p_icp_tpu_torch.solvers import gauss_newton, horn, solver
@@ -160,30 +286,8 @@ def profile_align(icp, loc, glob, params, smi):
     walls, res = timed_aligns(icp, loc, glob, params, 2)
     print(f"[profile] warm aligns {[round(w * 1e3, 1) for w in walls]} ms, "
           f"{res.n_iterations} iterations, on {smi}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        walls, _ = timed_aligns(icp, loc, glob, params, 2)
-    wall_ms = sum(walls) * 1e3
-    ka = prof.key_averages()
-    # kernel rows only: an op row's self device time repeats its kernels'
-    dev_ms = sum(e.self_device_time_total for e in ka
-                 if e.device_type == DeviceType.CUDA) / 1e3
-    n_kernels = sum(e.count for e in ka if e.device_type == DeviceType.CUDA)
-    print(f"[profile] 2 aligns under torch.profiler: wall {wall_ms:.1f} ms, device "
-          f"kernel time {dev_ms:.3f} ms ({n_kernels} kernels), busy "
-          f"{dev_ms / wall_ms:.4f}, idle {1 - dev_ms / wall_ms:.4f}")
-    for e in ka:
-        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemcpyAsync",
-                     "cudaStreamSynchronize", "cudaDeviceSynchronize"):
-            print(f"[profile]   {e.key}: {e.count} calls, "
-                  f"host {e.self_cpu_time_total / 1e3:.2f} ms")
-        if e.device_type == DeviceType.CUDA and "knn_sweep_kernel" in e.key:
-            print(f"[profile]   knn kernel: {e.count} launches, "
-                  f"{e.self_device_time_total / 1e3:.3f} ms")
-    out = pathlib.Path(__file__).resolve().parent / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "profile_tables.txt").write_text(
-        ka.table(sort_by="self_cpu_time_total", row_limit=40) + "\n\n"
-        + ka.table(sort_by="self_device_time_total", row_limit=20))
+    profile_window("scan to scan, KITTI config",
+                   lambda: timed_aligns(icp, loc, glob, params, 1), 2, smi, tables)
 
     sections = {}
     wrapped = [
@@ -229,7 +333,7 @@ def profile_align(icp, loc, glob, params, smi):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a warm align (phase 5)")
+                    help="also profile each path (phase 7)")
     args = ap.parse_args()
 
     # ---- 1. the card
@@ -245,23 +349,32 @@ def main():
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), using {kind}")
 
-    # ---- 2. build
+    # ---- 2. build: one nvcc per kernel library, all started together
     t0 = time.perf_counter()
-    nnb.load_kernel()
-    rec = cuda_build.build_record("knn_bruteforce")
-    print(f"[build] {KERNEL_SOURCE} -> {rec['path']} for sm_90a: "
-          f"{'compiled' if rec['built'] else 'cached'} in {rec['seconds']:.1f} s "
-          f"(load {time.perf_counter() - t0:.1f} s)")
-    for line in rec["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[build]   {line.strip()}")
+    cuda_build.build()
+    for name in KERNELS:
+        cuda_build.load_library(LIBRARY[name])
+        rec = cuda_build.build_record(LIBRARY[name])
+        print(f"[build] {KERNELS[name][0]} -> {rec['path']} for sm_90a: "
+              f"{'compiled' if rec['built'] else 'cached'} in {rec['seconds']:.1f} s")
+        entry = None
+        for line in rec["log"].splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                print(f"[build]   {entry}: {line.strip().removeprefix('ptxas info    : ')}")
+    print(f"[build] all kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
-    # ---- 3. kernel against the plain version
+    # ---- 3. kernels against their plain versions
+    errs = {name: [] for name in KERNELS}
+    times = {}
     scene = bench.make_scene(np.random.RandomState(0))
     loc, glob = street_pair(scene, 1, 2, dev)
     q = loc["raw"].xyz.contiguous()
     p = glob["raw"].xyz.contiguous()
-    errs = [compare_sweep(q, p, k, f"{N_POINTS}x{N_POINTS} k={k}") for k in (1, 8)]
+    for k in (1, 8):
+        errs["knn_sweep"].append(compare(f"K1 {N_POINTS}x{N_POINTS} k={k}",
+                                         nnb.knn_sweep, nnb.knn_plain, q, p, k))
 
     rng = np.random.RandomState(7)
     qr = torch.from_numpy(rng.uniform(-60, 60, (777, 3)).astype(np.float32))
@@ -271,7 +384,8 @@ def main():
     rad = torch.from_numpy(rng.uniform(1.0, 400.0, 777).astype(np.float32))
     qs = torch.where(qv[:, None], qr, 1.0e8).to(dev)  # the front end's sentinels
     ps = torch.where(pv[:, None], pr, -1.0e8).to(dev)
-    errs.append(compare_sweep(qs, ps, 4, "777x3001 k=4 invalid rows"))
+    errs["knn_sweep"].append(compare("K1 777x3001 k=4 invalid rows",
+                                     nnb.knn_sweep, nnb.knn_plain, qs, ps, 4))
     res_gpu = nnb.knn_bruteforce(qr.to(dev), qv.to(dev), pr.to(dev), pv.to(dev), k=4,
                                  max_radius_sq=rad.to(dev))
     res_cpu = nnb.knn_bruteforce(qr, qv, pr, pv, k=4, max_radius_sq=rad)
@@ -283,23 +397,82 @@ def main():
     print(f"[kernel] 777x3001 k=4 front end, invalid rows + per-query radius: ok "
           f"({int(res_gpu.valid.sum())} valid pairs, same as the CPU plain path: "
           f"{torch.equal(res_gpu.valid.cpu(), res_cpu.valid)})")
+
+    # K3: the scan of the 2M-map case against the first 262144 map points
+    corridor = corridor_scene(np.random.RandomState(33), 1 << 24)
+    scan_q = torch.from_numpy(local_window(corridor, 200.0, np.random.RandomState(34))).to(dev)
+    map_p = torch.from_numpy(corridor[: 1 << 18]).to(dev)
+    for k in (1, 8):
+        errs["knn_sweep_streamed"].append(compare(
+            f"K3 8192x262144 k={k} corridor", nnb.knn_sweep_streamed,
+            nnb.knn_plain_streamed, scan_q, map_p, k))
+    n_rag = 200_003  # > STREAM_BLOCK, not a multiple of a slice
+    q_rag = torch.where(torch.from_numpy(rng.rand(5000) > 0.1)[:, None].to(dev),
+                        scan_q[:5000], 1.0e8).contiguous()
+    p_rag = torch.where(torch.from_numpy(rng.rand(n_rag) > 0.1)[:, None].to(dev),
+                        map_p[:n_rag], -1.0e8).contiguous()
+    errs["knn_sweep_streamed"].append(compare(
+        f"K3 5000x{n_rag} k=3 invalid rows (slices {nnb.stream_slices(5000, n_rag, nnb._sm_count(0))})",
+        nnb.knn_sweep_streamed, nnb.knn_plain_streamed, q_rag, p_rag, 3))
+
+    # K2: 8 scans of the batched case against 8 maps of 65536 points, and
+    # against one shared map
+    scans_b = torch.stack([torch.from_numpy(local_window(
+        corridor, 60.0 + 40.0 * b, np.random.RandomState(100 + b))) for b in range(BATCH)]).to(dev)
+    maps_b = torch.stack([torch.from_numpy(corridor[(b << 16):((b + 1) << 16)])
+                          for b in range(BATCH)]).to(dev)
+    errs["knn_sweep_batched"].append(compare(
+        f"K2 {BATCH}x8192x65536 k=1 batched maps", nnb.knn_sweep_batched,
+        nnb.knn_plain_batched, scans_b, maps_b, 1))
+    errs["knn_sweep_batched"].append(compare(
+        f"K2 {BATCH}x8192x65536 k=1 shared map", nnb.knn_sweep_batched,
+        nnb.knn_plain_batched, scans_b, maps_b[0], 1))
+    errs["knn_sweep_batched"].append(compare(
+        f"K2 {BATCH}x777x3001 k=4 invalid rows", nnb.knn_sweep_batched,
+        nnb.knn_plain_batched, qs.expand(BATCH, -1, -1).contiguous(),
+        torch.stack([ps.roll(b, 0) for b in range(BATCH)]), 4))
     torch.cuda.synchronize()
 
-    times = {}
-    for k in (1, 8):
-        times[k] = (cuda_ms(lambda: nnb.knn_sweep(q, p, k)),
-                    cuda_ms(lambda: nnb.knn_plain(q, p, k), reps=5))
-        print(f"[time] knn {N_POINTS}x{N_POINTS} k={k}: kernel {times[k][0]:.4f} ms, "
-              f"knn_plain {times[k][1]:.4f} ms (median, CUDA events) on {smi}")
+    times["knn_sweep"] = (cuda_ms(lambda: nnb.knn_sweep(q, p, 1)),
+                          cuda_ms(lambda: nnb.knn_plain(q, p, 1), reps=5))
+    ms8 = (cuda_ms(lambda: nnb.knn_sweep(q, p, 8)), cuda_ms(lambda: nnb.knn_plain(q, p, 8), reps=5))
+    for k, (ms, plain_ms) in ((1, times["knn_sweep"]), (8, ms8)):
+        print(f"[time] K1 {N_POINTS}x{N_POINTS} k={k}: kernel {ms:.4f} ms, "
+              f"knn_plain {plain_ms:.4f} ms (median, CUDA events) on {smi}")
+    times["knn_sweep_streamed"] = (
+        cuda_ms(lambda: nnb.knn_sweep_streamed(scan_q, map_p, 1)),
+        cuda_ms(lambda: nnb.knn_plain_streamed(scan_q, map_p, 1), reps=3, warmup=1))
+    k3_8 = cuda_ms(lambda: nnb.knn_sweep_streamed(scan_q, map_p, 8))
+    k1_big = cuda_ms(lambda: nnb.knn_sweep(scan_q, map_p, 1))
+    print(f"[time] K3 8192x262144 k=1: kernel {times['knn_sweep_streamed'][0]:.4f} ms, "
+          f"knn_plain_streamed {times['knn_sweep_streamed'][1]:.4f} ms; k=8 kernel "
+          f"{k3_8:.4f} ms; K1 on the same shape {k1_big:.4f} ms (median, CUDA events) on {smi}")
+    times["knn_sweep_batched"] = (
+        cuda_ms(lambda: nnb.knn_sweep_batched(scans_b, maps_b, 1)),
+        cuda_ms(lambda: nnb.knn_plain_batched(scans_b, maps_b, 1), reps=3, warmup=1))
+    k2_shared = cuda_ms(lambda: nnb.knn_sweep_batched(scans_b, maps_b[0], 1))
 
-    # ---- 4. the main path
+    def eight_k1():
+        for b in range(BATCH):
+            nnb.knn_sweep(scans_b[b], maps_b[b], 1)
+
+    k1_x8 = cuda_ms(eight_k1)
+    print(f"[time] K2 {BATCH}x8192x65536 k=1: kernel {times['knn_sweep_batched'][0]:.4f} ms "
+          f"(shared map {k2_shared:.4f} ms), knn_plain_batched "
+          f"{times['knn_sweep_batched'][1]:.4f} ms; aside: {BATCH} K1 launches "
+          f"{k1_x8:.4f} ms (median, CUDA events) on {smi}")
+    del maps_b
+
+    launches = {name: 0 for name in KERNELS}
+
+    # ---- 4. the scan-to-scan path
     icp = kitti_icp()
     params = ICPParameters(max_iterations=40)
     gt = se3.from_xyz_ypr(*GT, device=dev)
     requests = [(1, 2)] + [(100 + 2 * b, 101 + 2 * b) for b in range(N_REQUESTS)]
     pairs = [street_pair(scene, sg, sl, dev) for sg, sl in requests]
     torch.cuda.synchronize()
-    nnb.knn_sweep.launches = 0
+    reset_counts()
     expected = 0
     results, wall = [], []
     for loc_l, glob_l in pairs:
@@ -309,9 +482,11 @@ def main():
         wall.append(time.perf_counter() - t0)
         results.append((res, err))
         expected += matcher_calls(icp, res.n_iterations)
-    launches = nnb.knn_sweep.launches
-    check(launches == expected and launches > 0,
-          f"kernel launches {launches} != matcher calls {expected}")
+    n = counts()
+    check(n["knn_sweep"] == expected and expected > 0,
+          f"K1 launches {n['knn_sweep']} != matcher calls {expected}")
+    check(n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0, f"other kernels ran: {n}")
+    launches["knn_sweep"] += n["knn_sweep"]
 
     res, err = results[0]
     print(f"[align] KITTI config, bench pair {N_POINTS} pts on {kind}: SE(3) error "
@@ -327,7 +502,7 @@ def main():
     median_ms = statistics.median(wall[1:]) * 1e3
     print(f"[serve] {N_REQUESTS} pairs in {serve_s:.3f} s: "
           f"{N_REQUESTS / serve_s:.2f} aligns/s, median {median_ms:.1f} ms/align on {smi}")
-    print(f"[count] knn kernel launches {launches} == matcher calls {expected}")
+    print(f"[count] K1 launches {n['knn_sweep']} == matcher calls {expected}")
 
     loc_c = {"raw": PointCloud(loc["raw"].xyz.cpu(), loc["raw"].count.cpu())}
     glob_c = {"raw": PointCloud(glob["raw"].xyz.cpu(), glob["raw"].count.cpu())}
@@ -341,21 +516,121 @@ def main():
           f"({cpu_s:.1f} s)")
     check(gap < 5e-3, f"CPU/GPU pose gap {gap}")
 
-    # ---- 5. profile (optional)
-    if args.profile:
-        profile_align(icp, loc, glob, params, smi)
+    # ---- 5. the scan-to-large-map path
+    micp = map_icp()
+    scan_l, sensor, gt_map = sensor_scan(corridor, 200.0, 34,
+                                         (0.9, 0.2, 0.02, 0.02, 0.003, -0.004), dev)
+    maps = {}
+    for label, n_map, crop, (j_err, j_it, j_reason) in MAP_CASES:
+        gmap = {"map": PointCloud.from_numpy(corridor[:n_map], capacity=n_map, device=dev)}
+        mparams = ICPParameters(max_iterations=40, crop_capacity=crop, crop_extra_margin=4.0)
+        kernel = "knn_sweep_streamed" if crop > nnb.STREAM_BLOCK else "knn_sweep"
+        micp._crop_globals(mparams, gmap, scan_l, sensor)  # warm-up: first use of its ops
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cropped, _ = micp._crop_globals(mparams, gmap, scan_l, sensor)
+        torch.cuda.synchronize()
+        crop_ms = (time.perf_counter() - t0) * 1e3
+        n_kept = int(cropped["map"].count)
+        reset_counts()
+        walls, res = timed_aligns(micp, scan_l, gmap, mparams, 1 + MAP_TIMED[label], sensor)
+        n = counts()
+        calls = (1 + MAP_TIMED[label]) * matcher_calls(micp, res.n_iterations)
+        check(n[kernel] == calls and calls > 0,
+              f"{label}: {kernel} launches {n[kernel]} != matcher calls {calls}")
+        check(sum(n.values()) == n[kernel], f"{label}: other kernels ran: {n}")
+        launches[kernel] += n[kernel]
+        err = float(se3.error_log_norm(gt_map, res.optimal_tf))
+        warm = walls[1:]
+        print(f"[map] {label} map, crop {crop} ({n_kept} points kept, crop {crop_ms:.1f} ms) "
+              f"on {kind}: SE(3) error {err:.6f}, {res.n_iterations} iterations, "
+              f"{res.termination_reason.name} [JAX CPU reference: {j_err}, {j_it}, "
+              f"{j_reason}]; first align {walls[0] * 1e3:.1f} ms, {len(warm)} warm aligns "
+              f"median {statistics.median(warm) * 1e3:.1f} ms, {len(warm) / sum(warm):.2f} "
+              f"aligns/s on {smi}")
+        print(f"[count] {label}: {kernel} launches {n[kernel]} == matcher calls {calls}")
+        check(err < ERR_LIMIT, f"{label} map: SE(3) error {err} >= {ERR_LIMIT}")
+        maps[label] = (gmap, mparams)
+    map_1m = maps["1M"][0]
 
-    # ---- 6. results
+    # ---- 6. the batched path: B scans against the shared 1M map
+    rngb = np.random.RandomState(35)
+    problems = []
+    for b in range(BATCH):
+        cx = 60.0 + 280.0 * b / (BATCH - 1)
+        ge = (0.9 * rngb.uniform(-1, 1), 0.2 * rngb.uniform(-1, 1), 0.02,
+              0.02 * rngb.uniform(-1, 1), 0.003, -0.004)
+        problems.append(sensor_scan(corridor, cx, 100 + b, ge, dev))
+    bparams = ICPParameters(max_iterations=40, crop_capacity=1 << 16, crop_extra_margin=4.0)
+    fn = make_batched_align(micp, bparams, broadcast_globals=True)
+    l_b = stack_pytrees([pr_[0] for pr_ in problems])
+    g_b = stack_pytrees([pr_[1] for pr_ in problems])
+    b_walls = []
+    for rep in range(3):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rb = fn(l_b, map_1m, g_b)
+        float(rb.optimal_tf.t[0, 0])  # syncs
+        b_walls.append(time.perf_counter() - t0)
+        n = counts()
+        calls = matcher_calls(micp, int(rb.n_iterations.max()))
+        check(n["knn_sweep_batched"] == calls and calls > 0,
+              f"batched: K2 launches {n['knn_sweep_batched']} != matcher calls {calls}")
+        check(n["knn_sweep"] == n["knn_sweep_streamed"] == 0,
+              f"batched: K1/K3 launched during the batched call: {n}")
+        launches["knn_sweep_batched"] += n["knn_sweep_batched"]
+    print(f"[count] batched: K2 launches {n['knn_sweep_batched']} == matcher calls {calls} "
+          f"per call, K1 and K3 launches 0")
+    seq_walls = []
+    for b, (scan_b, guess_b, gt_b) in enumerate(problems):
+        pose_b = se3.Pose(rb.optimal_tf.R[b], rb.optimal_tf.t[b])
+        err = float(se3.error_log_norm(gt_b, pose_b))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq = micp.align(scan_b, map_1m, guess_b, bparams)
+        gap = max(float((seq.optimal_tf.R - pose_b.R).abs().max()),
+                  float((seq.optimal_tf.t - pose_b.t).abs().max()))
+        seq_walls.append(time.perf_counter() - t0)
+        it_b, reason_b = int(rb.n_iterations[b]), int(rb.termination_reason[b])
+        print(f"[batch] problem {b}: SE(3) error {err:.6f}, {it_b} iterations, "
+              f"{IterTermReason(reason_b).name} [JAX CPU reference: {BATCH_JAX_ITERS[b]} "
+              f"iterations, STALLED]; sequential align: {seq.n_iterations} iterations, "
+              f"{seq.termination_reason.name}, max |R, t difference| {gap:.3g}")
+        check(err < ERR_LIMIT, f"batched problem {b}: SE(3) error {err} >= {ERR_LIMIT}")
+        check(gap < 1e-5, f"batched problem {b}: pose differs from sequential by {gap}")
+        check(it_b == seq.n_iterations and reason_b == seq.termination_reason,
+              f"batched problem {b}: iterations/termination differ from sequential")
+    warm_b = b_walls[1:]
+    print(f"[batch] {BATCH} scans vs the shared 1M map in one call: first "
+          f"{b_walls[0] * 1e3:.1f} ms, warm {[round(w * 1e3, 1) for w in warm_b]} ms, "
+          f"{BATCH * len(warm_b) / sum(warm_b):.2f} scans/s; the same scans aligned one "
+          f"after another {BATCH / sum(seq_walls):.2f} scans/s on {smi}")
+
+    # ---- 7. profile (optional)
+    if args.profile:
+        tables = []
+        profile_align(icp, loc, glob, params, smi, tables)
+        gmap_2m, params_2m = maps["2M"]
+        profile_window("scan to the 2M map (K3)", lambda: float(micp.align(
+            scan_l, gmap_2m, sensor, params_2m).optimal_tf.t[0]), 2, smi, tables)
+        profile_window(f"batched, {BATCH} scans vs the 1M map (K2)", lambda: float(
+            fn(l_b, map_1m, g_b).optimal_tf.t[0, 0]), 2, smi, tables)
+        out = pathlib.Path(__file__).resolve().parent / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "profile_tables.txt").write_text("\n\n".join(tables))
+
+    # ---- 8. results
     print(json.dumps({"kernels": [{
-        "name": "knn_sweep",
+        "name": name,
         "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": times[1][0],
-        "plain_ms": times[1][1],
-    }]}))
+        "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1],
+        "launches": launches[name],
+        "max_abs_err": max(errs[name]),
+        "ms": times[name][0],
+        "plain_ms": times[name][1],
+    } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -28,25 +28,65 @@ from mp2p_icp_tpu_torch.solvers.robust import RobustKernel
 from mp2p_icp_tpu_torch.solvers.solver import SolverGaussNewton, SolverHorn
 
 # JAX-side fields with no counterpart in the port: the hash-grid candidate
-# budget (the grid path is not ported), the crop-sizing range hint (only
-# read by the large-map crop) and the shard count (read only when
+# budget (the grid path is not ported) and the shard count (read only when
 # spatial_axis is set, which raises)
-_DROPPED_FIELDS = {"k_per_cell", "angular_range_hint", "spatial_num_shards"}
+_DROPPED_FIELDS = {"k_per_cell", "spatial_num_shards"}
+_CHANNELS = ("intensity", "ring", "time", "normals")
 
 
 def pointcloud_from_numpy(xyz, count, device=None, **channels) -> PointCloud:
     """A PointCloud from a padded [C, 3] array and its valid count, with the
-    padding rows kept as given (row-for-row with the JAX cloud)."""
-    xyz = np.array(xyz, dtype=np.float32).reshape(-1, 3)
+    padding rows kept as given (row-for-row with the JAX cloud). A stacked
+    batch ([B, C, 3] with counts [B]) gives a batched cloud."""
+    xyz = np.array(xyz, dtype=np.float32)
+    if xyz.ndim not in (2, 3) or xyz.shape[-1] != 3:
+        raise ValueError(f"xyz must be [C, 3] or [B, C, 3], got {xyz.shape}")
     extra = {
         k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
         for k, v in channels.items() if v is not None
     }
     return PointCloud(
         xyz=torch.from_numpy(xyz).to(device),
-        count=torch.tensor(int(count), dtype=torch.int32, device=device),
+        count=torch.from_numpy(np.array(count, dtype=np.int32)).to(device),
         **extra,
     )
+
+
+def pointcloud_from_jax(pc, device=None) -> PointCloud:
+    """The port's copy of a JAX package PointCloud, stacked or not (read
+    through numpy: any object with the same fields will do)."""
+    channels = {k: None if getattr(pc, k) is None else np.asarray(getattr(pc, k))
+                for k in _CHANNELS}
+    return pointcloud_from_numpy(np.asarray(pc.xyz), np.asarray(pc.count),
+                                 device=device, **channels)
+
+
+def pointcloud_to_numpy(pc: PointCloud) -> dict:
+    """{field: numpy array} of a cloud, stacked or not, without its empty
+    channels: ``PointCloud(**{k: jnp.asarray(v) ...})`` rebuilds it in the
+    JAX package."""
+    return {f.name: _np(getattr(pc, f.name)) for f in dataclasses.fields(pc)
+            if getattr(pc, f.name) is not None}
+
+
+def results_to_numpy(res) -> dict:
+    """The comparable fields of either package's ICPResults, stacked or
+    not, as numpy arrays: R, t, n_iterations, termination_reason, quality,
+    covariance, and the final pt2pt block's weight and global_idx."""
+    return {
+        "R": _np(res.optimal_tf.R), "t": _np(res.optimal_tf.t),
+        "n_iterations": _np(res.n_iterations).astype(np.int32),
+        "termination_reason": _np(res.termination_reason).astype(np.int32),
+        "quality": _np(res.quality), "covariance": _np(res.covariance),
+        "pt2pt_weight": _np(res.final_pairings.pt2pt.weight),
+        "pt2pt_global_idx": _np(res.final_pairings.pt2pt.global_idx),
+    }
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def pose_from_numpy(R, t, device=None) -> Pose:

@@ -3,7 +3,8 @@
 Port of ``mp2p_icp_tpu/core/pairings.py``: five fixed-capacity masked SoA
 blocks (pt2pt, pt2ln, pt2pl, ln2ln, pl2pl) plus the potential-pairings
 counter. Invalid rows carry zero weight (and index -1), so every solver
-reduction is a masked weighted sum over the whole capacity.
+reduction is a masked weighted sum over the whole capacity. The blocks and
+``Pairings`` are pytree nodes, so ``torch.func.vmap`` maps over them.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils._pytree as pytree
 
 
 class _Block:
@@ -157,3 +159,9 @@ class Pairings:
             + self.ln2ln.count()
             + self.pl2pl.count()
         )
+
+
+for _cls in (*BLOCK_TYPES.values(), Pairings):
+    pytree.register_dataclass(
+        _cls, serialized_type_name=f"mp2p_icp_tpu_torch.{_cls.__name__}"
+    )

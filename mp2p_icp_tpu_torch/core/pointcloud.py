@@ -14,6 +14,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 
 def round_capacity(n: int, minimum: int = 256) -> int:
@@ -32,6 +33,10 @@ class PointCloud:
     count:  scalar int32 tensor on the cloud's device — number of valid
             leading rows.
     intensity / ring / time: optional [C] channels; normals: optional [C, 3].
+
+    A batch of clouds (``parallel.batch``) carries a leading axis on every
+    field: xyz [B, C, 3], count [B]. The class is a pytree node (its
+    tensors are the leaves), so ``torch.func.vmap`` maps over it.
     """
 
     xyz: torch.Tensor
@@ -45,7 +50,7 @@ class PointCloud:
 
     @property
     def capacity(self) -> int:
-        return self.xyz.shape[0]
+        return self.xyz.shape[-2]
 
     @property
     def device(self) -> torch.device:
@@ -103,3 +108,17 @@ class PointCloud:
         if nrm is not None:
             nrm = torch.where(m, nrm @ pose.R.T, nrm)
         return dataclasses.replace(self, xyz=new_xyz, normals=nrm)
+
+
+_FIELDS = tuple(f.name for f in dataclasses.fields(PointCloud))
+
+
+def _flatten(pc: PointCloud):
+    names = tuple(n for n in _FIELDS if getattr(pc, n) is not None)
+    return [getattr(pc, n) for n in names], names
+
+
+pytree.register_pytree_node(
+    PointCloud, _flatten, lambda leaves, names: PointCloud(**dict(zip(names, leaves))),
+    serialized_type_name="mp2p_icp_tpu_torch.PointCloud",
+)

@@ -29,6 +29,7 @@ from mp2p_icp_tpu_torch.matchers.base import (
     MatchState,
     claim,
     point_layers,
+    recorded_global_idx,
     static_value,
     transformed_local,
 )
@@ -51,9 +52,9 @@ def adaptive_threshold_sq(res, confidence_interval: float, minimum_corr_dist: fl
     bins = torch.clamp(
         ((d12 - d_min) / span * _HIST_BINS).to(torch.int32), 0, _HIST_BINS - 1
     )
-    # index_add_ rather than bincount: no host sync on CUDA (counts are
-    # small integers, exact in f32 in any order)
-    hist = torch.zeros(_HIST_BINS + 1, device=d12.device).index_add_(
+    # index_add rather than bincount: no host sync on CUDA (counts are
+    # small integers, exact in f32 in any order); out of place for vmap
+    hist = torch.zeros(_HIST_BINS + 1, device=d12.device).index_add(
         0, torch.where(sample_ok, bins, _HIST_BINS).long(),
         torch.ones_like(d12),
     )[:_HIST_BINS]
@@ -90,6 +91,11 @@ class MatcherAdaptive(Matcher):
                 "MatcherAdaptive(enable_detect_planes=True) needs ops/eigen.py, "
                 "not ported yet (ROADMAP item A.6)"
             )
+
+    def search_radius(self) -> float:
+        """The largest pairing distance, for the large-map crop's margin."""
+        return static_value(self.absolute_max_search_distance,
+                            "absolute_max_search_distance")
 
     def out_blocks(self, local_map):
         layers = point_layers(local_map)
@@ -170,7 +176,9 @@ class MatcherAdaptive(Matcher):
                     local_idx=torch.where(
                         wf > 0, torch.repeat_interleave(local_idx, kk), -1
                     ),
-                    global_idx=torch.where(wf > 0, gflat, -1),
+                    global_idx=torch.where(
+                        wf > 0, recorded_global_idx(ctx, lm.global_layer, gflat), -1
+                    ),
                 )
             )
             if state is not None:

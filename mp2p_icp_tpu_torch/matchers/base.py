@@ -14,7 +14,7 @@ as a plain ``{name: PointCloud}`` dict.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -80,6 +80,20 @@ class MatchContext(NamedTuple):
     """The reference's MatchContext{icpIteration}; a host int here."""
 
     icp_iteration: int
+    # per global layer, the [crop_capacity] i32 table from a cropped row to
+    # the row of the user's map (-1 for padding), set when ICP cropped the
+    # layer (ICP._crop_globals): matchers record global_idx through it, so
+    # results address the user's map; claim masks keep the cropped ids
+    global_index_maps: Optional[dict] = None
+
+
+def recorded_global_idx(ctx: MatchContext, layer: str, gidx: torch.Tensor) -> torch.Tensor:
+    """``gidx`` (ids into the layer the matcher swept) as ids into the
+    user's map: through the crop's index map when the layer was cropped."""
+    gm = (ctx.global_index_maps or {}).get(layer)
+    if gm is None:
+        return gidx
+    return gm[torch.clamp(gidx, 0, gm.shape[-1] - 1).long()]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,9 +140,10 @@ def transformed_local(local: PointCloud, pose: Pose) -> Tuple[torch.Tensor, torc
 
 def claim(mask: torch.Tensor, gidx: torch.Tensor, won: torch.Tensor) -> torch.Tensor:
     """``mask`` with the global ids of the rows in ``won`` set. Losing rows
-    write to a dump slot past the end, which is cut off."""
-    g_cap = mask.shape[0]
+    write to a dump slot past the end, which is cut off (out of place, so
+    it runs under torch.func.vmap)."""
+    g_cap = mask.shape[-1]
     slots = torch.where(won, torch.clamp(gidx, 0, g_cap - 1), g_cap).long()
-    claimed = torch.zeros(g_cap + 1, dtype=torch.bool, device=mask.device)
-    claimed[slots] = True
+    claimed = torch.zeros(g_cap + 1, dtype=torch.bool, device=mask.device).index_put(
+        (slots,), torch.ones_like(won))
     return mask | claimed[:g_cap]

@@ -23,6 +23,7 @@ from mp2p_icp_tpu_torch.matchers.base import (
     MatchState,
     claim,
     point_layers,
+    recorded_global_idx,
     static_value,
     subsample_mask,
     transformed_local,
@@ -42,6 +43,17 @@ class MatcherPointsDistanceThreshold(Matcher):
     allow_match_already_matched_global_points: bool = False
     allow_match_already_matched_points: bool = False
     layer_matches: Tuple[LayerMatch, ...] = (LayerMatch(),)
+    # range (m) at which the angular term is evaluated for the crop margin
+    # (the per-point threshold thr² + (angFactor·|p|)² has no bound)
+    angular_range_hint: float = 100.0
+
+    def search_radius(self) -> float:
+        """The largest pairing distance, for the large-map crop's margin."""
+        thr = static_value(self.threshold, "threshold")
+        if self.threshold_angular_deg <= 0:
+            return thr
+        ang = math.radians(self.threshold_angular_deg) * self.angular_range_hint
+        return math.sqrt(thr**2 + ang**2)
 
     def out_blocks(self, local_map):
         layers = point_layers(local_map)
@@ -107,7 +119,9 @@ class MatcherPointsDistanceThreshold(Matcher):
                     local_idx=torch.where(
                         wf > 0, torch.repeat_interleave(local_idx, k), -1
                     ),
-                    global_idx=torch.where(wf > 0, gidx, -1),
+                    global_idx=torch.where(
+                        wf > 0, recorded_global_idx(ctx, lm.global_layer, gidx), -1
+                    ),
                 )
             )
             if state is not None and not self.allow_match_already_matched_global_points:

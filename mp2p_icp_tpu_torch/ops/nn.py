@@ -27,7 +27,8 @@ def resolve_one_to_one(
     row) in one multi-key sort. Here the same order comes from chained
     stable sorts, least significant key first: rows are already ascending,
     then a stable sort by distance, then a stable sort by global idx. The
-    winners are the heads of the equal-idx runs."""
+    winners are the heads of the equal-idx runs. Written out of place, so
+    it runs under torch.func.vmap."""
     Q = nn_idx.shape[0]
     valid0 = nn_valid[:, 0]
     idx = torch.where(valid0, nn_idx[:, 0], _NO_IDX)
@@ -35,8 +36,7 @@ def resolve_one_to_one(
     by_d = torch.sort(d, stable=True).indices
     perm = by_d[torch.sort(idx[by_d], stable=True).indices]
     idx_s = idx[perm]
-    is_head = torch.ones(Q, dtype=torch.bool, device=idx.device)
-    is_head[1:] = idx_s[1:] != idx_s[:-1]
-    win = torch.zeros(Q, dtype=torch.bool, device=idx.device)
-    win[perm] = is_head & (idx_s != _NO_IDX)
-    return win
+    is_head = torch.cat([torch.ones(1, dtype=torch.bool, device=idx.device),
+                         idx_s[1:] != idx_s[:-1]])
+    return torch.zeros(Q, dtype=torch.bool, device=idx.device).scatter(
+        0, perm, is_head & (idx_s != _NO_IDX))

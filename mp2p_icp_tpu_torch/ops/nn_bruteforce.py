@@ -1,7 +1,7 @@
 """Exact brute-force k-nearest-neighbour search.
 
-Port of the local path of ``mp2p_icp_tpu/ops/nn_bruteforce.py``
-(``knn_bruteforce``), with its contracts:
+Port of ``mp2p_icp_tpu/ops/nn_bruteforce.py`` (``knn_bruteforce`` and its
+batched use under ``jax.vmap``), with its contracts:
 
 - invalid queries are moved to +1e8 and invalid points to -1e8 (sentinels
   of opposite sign, so two invalid entries never pair at distance ~0);
@@ -10,17 +10,31 @@ Port of the local path of ``mp2p_icp_tpu/ops/nn_bruteforce.py``
 - an optional scalar or per-query ``max_radius_sq`` gate;
 - invalid entries come back as idx -1 and dist_sq 3e37.
 
-The sweep itself is ``knn_sweep``: on CUDA tensors it launches the Hopper
-kernel ``csrc/knn_bruteforce.cu`` (which replaces the TPU kernel
-``_nnk_kernel_gridless``), on CPU tensors it runs ``knn_plain``, the plain
-PyTorch version of the same function.
+Three sweeps sit behind the front ends, one for each TPU kernel of the JAX
+package. On CUDA tensors each launches its Hopper kernel; on CPU tensors it
+runs its plain PyTorch version:
+
+- ``knn_sweep``: ``csrc/knn_bruteforce.cu`` replaces ``_nnk_kernel_gridless``
+  (K1); plain version ``knn_plain``;
+- ``knn_sweep_streamed``: ``csrc/knn_streamed.cu`` replaces
+  ``_nnk_kernel_streamed_dbuf`` (K3); plain version ``knn_plain_streamed``;
+- ``knn_sweep_batched``: ``csrc/knn_batched.cu`` replaces
+  ``_nnk_kernel_gridless_batched`` (K2); plain version ``knn_plain_batched``.
+
+``knn_bruteforce`` takes the streamed sweep for maps above ``stream_block``
+points, as the JAX package does. It calls the sweep through a custom
+operator whose vmap rule launches the batched sweep, so ``torch.func.vmap``
+of anything that reaches ``knn_bruteforce`` (a matcher, a whole ICP
+iteration) runs one batched launch for all problems: the counterpart of
+the JAX ``custom_vmap`` rule. ``knn_bruteforce_batched`` is the batched
+front end.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,17 +43,24 @@ from mp2p_icp_tpu_torch.ops import cuda_build
 _BIG = 3.0e37
 _FAR = 1.0e8
 MAX_K = 8
-# maps above this size need the streamed sweep (TPU kernel K3), not ported
+# maps above this many points take the streamed sweep (the JAX package's
+# VMEM limit; on the card it only selects the kernel that splits the point
+# axis across blocks)
 STREAM_BLOCK = 131072
 _PLAIN_CHUNK = 1024  # queries per step of knn_plain: bounds its [chunk, C, 3] temporary
+_THREADS = 64  # queries per block of every sweep kernel (knn_sweep.cuh kThreads)
+_TILE = 512  # points per shared-memory tile (knn_sweep.cuh kTile)
+_BLOCKS_PER_SM = 16  # the streamed sweep's target occupancy
+_MIN_SLICE = 4 * _TILE  # fewest points a streamed block sweeps
 
 
 class NNResult(NamedTuple):
-    idx: torch.Tensor  # [Q, k] i32 (-1 invalid)
-    dist_sq: torch.Tensor  # [Q, k] f32 (3e37 invalid)
-    valid: torch.Tensor  # [Q, k] bool
+    idx: torch.Tensor  # [..., Q, k] i32 (-1 invalid)
+    dist_sq: torch.Tensor  # [..., Q, k] f32 (3e37 invalid)
+    valid: torch.Tensor  # [..., Q, k] bool
 
 
+# ------------------------------------------------------------ plain versions
 def knn_plain(q: torch.Tensor, p: torch.Tensor, k: int):
     """Plain PyTorch kNN: explicit (q - p)² per pair, stable ascending sort,
     first k. The stable sort gives the lowest index on ties. Slots beyond
@@ -62,18 +83,100 @@ def knn_plain(q: torch.Tensor, p: torch.Tensor, k: int):
     return out_d, out_i
 
 
+def merge_sorted_k(d_acc, i_acc, new_d, new_i, k: int):
+    """Merge two ascending [Q, k] lists into the k smallest, the first
+    list's entries winning ties (``_merge_sorted_k`` of the JAX package)."""
+    d = torch.cat([d_acc, new_d], dim=1)
+    i = torch.cat([i_acc, new_i], dim=1)
+    ds, order = torch.sort(d, dim=1, stable=True)
+    return ds[:, :k], torch.gather(i, 1, order[:, :k])
+
+
+def knn_plain_streamed(q: torch.Tensor, p: torch.Tensor, k: int,
+                       stream_block: int = STREAM_BLOCK):
+    """Plain version of the streamed sweep: ``knn_plain`` on each
+    superblock of ``stream_block`` points, merged in order, so an earlier
+    superblock wins a tie and the result equals ``knn_plain`` over the
+    whole map bit for bit. Returns (d2 [Q, k], idx [Q, k])."""
+    Q, C = q.shape[0], p.shape[0]
+    d_acc = torch.full((Q, k), float("inf"), dtype=torch.float32, device=q.device)
+    i_acc = torch.full((Q, k), -1, dtype=torch.int32, device=q.device)
+    for s in range(0, C, stream_block):
+        d, i = knn_plain(q, p[s:s + stream_block], k)
+        d_acc, i_acc = merge_sorted_k(d_acc, i_acc, d, torch.where(i >= 0, i + s, -1), k)
+    return d_acc, i_acc
+
+
+def knn_plain_batched(q: torch.Tensor, p: torch.Tensor, k: int):
+    """Plain version of the batched sweep: ``knn_plain`` on each problem.
+    q [B, Q, 3] or [Q, 3], p [B, C, 3] or [C, 3] (an unbatched side is
+    shared by every problem). Returns (d2 [B, Q, k], idx [B, Q, k])."""
+    B = q.shape[0] if q.ndim == 3 else p.shape[0]
+    outs = [knn_plain(q[b] if q.ndim == 3 else q, p[b] if p.ndim == 3 else p, k)
+            for b in range(B)]
+    return torch.stack([d for d, _ in outs]), torch.stack([i for _, i in outs])
+
+
+# ------------------------------------------------------------------ kernels
 @functools.lru_cache(maxsize=None)
-def load_kernel():
-    """Build (on first use) and load the kernel; returns its C entry point,
-    configured once and cached."""
-    lib = cuda_build.load_library("knn_bruteforce", ["knn_bruteforce.cu"])
-    fn = lib.mp2p_knn_sweep_f32
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
+def _entry(lib: str, symbol: str, argtypes: tuple):
+    """A kernel library's C entry point, built on first use and configured
+    once."""
+    fn = getattr(cuda_build.load_library(lib), symbol)
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def load_kernel():
+    """The K1 entry point (``csrc/knn_bruteforce.cu``)."""
+    return _entry("knn_bruteforce", "mp2p_knn_sweep_f32",
+                  (_P, _I, _P, _I, _I, _P, _P, _P))
+
+
+def load_streamed_kernel():
+    """The K3 entry point (``csrc/knn_streamed.cu``)."""
+    return _entry("knn_streamed", "mp2p_knn_sweep_streamed_f32",
+                  (_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P))
+
+
+def load_batched_kernel():
+    """The K2 entry point (``csrc/knn_batched.cu``)."""
+    return _entry("knn_batched", "mp2p_knn_sweep_batched_f32",
+                  (_P, _I, _L, _P, _I, _L, _I, _I, _P, _P, _P))
+
+
+def _check(k, **arrays):
+    """Validate k and [..., N, 3] float32 arrays on one device; returns
+    the device type ('cpu' or 'cuda')."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in 1..{MAX_K}, got {k}")
+    devices = set()
+    for name, (x, ndims) in arrays.items():
+        if x.ndim not in ndims or x.shape[-1] != 3 or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 of {ndims} dims ending in 3, "
+                             f"got {tuple(x.shape)} {x.dtype}")
+        if x.shape[-2] >= 2**31 // 3:
+            raise ValueError("the kNN sweeps index with int32")
+        devices.add(x.device)
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"the kNN sweeps have no kernel for {dev}")
+    if dev.type == "cuda" and not all(x.is_contiguous() for x, _ in arrays.values()):
+        raise ValueError("the kNN kernels need contiguous inputs")
+    return dev.type
+
+
+def _launch(fn, name, device, *args):
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def knn_sweep(q: torch.Tensor, p: torch.Tensor, k: int):
@@ -84,41 +187,130 @@ def knn_sweep(q: torch.Tensor, p: torch.Tensor, k: int):
     CPU tensors run ``knn_plain``; CUDA tensors launch the Hopper kernel
     (and raise if it cannot be built or launched — there is no fallback).
     ``knn_sweep.launches`` counts kernel launches."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k must be in 1..{MAX_K}, got {k}")
-    for name, x in (("q", q), ("p", p)):
-        if x.ndim != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
-            raise ValueError(f"{name} must be [N, 3] float32, got "
-                             f"{tuple(x.shape)} {x.dtype}")
-    if q.device != p.device:
-        raise ValueError(f"q on {q.device} but p on {p.device}")
-    if q.device.type == "cpu":
+    if _check(k, q=(q, (2,)), p=(p, (2,))) == "cpu":
         return knn_plain(q, p, k)
-    if q.device.type != "cuda":
-        raise NotImplementedError(f"knn_sweep has no kernel for {q.device}")
-    if not (q.is_contiguous() and p.is_contiguous()):
-        raise ValueError("knn_sweep needs contiguous q and p")
     Q, C = q.shape[0], p.shape[0]
-    if Q >= 2**31 // 3 or C >= 2**31 // 3:
-        raise ValueError("knn_sweep indexes with int32")
     out_d = torch.empty((Q, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=q.device)
     if Q == 0:
         return out_d, out_i
-    fn = load_kernel()
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), Q, p.data_ptr(), C, k,
-            out_d.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"knn_sweep kernel launch failed: CUDA error {err}")
+    _launch(load_kernel(), "knn_sweep", q.device, q.data_ptr(), Q, p.data_ptr(), C, k,
+            out_d.data_ptr(), out_i.data_ptr())
     knn_sweep.launches += 1
     return out_d, out_i
 
 
 knn_sweep.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def stream_slices(Q: int, C: int, n_sm: int) -> Tuple[int, int]:
+    """(S, slice): how the streamed kernel splits C points across blocks.
+    Enough slices that Q queries give about 16 blocks of 64 per SM, each
+    slice a whole number of shared-memory tiles and at least 4 of them."""
+    q_blocks = max(1, -(-Q // _THREADS))
+    S = max(1, min(-(-_BLOCKS_PER_SM * n_sm // q_blocks), -(-C // _MIN_SLICE), 65535))
+    slice_len = max(_TILE, -(-(-(-C // S)) // _TILE) * _TILE)
+    return max(1, -(-C // slice_len)), slice_len
+
+
+def knn_sweep_streamed(q: torch.Tensor, p: torch.Tensor, k: int,
+                       stream_block: int = STREAM_BLOCK):
+    """``knn_sweep`` for large maps: on CUDA tensors the point axis is
+    split across blocks and the partial lists are k-merged
+    (``csrc/knn_streamed.cu``); CPU tensors run ``knn_plain_streamed`` with
+    superblocks of ``stream_block`` points. Same result as ``knn_sweep``.
+    ``knn_sweep_streamed.launches`` counts kernel launches (the slice sweep
+    and its merge count as one)."""
+    if _check(k, q=(q, (2,)), p=(p, (2,))) == "cpu":
+        return knn_plain_streamed(q, p, k, stream_block)
+    Q, C = q.shape[0], p.shape[0]
+    out_d = torch.empty((Q, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=q.device)
+    if Q == 0:
+        return out_d, out_i
+    S, slice_len = stream_slices(Q, C, _sm_count(q.device.index or 0))
+    part_d = torch.empty((S, Q, k), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((S, Q, k), dtype=torch.int32, device=q.device)
+    _launch(load_streamed_kernel(), "knn_sweep_streamed", q.device,
+            q.data_ptr(), Q, p.data_ptr(), C, k, slice_len, S,
+            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr())
+    knn_sweep_streamed.launches += 1
+    return out_d, out_i
+
+
+knn_sweep_streamed.launches = 0
+
+
+def knn_sweep_batched(q: torch.Tensor, p: torch.Tensor, k: int):
+    """``knn_sweep`` for B independent problems in one launch: q [B, Q, 3]
+    or [Q, 3], p [B, C, 3] or [C, 3]; an unbatched side is shared by every
+    problem (read with batch stride 0, not copied). Returns (d2 [B, Q, k],
+    idx [B, Q, k]).
+
+    CPU tensors run ``knn_plain_batched``; CUDA tensors launch
+    ``csrc/knn_batched.cu`` once for all problems.
+    ``knn_sweep_batched.launches`` counts kernel launches."""
+    if q.ndim != 3 and p.ndim != 3:
+        raise ValueError("knn_sweep_batched needs a batched q or p; use knn_sweep")
+    B = q.shape[0] if q.ndim == 3 else p.shape[0]
+    if q.ndim == 3 and p.ndim == 3 and p.shape[0] != B:
+        raise ValueError(f"batch sizes differ: q {q.shape[0]}, p {p.shape[0]}")
+    if _check(k, q=(q, (2, 3)), p=(p, (2, 3))) == "cpu":
+        return knn_plain_batched(q, p, k)
+    if B > 65535:
+        raise ValueError("knn_sweep_batched takes at most 65535 problems")
+    Q, C = q.shape[-2], p.shape[-2]
+    out_d = torch.empty((B, Q, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, Q, k), dtype=torch.int32, device=q.device)
+    if Q == 0 or B == 0:
+        return out_d, out_i
+    _launch(load_batched_kernel(), "knn_sweep_batched", q.device,
+            q.data_ptr(), Q, 3 * Q if q.ndim == 3 else 0,
+            p.data_ptr(), C, 3 * C if p.ndim == 3 else 0, B, k,
+            out_d.data_ptr(), out_i.data_ptr())
+    knn_sweep_batched.launches += 1
+    return out_d, out_i
+
+
+knn_sweep_batched.launches = 0
+
+
+# ------------------------------------------- the sweep as a custom operator
+@torch.library.custom_op("mp2p_icp_tpu_torch::knn_sweep", mutates_args=())
+def _sweep_op(q: torch.Tensor, p: torch.Tensor, k: int,
+              stream_block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    if p.shape[0] > stream_block:
+        return knn_sweep_streamed(q, p, k, stream_block)
+    return knn_sweep(q, p, k)
+
+
+@_sweep_op.register_vmap
+def _sweep_op_vmap(info, in_dims, q, p, k, stream_block):
+    """Under torch.func.vmap: one batched sweep for all problems (the JAX
+    package's custom_vmap rule, nn_bruteforce.py:287-342)."""
+    qd, pd = in_dims[0], in_dims[1]
+    q = q if qd is None else q.movedim(qd, 0).contiguous()
+    p = p if pd is None else p.movedim(pd, 0).contiguous()
+    return knn_sweep_batched(q, p, k), (0, 0)
+
+
+# --------------------------------------------------------------- front ends
+def _result(d2, idx, C, radius) -> NNResult:
+    """Validity from d² < 1e15 and the radius gate (radius broadcast
+    against d2 [..., Q, k]), then -1 / 3e37 where invalid."""
+    valid = (idx >= 0) & (idx < C) & (d2 < 1.0e15)
+    if radius is not None:
+        valid = valid & (d2 < radius)
+    return NNResult(
+        idx=torch.where(valid, idx, -1),
+        dist_sq=torch.where(valid, d2, _BIG),
+        valid=valid,
+    )
 
 
 def knn_bruteforce(
@@ -128,37 +320,48 @@ def knn_bruteforce(
     point_valid: torch.Tensor,
     k: int = 1,
     max_radius_sq=None,
+    stream_block: int = STREAM_BLOCK,
     spatial_axis: Optional[str] = None,
     point_payload: Optional[torch.Tensor] = None,
 ) -> NNResult:
     """Exact kNN of queries [Q, 3] among points [C, 3].
 
     max_radius_sq: scalar or [Q] — pairs at or beyond it are invalidated.
-    spatial_axis / point_payload (the spatially sharded map) and maps of
-    more than STREAM_BLOCK points (the streamed sweep) are not ported yet.
+    stream_block: maps of more than this many points take the streamed
+    sweep (same result; on the CPU also its superblock size).
+    spatial_axis / point_payload (the spatially sharded map) are not ported
+    yet.
     """
     if spatial_axis is not None or point_payload is not None:
         raise NotImplementedError(
             "knn_bruteforce: spatial_axis / point_payload (sharded maps) are "
             "not ported yet"
         )
-    C = points.shape[0]
-    if C > STREAM_BLOCK:
-        raise NotImplementedError(
-            f"knn_bruteforce: maps of more than {STREAM_BLOCK} points need the "
-            "streamed sweep (TPU kernel _nnk_kernel_streamed_dbuf), not ported yet"
-        )
     q = torch.where(query_valid[:, None], queries, _FAR).contiguous()
     p = torch.where(point_valid[:, None], points, -_FAR).contiguous()
-    d2, idx = knn_sweep(q, p, k)
-    valid = (idx >= 0) & (idx < C) & (d2 < 1.0e15)
-    if max_radius_sq is not None:
-        r = max_radius_sq  # a number, or a tensor on d2's device
-        if isinstance(r, torch.Tensor) and r.ndim == 1:
-            r = r[:, None]
-        valid = valid & (d2 < r)
-    return NNResult(
-        idx=torch.where(valid, idx, -1),
-        dist_sq=torch.where(valid, d2, _BIG),
-        valid=valid,
-    )
+    d2, idx = _sweep_op(q, p, k, stream_block)
+    r = max_radius_sq  # a number, or a tensor on d2's device
+    if isinstance(r, torch.Tensor) and r.ndim == 1:
+        r = r[:, None]
+    return _result(d2, idx, points.shape[0], r)
+
+
+def knn_bruteforce_batched(
+    queries: torch.Tensor,
+    query_valid: torch.Tensor,
+    points: torch.Tensor,
+    point_valid: torch.Tensor,
+    k: int = 1,
+    max_radius_sq=None,
+) -> NNResult:
+    """``knn_bruteforce`` for B problems at once: queries [B, Q, 3] with
+    query_valid [B, Q]; points [B, C, 3] with point_valid [B, C], or one
+    shared [C, 3] map with [C]. max_radius_sq: scalar, [B] (per problem) or
+    [B, Q]. Returns an NNResult of [B, Q, k], from one batched sweep."""
+    q = torch.where(query_valid[..., None], queries, _FAR).contiguous()
+    p = torch.where(point_valid[..., None], points, -_FAR).contiguous()
+    d2, idx = knn_sweep_batched(q, p, k)
+    r = max_radius_sq
+    if isinstance(r, torch.Tensor) and r.ndim >= 1:
+        r = r[:, None, None] if r.ndim == 1 else r[..., None]
+    return _result(d2, idx, points.shape[-2], r)

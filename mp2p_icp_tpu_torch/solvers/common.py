@@ -54,9 +54,9 @@ class VectorPairs(NamedTuple):
 
 def eval_centroids(p: Pairings, extra_mask: Optional[torch.Tensor] = None):
     """Weight-masked centroids of the pt2pt block."""
-    w = (p.pt2pt.weight > 0).to(torch.float32)
+    w = (p.pt2pt.weight > 0).to(p.pt2pt.weight.dtype)
     if extra_mask is not None:
-        w = w * extra_mask.to(torch.float32)
+        w = w * extra_mask.to(w.dtype)
     n = torch.clamp(torch.sum(w), min=1.0)
     ct_local = torch.sum(p.pt2pt.local * w[:, None], dim=0) / n
     ct_global = torch.sum(p.pt2pt.globl * w[:, None], dim=0) / n
@@ -91,8 +91,8 @@ def _assemble(p, wp, ct_local, ct_global, normalize_point_vectors, current_estim
         r = r / torch.clamp(rn, min=1e-12)[:, None]
 
     # --- ln2ln directions and pl2pl normals as attitude pairs
-    w_ln = (p.ln2ln.weight > 0).to(torch.float32) * (pw.ln2ln / denom)
-    w_pl = (p.pl2pl.weight > 0).to(torch.float32) * (pw.pl2pl / denom)
+    w_ln = (p.ln2ln.weight > 0).to(p.ln2ln.weight.dtype) * (pw.ln2ln / denom)
+    w_pl = (p.pl2pl.weight > 0).to(p.pl2pl.weight.dtype) * (pw.pl2pl / denom)
     all_b = torch.cat([b, p.ln2ln.global_dir, p.pl2pl.global_normal], dim=0)
     all_r = torch.cat([r, p.ln2ln.local_dir, p.pl2pl.local_normal], dim=0)
     all_w = torch.cat([w_pt, w_ln, w_pl], dim=0)

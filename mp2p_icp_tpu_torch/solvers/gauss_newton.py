@@ -75,11 +75,12 @@ def _pt2pt_closed_form(pose: Pose, local, globl, w):
     M = torch.einsum("c,ci,cj->ij", w, local, local)
     l_sq = torch.einsum("c,ci,ci->", w, local, local)
     eye = torch.eye(3, dtype=local.dtype, device=local.device)
-    H = torch.zeros(6, 6, dtype=torch.float32, device=local.device)
-    H[:3, :3] = torch.sum(w) * eye
-    H[:3, 3:] = -se3.hat(s_l)
-    H[3:, :3] = se3.hat(s_l)
-    H[3:, 3:] = l_sq * eye - M
+    # assembled out of place (no writes into a fresh tensor), so the
+    # function runs under torch.func.vmap
+    H = torch.cat([
+        torch.cat([torch.sum(w) * eye, -se3.hat(s_l)], dim=1),
+        torch.cat([se3.hat(s_l), l_sq * eye - M], dim=1),
+    ])
     g = torch.cat([
         torch.einsum("c,ci->i", w, rtR),
         torch.einsum("c,ci->i", w, torch.linalg.cross(local, rtR)),
@@ -181,7 +182,7 @@ def optimal_tf_gauss_newton(
     params = params or GNParams()
     pose = linearization_point
     done = torch.zeros((), dtype=torch.bool, device=pose.t.device)
-    eye6 = torch.eye(6, dtype=torch.float32, device=pose.t.device)
+    eye6 = torch.eye(6, dtype=pose.t.dtype, device=pose.t.device)
     for _ in range(params.max_iterations):
         H, g, err_sq = gn_build_normal_equations(pose, pairings, params, prior)
         delta = -solve_normal_equations(H + params.damping * eye6, g)

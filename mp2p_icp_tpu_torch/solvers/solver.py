@@ -6,12 +6,23 @@ Port of ``SolverHorn`` and ``SolverGaussNewton`` from
 ``run_until_translation_correction_smaller_than`` latch lives in
 ``ICP._run_solvers``. Horn converts pt2ln/pt2pl to virtual pt2pt first
 (Solver_Horn.cpp:41-61). ``SolverOLAE`` is not ported yet.
+
+Both solvers compute in float64 and return a float32 pose (the JAX
+package solves in float32). Scan-to-map poses sit hundreds of metres from
+the origin, where one float32 step is ~3e-5 m, so float32 sums over
+thousands of pairs round differently with the summation order: a batched
+solve (parallel.batch) would drift from the sequential one by a few ulps
+each iteration, enough to flip a pair at the distance threshold. Summed in
+float64 and rounded once, both give the same float32 pose.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
+import torch.utils._pytree as pytree
 
 from mp2p_icp_tpu_torch.core.pairings import Pairings
 from mp2p_icp_tpu_torch.core.se3 import Pose
@@ -24,6 +35,21 @@ from mp2p_icp_tpu_torch.solvers.gauss_newton import (
 )
 from mp2p_icp_tpu_torch.solvers.horn import optimal_tf_horn
 from mp2p_icp_tpu_torch.solvers.pt2_conversions import pt2ln_pl_to_pt2pt
+
+
+def solve_in_f64(solve: Callable, pairings: Pairings, guess: Pose,
+                 prior: Optional[SE3Prior] = None) -> Pose:
+    """``solve(pairings, guess, prior)`` on float64 copies of its inputs,
+    with the resulting pose rounded back to the guess's dtype."""
+    def f64(tree):
+        return pytree.tree_map(
+            lambda x: x.double() if isinstance(x, torch.Tensor) and x.is_floating_point()
+            else x, tree)
+
+    prior64 = (None if prior is None
+               else SE3Prior(mean=f64(prior.mean), inv_cov=prior.inv_cov.double()))
+    out = solve(f64(pairings), f64(guess), prior64)
+    return Pose(out.R.to(guess.R.dtype), out.t.to(guess.t.dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +85,11 @@ class SolverHorn(Solver):
 
     def solve(self, pairings: Pairings, guess: Pose,
               prior: Optional[SE3Prior] = None, iteration=None) -> Pose:
-        p = pt2ln_pl_to_pt2pt(pairings, guess)
-        return optimal_tf_horn(p, self.weight_params, current_estimate=guess)
+        def horn(pairings, guess, prior):
+            p = pt2ln_pl_to_pt2pt(pairings, guess)
+            return optimal_tf_horn(p, self.weight_params, current_estimate=guess)
+
+        return solve_in_f64(horn, pairings, guess)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,4 +101,6 @@ class SolverGaussNewton(Solver):
     def solve(self, pairings: Pairings, guess: Pose,
               prior: Optional[SE3Prior] = None, iteration=None) -> Pose:
         static_value(self.gn_params.kernel_param, "kernel_param")
-        return optimal_tf_gauss_newton(pairings, guess, self.gn_params, prior)
+        return solve_in_f64(
+            lambda p, g, pr: optimal_tf_gauss_newton(p, g, self.gn_params, pr),
+            pairings, guess, prior)

@@ -154,7 +154,8 @@ def test_pairings_empty_and_size():
 def test_package_does_not_import_jax():
     code = (
         "import sys, mp2p_icp_tpu_torch, mp2p_icp_tpu_torch.icp, "
-        "mp2p_icp_tpu_torch.convert, mp2p_icp_tpu_torch.parity; "
+        "mp2p_icp_tpu_torch.convert, mp2p_icp_tpu_torch.parity, "
+        "mp2p_icp_tpu_torch.parallel; "
         "assert 'jax' not in sys.modules, 'jax was imported'"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -154,10 +154,11 @@ def test_unported_inputs_raise():
     g, loc = street_pair(256)
     icp = ICP(matchers=[MatcherPointsDistanceThreshold()], solvers=[SolverHorn()])
     local = {"raw": PointCloud.from_numpy(loc)}
-    # a global layer above crop_capacity needs the large-map crop
-    with pytest.raises(NotImplementedError, match="crop"):
-        icp.align(local, {"raw": PointCloud.from_numpy(g)}, se3.identity(),
-                  ICPParameters(crop_capacity=128))
+    # a global layer above crop_capacity is cropped now (it raised before
+    # the crop was ported): the recorded ids still address the user's map
+    res = icp.align(local, {"raw": PointCloud.from_numpy(g)}, se3.identity(),
+                    ICPParameters(crop_capacity=128))
+    assert res.n_iterations > 0 and int(res.final_pairings.pt2pt.global_idx.max()) < 256
     # MetricMap-like input (anything but a dict of layers)
     with pytest.raises(NotImplementedError, match="MetricMap"):
         icp.align(dataclasses.make_dataclass("M", ["layers"])(local),
