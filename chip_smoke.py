@@ -7,16 +7,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 
 1. name the card (nvidia-smi name and power limit); no CUDA -> fail;
 2. build the three CUDA kernels from mp2p_icp_tpu_torch/csrc, one nvcc
-   each, all at once; print each kernel's registers, spills and shared
-   memory;
+   each, all at once; print the registers, spills and shared memory of
+   the k = 1 and k = 8 instantiations;
 3. hold each kNN kernel against its plain PyTorch version on the card, bit
    for bit (max |d2 - d2_plain| must be 0): K1 on two 8192-point street
    scans for k=1 and k=8 and a ragged 777x3001 case with invalid rows and a
    per-query radius; K3 (the streamed sweep) on 8192 scan points against a
    262144-point corridor map for k=1 and k=8 and a ragged case; K2 (the
    batched sweep) on 8 scans of 8192 points against 8 maps of 65536 points
-   and against one shared map, plus a ragged case; median times of kernels
-   and plain versions by CUDA events;
+   and against one shared map, plus a ragged case; then, for each kernel
+   and k in {1, 8}, the cases that stress the split of the point axis:
+   points on an integer grid with duplicates (so the order of the merge
+   decides every tie), Q = 1, 777 and 5000, fewer points than one tile and
+   than one block has warps, a batch whose stride is not 16-byte aligned
+   (C = 3001), and the odometry shapes 6144x16384 and 2048x16384 (k=8).
+   Times: each kernel at every shape its path (or the odometry step)
+   gives it, as device time per launch of a CUDA graph of 20 wrapper
+   calls and as the time of one call between CUDA events (which includes
+   the host's part of the call), taken in turns, beside its bound, its
+   plain version and, at 8192x8192, torch.cdist + topk for information;
 4. the scan-to-scan path: ICP.align with the KITTI configuration on the
    bench street pair at 8192 points, then 8 further pairs served one after
    another; each SE(3) error must be < 0.1 and K1's launch count must equal
@@ -39,6 +48,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 8. one JSON line with the kernels' numbers, then the last line
    {"ok": true, "device": {...}}.
 
+The port's constructors put their tensors on the card by default; this
+script passes ``device=`` only where it asks for the CPU (to prepare the
+scans as before, and for the CPU comparison of phase 4).
+
 Every kernel's launch count is set to 0 just before each path and read
 just after it. Imports torch, numpy, the port and bench.py's scene
 generator (numpy only); never jax.
@@ -57,7 +70,9 @@ import numpy as np
 import torch
 
 import bench
+from mp2p_icp_tpu_torch import default_device
 from mp2p_icp_tpu_torch.core import se3
+from mp2p_icp_tpu_torch.core.pairings import Pairings
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.icp import ICP, ICPParameters, IterTermReason
 from mp2p_icp_tpu_torch.matchers import (
@@ -95,6 +110,13 @@ MAP_CASES = (("1M", 1 << 20, 1 << 16, (0.00133, 30, "STALLED")),
              ("16M", 1 << 24, 1 << 18, (0.00139, 32, "STALLED")))
 MAP_TIMED = {"1M": 5, "2M": 3, "16M": 2}  # warm aligns timed per map
 BATCH = 8
+# the least time the card can take: the kernels issue 9 FP32 instructions
+# per pair (3 sub, 3 mul, 2 add, 1 compare), none an FMA, so its 67 TFLOP/s
+# (NVIDIA's data sheet, H100 SXM) are 33.5 T instructions/s; the bytes
+# (each point, query and result once) at 3.35 TB/s are far less
+FP32_INSTRUCTIONS_PER_S = 67.0e12 / 2
+BYTES_PER_S = 3.35e12
+GRAPH_LAUNCHES = 20
 # JAX CPU reference of the batched problem (bench.py:431-463): iterations
 # per problem, all STALLED, SE(3) errors 0.0012-0.0081
 BATCH_JAX_ITERS = [17, 27, 24, 19, 25, 34, 28, 15]
@@ -121,14 +143,14 @@ def kitti_icp():
     )
 
 
-def street_pair(scene, seed_g, seed_l, device):
-    """(local layers, global layers) of one bench pair on ``device``."""
+def street_pair(scene, seed_g, seed_l):
+    """(local layers, global layers) of one bench pair, on the port's
+    default device (the scan is moved into the sensor frame on the CPU)."""
     g = bench.sample_scan(scene, np.random.RandomState(seed_g), n=N_POINTS)
     loc = bench.sample_scan(scene, np.random.RandomState(seed_l), n=N_POINTS)
-    gt = se3.from_xyz_ypr(*GT)
+    gt = se3.from_xyz_ypr(*GT, device="cpu")
     loc = se3.apply(se3.inverse(gt), torch.from_numpy(loc)).numpy()
-    return ({"raw": PointCloud.from_numpy(loc, device=device)},
-            {"raw": PointCloud.from_numpy(g, device=device)})
+    return ({"raw": PointCloud.from_numpy(loc)}, {"raw": PointCloud.from_numpy(g)})
 
 
 def corridor_scene(rng2, n, length=400.0):
@@ -161,14 +183,16 @@ def map_icp():
     )
 
 
-def sensor_scan(corridor, cx, seed, err_ypr, device):
+def sensor_scan(corridor, cx, seed, err_ypr):
     """(sensor-frame scan layers, guess = sensor pose, true pose) of one
-    scan of the corridor at x=cx, as bench.py:380-383 and :436-451 make it."""
+    scan of the corridor at x=cx, as bench.py:380-383 and :436-451 make it;
+    prepared on the CPU, returned on the port's default device."""
     scan = local_window(corridor, cx, np.random.RandomState(seed))
-    sensor = se3.from_xyz_ypr(cx, 0.0, 1.5, 0.0, 0.0, 0.0)
-    gt = se3.compose(sensor, se3.from_xyz_ypr(*err_ypr))
+    sensor = se3.from_xyz_ypr(cx, 0.0, 1.5, 0.0, 0.0, 0.0, device="cpu")
+    gt = se3.compose(sensor, se3.from_xyz_ypr(*err_ypr, device="cpu"))
     local = se3.apply(se3.inverse(gt), torch.from_numpy(scan)).numpy()
-    return ({"raw": PointCloud.from_numpy(local, capacity=8192, device=device)},
+    device = default_device()
+    return ({"raw": PointCloud.from_numpy(local, capacity=8192)},
             se3.Pose(sensor.R.to(device), sensor.t.to(device)),
             se3.Pose(gt.R.to(device), gt.t.to(device)))
 
@@ -208,6 +232,44 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def graph_ms(fn, replays=7):
+    """Device milliseconds per call of fn(): a CUDA graph of GRAPH_LAUNCHES
+    calls (so no host gaps between the launches), the times of `replays`
+    replays by CUDA events, each divided by the calls."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_LAUNCHES)
+    return times
+
+
+def bound_ms(B, Q, C, k):
+    """(ms, "operations" or "bytes"): the least time the card can take for
+    B problems of Q queries against C points."""
+    ops = B * Q * C * 9 / FP32_INSTRUCTIONS_PER_S * 1e3
+    moved = (12 * B * (Q + C) + 8 * B * Q * k) / BYTES_PER_S * 1e3
+    return (ops, "operations") if ops >= moved else (moved, "bytes")
+
+
+def grid_points(rng, *shape):
+    """Points on a coarse integer grid: many exact duplicates and equal
+    distances, so the order of the merge decides which index comes back."""
+    return torch.from_numpy(rng.randint(0, 6, shape + (3,)).astype(np.float32))
+
+
 def compare(label, kernel, plain, *args):
     """A kernel against its plain version on the same card tensors: the
     distances must be equal bit for bit (both round (q-p)^2 per product and
@@ -229,7 +291,7 @@ def compare(label, kernel, plain, *args):
 
 def timed_aligns(icp, loc, glob, params, n, guess=None):
     """n synchronised aligns; returns (host-clock seconds of each, last result)."""
-    guess = guess or se3.identity(device=loc["raw"].xyz.device)
+    guess = guess or se3.identity()
     walls = []
     for _ in range(n):
         torch.cuda.synchronize()
@@ -361,15 +423,22 @@ def main():
         for line in rec["log"].splitlines():
             if "Compiling entry" in line:
                 entry = line.split("'")[1] if "'" in line else line.strip()
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line) and entry and (
+                    "ILi1E" in entry or "ILi8E" in entry):  # the k = 1 and k = 8 kernels
                 print(f"[build]   {entry}: {line.strip().removeprefix('ptxas info    : ')}")
     print(f"[build] all kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernels against their plain versions
     errs = {name: [] for name in KERNELS}
-    times = {}
     scene = bench.make_scene(np.random.RandomState(0))
-    loc, glob = street_pair(scene, 1, 2, dev)
+    loc, glob = street_pair(scene, 1, 2)
+    made = [loc["raw"].xyz, loc["raw"].count, se3.identity().t, se3.from_xyz_ypr(*GT).R,
+            Pairings.empty(pt2pt_cap=4).pt2pt.weight]
+    check(all(t.device.type == "cuda" for t in made),
+          f"a constructor without device= left the card: {[str(t.device) for t in made]}")
+    print(f"[device] default_device() = {default_device()}; PointCloud.from_numpy, "
+          f"se3.identity, se3.from_xyz_ypr and Pairings.empty without device= gave "
+          f"{sorted({str(t.device) for t in made})}")
     q = loc["raw"].xyz.contiguous()
     p = glob["raw"].xyz.contiguous()
     for k in (1, 8):
@@ -412,7 +481,7 @@ def main():
     p_rag = torch.where(torch.from_numpy(rng.rand(n_rag) > 0.1)[:, None].to(dev),
                         map_p[:n_rag], -1.0e8).contiguous()
     errs["knn_sweep_streamed"].append(compare(
-        f"K3 5000x{n_rag} k=3 invalid rows (slices {nnb.stream_slices(5000, n_rag, nnb._sm_count(0))})",
+        f"K3 5000x{n_rag} k=3 invalid rows ({tuple(nnb.sweep_split(5000, n_rag, nnb._sm_count(0), 3))})",
         nnb.knn_sweep_streamed, nnb.knn_plain_streamed, q_rag, p_rag, 3))
 
     # K2: 8 scans of the batched case against 8 maps of 65536 points, and
@@ -431,53 +500,132 @@ def main():
         f"K2 {BATCH}x777x3001 k=4 invalid rows", nnb.knn_sweep_batched,
         nnb.knn_plain_batched, qs.expand(BATCH, -1, -1).contiguous(),
         torch.stack([ps.roll(b, 0) for b in range(BATCH)]), 4))
+    # the split of the point axis: ties everywhere, ragged Q, C below one
+    # tile and below a block's warps, a misaligned batch stride, the
+    # odometry shapes
+    n_sm = nnb._sm_count(0)
+    for k in (1, 8):
+        for Q, C in ((5000, 20011), (1, 3001), (777, 100), (777, 3)):
+            errs["knn_sweep"].append(compare(
+                f"K1 {Q}x{C} k={k} integer grid (ties), (warps, slices, slice) "
+                f"{tuple(nnb.sweep_split(Q, C, n_sm, k))}", nnb.knn_sweep, nnb.knn_plain,
+                grid_points(rng, Q).to(dev), grid_points(rng, C).to(dev), k))
+        for Q, C in ((5000, n_rag), (1, 140_000), (777, 100)):
+            errs["knn_sweep_streamed"].append(compare(
+                f"K3 {Q}x{C} k={k} integer grid (ties), (warps, slices, slice) "
+                f"{tuple(nnb.sweep_split(Q, C, n_sm, k))}", nnb.knn_sweep_streamed,
+                nnb.knn_plain_streamed, grid_points(rng, Q).to(dev),
+                grid_points(rng, C).to(dev), k))
+        for B, Q, C, shared in ((BATCH, 777, 3001, False), (2, 5000, 20011, True),
+                                (3, 1, 100, False), (BATCH, 777, 3, False)):
+            errs["knn_sweep_batched"].append(compare(
+                f"K2 {B}x{Q}x{C} k={k} integer grid (ties){' shared map' if shared else ''}, "
+                f"(warps, slices, slice) {tuple(nnb.sweep_split(Q, C, n_sm, k, B))}",
+                nnb.knn_sweep_batched,
+                nnb.knn_plain_batched, grid_points(rng, B, Q).to(dev),
+                grid_points(rng, *(() if shared else (B,)), C).to(dev), k))
+    odo_q, odo_p = scan_q[:6144].contiguous(), map_p[: 1 << 14].contiguous()
+    errs["knn_sweep"].append(compare("K1 6144x16384 k=1 (odometry step)", nnb.knn_sweep,
+                                     nnb.knn_plain, odo_q, odo_p, 1))
+    errs["knn_sweep"].append(compare("K1 2048x16384 k=8 (odometry normals)", nnb.knn_sweep,
+                                     nnb.knn_plain, odo_q[:2048].contiguous(), odo_p, 8))
     torch.cuda.synchronize()
+    for Q, C, k, B in ((6144, 1 << 14, 1, 1), (2048, 1 << 14, 8, 1), (N_POINTS, N_POINTS, 1, 1),
+                       (N_POINTS, 1 << 16, 1, 1), (N_POINTS, 1 << 18, 1, 1),
+                       (N_POINTS, 1 << 16, 1, BATCH)):
+        # the grid and block sizes as the built library forms them for the
+        # wrapper's split (both register tiles, k = 1 and k = 8), beside the
+        # wrapper's own arithmetic
+        split = nnb.sweep_split(Q, C, n_sm, k, B)
+        gx, gy, gz, threads = nnb.kernel_launch_dims(Q, B, k, split.groups, split.slices)
+        blocks, warps = gx * gy * gz, gx * gy * gz * threads // 32
+        shape = nnb.launch_shape(Q, C, n_sm, k, B)
+        check((blocks, warps) == (shape["blocks"], shape["warps"]),
+              f"{B}x{Q}x{C}: the library launches {blocks} blocks, {warps} warps; "
+              f"the wrapper counts {shape['blocks']}, {shape['warps']}")
+        print(f"[launch] {B}x{Q}x{C} k={k} on {n_sm} SMs: grid ({gx}, {gy}, {gz}) x {threads} "
+              f"threads = {blocks} blocks of {threads // 32} warps, {warps} warps = "
+              f"{warps / n_sm:.1f} per SM; {gy} slices of {split.slice_len} points, "
+              f"{shape['points_per_warp']} points per warp")
+        check(warps / n_sm >= 15.5, f"{B}x{Q}x{C}: under ~16 warps per SM")
 
-    times["knn_sweep"] = (cuda_ms(lambda: nnb.knn_sweep(q, p, 1)),
-                          cuda_ms(lambda: nnb.knn_plain(q, p, 1), reps=5))
-    ms8 = (cuda_ms(lambda: nnb.knn_sweep(q, p, 8)), cuda_ms(lambda: nnb.knn_plain(q, p, 8), reps=5))
-    for k, (ms, plain_ms) in ((1, times["knn_sweep"]), (8, ms8)):
-        print(f"[time] K1 {N_POINTS}x{N_POINTS} k={k}: kernel {ms:.4f} ms, "
-              f"knn_plain {plain_ms:.4f} ms (median, CUDA events) on {smi}")
-    times["knn_sweep_streamed"] = (
-        cuda_ms(lambda: nnb.knn_sweep_streamed(scan_q, map_p, 1)),
-        cuda_ms(lambda: nnb.knn_plain_streamed(scan_q, map_p, 1), reps=3, warmup=1))
-    k3_8 = cuda_ms(lambda: nnb.knn_sweep_streamed(scan_q, map_p, 8))
-    k1_big = cuda_ms(lambda: nnb.knn_sweep(scan_q, map_p, 1))
-    print(f"[time] K3 8192x262144 k=1: kernel {times['knn_sweep_streamed'][0]:.4f} ms, "
-          f"knn_plain_streamed {times['knn_sweep_streamed'][1]:.4f} ms; k=8 kernel "
-          f"{k3_8:.4f} ms; K1 on the same shape {k1_big:.4f} ms (median, CUDA events) on {smi}")
-    times["knn_sweep_batched"] = (
-        cuda_ms(lambda: nnb.knn_sweep_batched(scans_b, maps_b, 1)),
-        cuda_ms(lambda: nnb.knn_plain_batched(scans_b, maps_b, 1), reps=3, warmup=1))
-    k2_shared = cuda_ms(lambda: nnb.knn_sweep_batched(scans_b, maps_b[0], 1))
+    # ---- times, in turns: (kernel, label, B, Q, C, k, kernel call, plain call)
+    map_64k = maps_b[1]
+    timed = [
+        ("knn_sweep", "scan to scan", 1, N_POINTS, N_POINTS, 1,
+         lambda: nnb.knn_sweep(q, p, 1), lambda: nnb.knn_plain(q, p, 1)),
+        ("knn_sweep", "scan to scan k=8", 1, N_POINTS, N_POINTS, 8,
+         lambda: nnb.knn_sweep(q, p, 8), lambda: nnb.knn_plain(q, p, 8)),
+        ("knn_sweep", "odometry step", 1, 6144, 1 << 14, 1,
+         lambda: nnb.knn_sweep(odo_q, odo_p, 1), lambda: nnb.knn_plain(odo_q, odo_p, 1)),
+        ("knn_sweep", "odometry normals", 1, 2048, 1 << 14, 8,
+         lambda: nnb.knn_sweep(odo_q[:2048], odo_p, 8),
+         lambda: nnb.knn_plain(odo_q[:2048], odo_p, 8)),
+        ("knn_sweep", "1M-map crop", 1, N_POINTS, 1 << 16, 1,
+         lambda: nnb.knn_sweep(scan_q, map_64k, 1), lambda: nnb.knn_plain(scan_q, map_64k, 1)),
+        ("knn_sweep", "K1 on K3's shape", 1, N_POINTS, 1 << 18, 1,
+         lambda: nnb.knn_sweep(scan_q, map_p, 1), None),
+        ("knn_sweep_streamed", "2M-map crop", 1, N_POINTS, 1 << 18, 1,
+         lambda: nnb.knn_sweep_streamed(scan_q, map_p, 1),
+         lambda: nnb.knn_plain_streamed(scan_q, map_p, 1)),
+        ("knn_sweep_streamed", "2M-map crop k=8", 1, N_POINTS, 1 << 18, 8,
+         lambda: nnb.knn_sweep_streamed(scan_q, map_p, 8), None),
+        ("knn_sweep_batched", "batched", BATCH, N_POINTS, 1 << 16, 1,
+         lambda: nnb.knn_sweep_batched(scans_b, maps_b, 1),
+         lambda: nnb.knn_plain_batched(scans_b, maps_b, 1)),
+        ("knn_sweep_batched", "batched, shared map", BATCH, N_POINTS, 1 << 16, 1,
+         lambda: nnb.knn_sweep_batched(scans_b, map_64k, 1), None),
+        ("knn_sweep_batched", "batched B=2", 2, N_POINTS, 1 << 16, 1,
+         lambda: nnb.knn_sweep_batched(scans_b[:2], maps_b[:2], 1), None),
+    ]
+    graph_times = [[] for _ in timed]
+    for _ in range(2):  # two turns over all shapes
+        for at, case in enumerate(timed):
+            graph_times[at] += graph_ms(case[6])
+    shapes = {name: [] for name in KERNELS}
+    for (name, label, B, Q, C, k, run, plain), g_times in zip(timed, graph_times):
+        bnd, by = bound_ms(B, Q, C, k)
+        ms = statistics.median(g_times)
+        row = {"shape": f"{B}x{Q}x{C}", "k": k, "what": label, "ms": ms,
+               "call_ms": cuda_ms(run), "bound_ms": bnd, "bound_by": by,
+               "share_of_bound": bnd / ms,
+               "plain_ms": cuda_ms(plain, reps=3, warmup=1) if plain else None,
+               "library_ms": None}
+        if label == "scan to scan":
+            # for information: two PyTorch calls, a Q x C temporary, another tie order
+            row["library_ms"] = cuda_ms(
+                lambda: torch.cdist(q, p).topk(1, dim=1, largest=False), reps=10)
+        shapes[name].append(row)
+        print(f"[time] {name} {label} {B}x{Q}x{C} k={k}: {ms:.4f} ms per launch in a CUDA "
+              f"graph, {row['call_ms']:.4f} ms for one call between events; bound {bnd:.4f} ms "
+              f"({by}), share {bnd / ms:.1%}; plain "
+              f"{'%.4f ms' % row['plain_ms'] if plain else 'not timed'}; library "
+              f"{'cdist + topk %.4f ms' % row['library_ms'] if row['library_ms'] else 'none'} "
+              f"on {smi}")
 
     def eight_k1():
         for b in range(BATCH):
             nnb.knn_sweep(scans_b[b], maps_b[b], 1)
 
-    k1_x8 = cuda_ms(eight_k1)
-    print(f"[time] K2 {BATCH}x8192x65536 k=1: kernel {times['knn_sweep_batched'][0]:.4f} ms "
-          f"(shared map {k2_shared:.4f} ms), knn_plain_batched "
-          f"{times['knn_sweep_batched'][1]:.4f} ms; aside: {BATCH} K1 launches "
-          f"{k1_x8:.4f} ms (median, CUDA events) on {smi}")
-    del maps_b
+    print(f"[time] aside: {BATCH} K1 launches for the batched shape "
+          f"{statistics.median(graph_ms(eight_k1)):.4f} ms in a CUDA graph on {smi}")
+    del maps_b, map_64k, timed
 
     launches = {name: 0 for name in KERNELS}
 
     # ---- 4. the scan-to-scan path
     icp = kitti_icp()
     params = ICPParameters(max_iterations=40)
-    gt = se3.from_xyz_ypr(*GT, device=dev)
+    gt = se3.from_xyz_ypr(*GT)
     requests = [(1, 2)] + [(100 + 2 * b, 101 + 2 * b) for b in range(N_REQUESTS)]
-    pairs = [street_pair(scene, sg, sl, dev) for sg, sl in requests]
+    pairs = [street_pair(scene, sg, sl) for sg, sl in requests]
     torch.cuda.synchronize()
     reset_counts()
     expected = 0
     results, wall = [], []
     for loc_l, glob_l in pairs:
         t0 = time.perf_counter()
-        res = icp.align(loc_l, glob_l, se3.identity(device=dev), params)
+        res = icp.align(loc_l, glob_l, se3.identity(), params)
         err = float(se3.error_log_norm(gt, res.optimal_tf))  # syncs
         wall.append(time.perf_counter() - t0)
         results.append((res, err))
@@ -507,7 +655,7 @@ def main():
     loc_c = {"raw": PointCloud(loc["raw"].xyz.cpu(), loc["raw"].count.cpu())}
     glob_c = {"raw": PointCloud(glob["raw"].xyz.cpu(), glob["raw"].count.cpu())}
     t0 = time.perf_counter()
-    res_c = icp.align(loc_c, glob_c, se3.identity(), params)
+    res_c = icp.align(loc_c, glob_c, se3.identity(device="cpu"), params)
     cpu_s = time.perf_counter() - t0
     gap = float(se3.error_log_norm(
         se3.Pose(res_c.optimal_tf.R.to(dev), res_c.optimal_tf.t.to(dev)), res.optimal_tf))
@@ -519,10 +667,10 @@ def main():
     # ---- 5. the scan-to-large-map path
     micp = map_icp()
     scan_l, sensor, gt_map = sensor_scan(corridor, 200.0, 34,
-                                         (0.9, 0.2, 0.02, 0.02, 0.003, -0.004), dev)
+                                         (0.9, 0.2, 0.02, 0.02, 0.003, -0.004))
     maps = {}
     for label, n_map, crop, (j_err, j_it, j_reason) in MAP_CASES:
-        gmap = {"map": PointCloud.from_numpy(corridor[:n_map], capacity=n_map, device=dev)}
+        gmap = {"map": PointCloud.from_numpy(corridor[:n_map], capacity=n_map)}
         mparams = ICPParameters(max_iterations=40, crop_capacity=crop, crop_extra_margin=4.0)
         kernel = "knn_sweep_streamed" if crop > nnb.STREAM_BLOCK else "knn_sweep"
         micp._crop_globals(mparams, gmap, scan_l, sensor)  # warm-up: first use of its ops
@@ -560,7 +708,7 @@ def main():
         cx = 60.0 + 280.0 * b / (BATCH - 1)
         ge = (0.9 * rngb.uniform(-1, 1), 0.2 * rngb.uniform(-1, 1), 0.02,
               0.02 * rngb.uniform(-1, 1), 0.003, -0.004)
-        problems.append(sensor_scan(corridor, cx, 100 + b, ge, dev))
+        problems.append(sensor_scan(corridor, cx, 100 + b, ge))
     bparams = ICPParameters(max_iterations=40, crop_capacity=1 << 16, crop_extra_margin=4.0)
     fn = make_batched_align(micp, bparams, broadcast_globals=True)
     l_b = stack_pytrees([pr_[0] for pr_ in problems])
@@ -621,6 +769,7 @@ def main():
         (out / "profile_tables.txt").write_text("\n\n".join(tables))
 
     # ---- 8. results
+    # a kernel's own line is its first shape (the one its path gives it)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -628,8 +777,9 @@ def main():
         "replaces": KERNELS[name][1],
         "launches": launches[name],
         "max_abs_err": max(errs[name]),
-        "ms": times[name][0],
-        "plain_ms": times[name][1],
+        **{key: shapes[name][0][key] for key in
+           ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound", "library_ms")},
+        "shapes": shapes[name],
     } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -15,6 +15,7 @@ import torch
 
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.core.se3 import Pose
+from mp2p_icp_tpu_torch.device import resolve
 from mp2p_icp_tpu_torch.icp import ICP
 from mp2p_icp_tpu_torch.matchers import (
     LayerMatch,
@@ -38,6 +39,7 @@ def pointcloud_from_numpy(xyz, count, device=None, **channels) -> PointCloud:
     """A PointCloud from a padded [C, 3] array and its valid count, with the
     padding rows kept as given (row-for-row with the JAX cloud). A stacked
     batch ([B, C, 3] with counts [B]) gives a batched cloud."""
+    device = resolve(device)
     xyz = np.array(xyz, dtype=np.float32)
     if xyz.ndim not in (2, 3) or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be [C, 3] or [B, C, 3], got {xyz.shape}")
@@ -90,6 +92,7 @@ def _np(x) -> np.ndarray:
 
 
 def pose_from_numpy(R, t, device=None) -> Pose:
+    device = resolve(device)
     return Pose(
         torch.from_numpy(np.array(R, dtype=np.float32)).to(device),
         torch.from_numpy(np.array(t, dtype=np.float32)).to(device),

@@ -14,6 +14,8 @@ import dataclasses
 import torch
 import torch.utils._pytree as pytree
 
+from mp2p_icp_tpu_torch.device import resolve
+
 
 class _Block:
     """Shared accessors of the five pairing blocks. Fields named ``*_idx``
@@ -31,6 +33,7 @@ class _Block:
 
     @classmethod
     def empty(cls, capacity: int, device=None):
+        device = resolve(device)
         out = {}
         for f in dataclasses.fields(cls):
             if f.name.endswith("idx"):
@@ -141,6 +144,7 @@ class Pairings:
         pl2pl_cap: int = 8,
         device=None,
     ) -> "Pairings":
+        device = resolve(device)
         return Pairings(
             pt2pt=PairsPt2Pt.empty(max(pt2pt_cap, 1), device),
             pt2ln=PairsPt2Ln.empty(max(pt2ln_cap, 1), device),

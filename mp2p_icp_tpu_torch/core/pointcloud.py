@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from mp2p_icp_tpu_torch.device import resolve
+
 
 def round_capacity(n: int, minimum: int = 256) -> int:
     """Round n up to the next power of two (>= minimum)."""
@@ -68,6 +70,7 @@ class PointCloud:
         time: Optional[np.ndarray] = None,
         device=None,
     ) -> "PointCloud":
+        device = resolve(device)
         xyz = np.asarray(xyz, dtype=np.float32).reshape(-1, 3)
         n = xyz.shape[0]
         cap = capacity or round_capacity(n)

@@ -9,7 +9,9 @@ Port of ``mp2p_icp_tpu/core/se3.py``; the conventions are the same:
   so every function stays branch-free on the host and broadcasts over
   leading axes.
 
-Every function works on the device of its inputs.
+Every function works on the device of its inputs; the two constructors
+(``identity``, ``from_xyz_ypr``) take ``device=None`` as the package's
+``default_device()``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from mp2p_icp_tpu_torch.device import resolve
 
 _EPS = 1e-8
 
@@ -29,6 +33,7 @@ class Pose(NamedTuple):
 
 
 def identity(dtype=torch.float32, device=None) -> Pose:
+    device = resolve(device)
     return Pose(torch.eye(3, dtype=dtype, device=device),
                 torch.zeros(3, dtype=dtype, device=device))
 
@@ -293,6 +298,7 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
 def from_xyz_ypr(x, y, z, yaw, pitch, roll, dtype=torch.float32, device=None) -> Pose:
     """Pose from translation + yaw/pitch/roll (ZYX convention, radians),
     matching the reference's CPose3D(x, y, z, yaw, pitch, roll)."""
+    device = resolve(device)
     x, y, z, yaw, pitch, roll = (
         torch.as_tensor(v, dtype=dtype, device=device)
         for v in (x, y, z, yaw, pitch, roll)

@@ -16,60 +16,36 @@
 // p + b * p_bstride (floats): a stride of 0 broadcasts one array to every
 // problem. Outputs are [B, Q, K].
 //
-// What bounds it: FP32 instruction issue, as for knn_bruteforce.cu (B*Q*C
-// pairs at 3 sub, 3 mul, 2 add and a compare each).
+// What bounds it: FP32 instruction issue, as for knn_bruteforce.cu: B*Q*C
+// pairs at 9 instructions each against 33.5 T FP32 instructions/s, 1.154 ms
+// for 8 x 8192 x 65536.
 //
-// The design: K1's sweep (knn_sweep.cuh) with the problem on blockIdx.y, so
-// B = 8 problems of 8192 queries give 1,024 blocks of 64 threads, ~8 per SM;
-// the broadcast map of a shared-map batch is read by every problem's blocks
-// from the L2 instead of being copied B times.
+// The design: the shared sweep of knn_sweep.cuh with the problem on
+// blockIdx.z. The wrapper counts B * (query chunks) when it sizes the point
+// split, so a large batch runs unsplit (S = 1: no scratch, no merge) and a
+// small one (B = 2) is split like a single problem. The broadcast map of a
+// shared-map batch is read by every problem's blocks from the L2 instead of
+// being copied B times. A batch stride of 3*C floats is 16-byte aligned
+// only when C is a multiple of 4; the sweep falls back to 4-byte copies for
+// the problems whose points start off that grid. Measured on an H100 80GB
+// HBM3 at 700 W (device time in a CUDA graph): 1.476 ms at 8 x 8192 x 65536
+// k=1, 78% of the bound (the kernel before it: 2.37 ms, 49%); 0.376 ms at
+// B = 2 (77%; before: 1.13 ms). PERF.md, section 6.
 
 #include "knn_sweep.cuh"
 
-namespace {
-
-using namespace mp2p_knn;
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-    knn_batched_kernel(const float* __restrict__ q, int Q, long long q_bstride,
-                       const float* __restrict__ p, int C, long long p_bstride,
-                       float* __restrict__ out_d, int* __restrict__ out_i) {
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = qi < Q;
-  float qx, qy, qz;
-  load_query(q + b * q_bstride, qi, live, qx, qy, qz);
-  float bd[K];
-  int bi[K];
-  init_list<K>(bd, bi);
-  sweep<K>(qx, qy, qz, p + b * p_bstride, 0, C, bd, bi);
-  if (live) {
-    const size_t off = static_cast<size_t>(b) * Q * K;
-    store<K>(out_d + off, out_i + off, qi, bd, bi);
-  }
-}
-
-}  // namespace
-
-// Plain C entry point (loaded with ctypes). Launches on `stream`, does not
-// synchronise and allocates nothing; returns cudaGetLastError() after the
-// launch (0 on success).
+// Plain C entry point (loaded with ctypes). Blocks of `groups` warps, S
+// slices of `slice` points (S * slice >= C); part_d / part_i are
+// [S, B * Q, k] scratch, read only when S > 1. Launches on `stream`, does
+// not synchronise and allocates nothing; returns cudaGetLastError() after
+// the launch (0 on success).
 extern "C" int mp2p_knn_sweep_batched_f32(const float* q, int Q,
                                           long long q_bstride, const float* p,
                                           int C, long long p_bstride, int B,
-                                          int k, float* out_d, int* out_i,
+                                          int k, int groups, int slice, int S,
+                                          float* part_d, int* part_i,
+                                          float* out_d, int* out_i,
                                           void* stream) {
-  if (Q <= 0 || B == 0) return static_cast<int>(cudaSuccess);
-  if (C < 0 || B < 0 || B > 65535 || q_bstride < 0 || p_bstride < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((Q + kThreads - 1) / kThreads, B);
-  const bool ok = with_k(k, [&](auto kc) {
-    constexpr int K = decltype(kc)::value;
-    knn_batched_kernel<K><<<grid, kThreads, 0, s>>>(q, Q, q_bstride, p, C,
-                                                    p_bstride, out_d, out_i);
-  });
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return mp2p_knn::run_sweep(q, Q, q_bstride, p, C, p_bstride, B, k, groups, slice, S,
+                             part_d, part_i, out_d, out_i, stream);
 }

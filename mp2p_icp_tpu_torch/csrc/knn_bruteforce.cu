@@ -1,4 +1,5 @@
-// Exact brute-force k-nearest-neighbour sweep (k <= 8) for Hopper (sm_90a).
+// Exact brute-force k-nearest-neighbour sweep (k <= 8) for Hopper (sm_90a):
+// one problem, Q queries against C points.
 //
 // Replaces the TPU kernel mp2p_icp_tpu/ops/nn_bruteforce.py::_nnk_kernel_gridless
 // (the Pallas sweep behind knn_bruteforce, run with k=1 by the DistanceThreshold
@@ -18,60 +19,46 @@
 // (__fmul_rn/__fadd_rn, no FMA contraction), so the result equals the plain
 // PyTorch version (knn_plain) bit for bit.
 //
-// What bounds it: arithmetic and compares, not memory. Each of the Q*C pairs
-// costs 3 subtractions, 3 multiplications, 2 additions and one compare with
-// the current K-th best (a K-step register insertion when it wins), while
-// the bytes moved are only the Q + C points themselves (12 B each) and the
-// Q*K results.
+// What bounds it: FP32 instruction issue, not memory: 9 instructions per
+// pair (3 sub, 3 mul, 2 add, 1 compare) against 33.5 T FP32 instructions/s,
+// i.e. 0.018 ms for 8192 x 8192 and 0.144 ms for 8192 x 65536, while the
+// bytes moved are only the Q + C points (12 B each) and the Q*K results.
 //
-// What the design does about that (the sweep itself is knn_sweep.cuh):
-//   * one thread per query; its K-best list lives in registers;
-//   * a block of kThreads queries sweeps the points in tiles of kTile staged
-//     in shared memory, so each point is read from device memory once per
-//     block and then broadcast to all threads;
-//   * the ragged Q and C edges are masked in the kernel.
-// Known limit: with one thread per query, Q = 8192 gives only 8192 threads
-// (2 warps per SM on 132 SMs). knn_streamed.cu splits the point axis across
-// blocks with a final k-merge; it serves the maps above STREAM_BLOCK.
+// What the design does about it is the shared sweep of knn_sweep.cuh: 8
+// queries per thread for k = 1, 16-byte shared-memory reads of the points
+// as they lie in memory, a warp-private cp.async tile ring, the index of the
+// nearest point found after the sweep, and a split of the point axis (G
+// warps per block, S slices across blocks, lists merged in index order) that
+// the wrapper sizes so that 6144-8192 queries put 16 warps on every SM in
+// blocks that fall evenly on the SMs. Measured on an H100 80GB HBM3 at 700 W
+// (device time in a CUDA graph): 0.031 ms at 8192 x 8192 k=1 (57% of the
+// bound; the one-thread-per-query kernel before it: 0.138 ms), 0.047 ms at
+// 6144 x 16384 (58%), 0.194 ms at 8192 x 65536 (74%; before: 1.09 ms), 0.12
+// ms at 8192 x 8192 k=8 (15%; before: 0.30 ms). PERF.md, section 6.
 
 #include "knn_sweep.cuh"
 
-namespace {
-
-using namespace mp2p_knn;
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-    knn_sweep_kernel(const float* __restrict__ q, int Q,
-                     const float* __restrict__ p, int C,
-                     float* __restrict__ out_d, int* __restrict__ out_i) {
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = qi < Q;
-  float qx, qy, qz;
-  load_query(q, qi, live, qx, qy, qz);
-  float bd[K];
-  int bi[K];
-  init_list<K>(bd, bi);
-  sweep<K>(qx, qy, qz, p, 0, C, bd, bi);
-  if (live) store<K>(out_d, out_i, qi, bd, bi);
+// Plain C entry point (loaded with ctypes). Blocks of `groups` warps, S
+// slices of `slice` points (S * slice >= C); part_d / part_i are [S, Q, k]
+// scratch, read only when S > 1. Launches on `stream`, does not synchronise
+// and allocates nothing; returns cudaGetLastError() after the launch (0 on
+// success).
+extern "C" int mp2p_knn_sweep_f32(const float* q, int Q, const float* p, int C,
+                                  int k, int groups, int slice, int S,
+                                  float* part_d, int* part_i, float* out_d,
+                                  int* out_i, void* stream) {
+  return mp2p_knn::run_sweep(q, Q, 0, p, C, 0, 1, k, groups, slice, S, part_d, part_i,
+                             out_d, out_i, stream);
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes). Launches on `stream`, does not
-// synchronise and allocates nothing; returns cudaGetLastError() after the
-// launch (0 on success).
-extern "C" int mp2p_knn_sweep_f32(const float* q, int Q, const float* p, int C,
-                                  int k, float* out_d, int* out_i,
-                                  void* stream) {
-  if (Q <= 0) return static_cast<int>(cudaSuccess);
-  if (C < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((Q + kThreads - 1) / kThreads);
-  const bool ok = with_k(k, [&](auto kc) {
-    constexpr int K = decltype(kc)::value;
-    knn_sweep_kernel<K><<<grid, kThreads, 0, s>>>(q, Q, p, C, out_d, out_i);
-  });
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+// The launch configuration the sweep kernel gets for these arguments, from
+// the functions launch_sweep itself uses: out[0..2] = the grid, out[3] =
+// threads per block. Launches nothing.
+extern "C" void mp2p_knn_sweep_launch_dims(int Q, int B, int k, int groups, int S,
+                                           int* out) {
+  const dim3 grid = mp2p_knn::sweep_grid(Q, B, k, S);
+  out[0] = static_cast<int>(grid.x);
+  out[1] = static_cast<int>(grid.y);
+  out[2] = static_cast<int>(grid.z);
+  out[3] = mp2p_knn::sweep_threads(groups);
 }

@@ -193,8 +193,8 @@ class MatcherAdaptive(Matcher):
                     )
 
         out = {
-            "pt2pt": concat_blocks(pt_blocks, PairsPt2Pt),
-            "pt2pl": concat_blocks(pl_blocks, PairsPt2Pl),
+            "pt2pt": concat_blocks(pt_blocks, PairsPt2Pt, pose.t.device),
+            "pt2pl": concat_blocks(pl_blocks, PairsPt2Pl, pose.t.device),
         }
         new_state = (
             MatchState(local_paired=new_local, global_paired=new_global)

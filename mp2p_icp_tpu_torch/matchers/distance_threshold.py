@@ -132,7 +132,7 @@ class MatcherPointsDistanceThreshold(Matcher):
                     new_global[lm.global_layer], gidx, wf > 0
                 )
 
-        pt2pt = concat_blocks(blocks, PairsPt2Pt)
+        pt2pt = concat_blocks(blocks, PairsPt2Pt, pose.t.device)
         new_state = (
             MatchState(local_paired=new_local, global_paired=new_global)
             if state is not None else None

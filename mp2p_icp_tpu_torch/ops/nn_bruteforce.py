@@ -21,6 +21,11 @@ runs its plain PyTorch version:
 - ``knn_sweep_batched``: ``csrc/knn_batched.cu`` replaces
   ``_nnk_kernel_gridless_batched`` (K2); plain version ``knn_plain_batched``.
 
+The three kernels share one device sweep (``csrc/knn_sweep.cuh``) and one
+rule, ``sweep_split``, that lays a sweep on the card from (Q, C, B, k) and
+the SM count: blocks of G warps, S slices of the point axis, the partial
+lists merged in index order, so the result does not depend on the split.
+
 ``knn_bruteforce`` takes the streamed sweep for maps above ``stream_block``
 points, as the JAX package does. It calls the sweep through a custom
 operator whose vmap rule launches the batched sweep, so ``torch.func.vmap``
@@ -44,14 +49,16 @@ _BIG = 3.0e37
 _FAR = 1.0e8
 MAX_K = 8
 # maps above this many points take the streamed sweep (the JAX package's
-# VMEM limit; on the card it only selects the kernel that splits the point
-# axis across blocks)
+# VMEM limit; on the card it only selects the entry point: every sweep
+# splits the point axis as far as the card needs)
 STREAM_BLOCK = 131072
 _PLAIN_CHUNK = 1024  # queries per step of knn_plain: bounds its [chunk, C, 3] temporary
-_THREADS = 64  # queries per block of every sweep kernel (knn_sweep.cuh kThreads)
-_TILE = 512  # points per shared-memory tile (knn_sweep.cuh kTile)
-_BLOCKS_PER_SM = 16  # the streamed sweep's target occupancy
-_MIN_SLICE = 4 * _TILE  # fewest points a streamed block sweeps
+_WARP = 32
+_GROUPS = (16, 8)  # warps per block the split rule may choose, in order of preference
+_WARPS_PER_SM = (16, 32)  # what the split rule aims to keep in flight on every SM
+_MIN_PART = 128  # fewest points a warp sweeps: one tile of its ring (knn_sweep.cuh kTile)
+_BALANCE_SLACK = 0.05  # forms this close to the best balance count as balanced
+_MAX_GRID = 65535  # limit of the grid's slice and problem axes
 
 
 class NNResult(NamedTuple):
@@ -129,24 +136,26 @@ def _entry(lib: str, symbol: str, argtypes: tuple):
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# groups, slice, S, part_d, part_i, out_d, out_i, stream: the tail of every entry point
+_SPLIT_ARGS = (_I, _I, _I, _P, _P, _P, _P, _P)
 
 
 def load_kernel():
     """The K1 entry point (``csrc/knn_bruteforce.cu``)."""
     return _entry("knn_bruteforce", "mp2p_knn_sweep_f32",
-                  (_P, _I, _P, _I, _I, _P, _P, _P))
+                  (_P, _I, _P, _I, _I) + _SPLIT_ARGS)
 
 
 def load_streamed_kernel():
     """The K3 entry point (``csrc/knn_streamed.cu``)."""
     return _entry("knn_streamed", "mp2p_knn_sweep_streamed_f32",
-                  (_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P))
+                  (_P, _I, _P, _I, _I) + _SPLIT_ARGS)
 
 
 def load_batched_kernel():
     """The K2 entry point (``csrc/knn_batched.cu``)."""
     return _entry("knn_batched", "mp2p_knn_sweep_batched_f32",
-                  (_P, _I, _L, _P, _I, _L, _I, _I, _P, _P, _P))
+                  (_P, _I, _L, _P, _I, _L, _I, _I) + _SPLIT_ARGS)
 
 
 def _check(k, **arrays):
@@ -172,11 +181,121 @@ def _check(k, **arrays):
     return dev.type
 
 
-def _launch(fn, name, device, *args):
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def queries_per_thread(k: int) -> int:
+    """The kernels' register tile: queries held by one thread. The same two
+    numbers as ``queries_per_thread`` of knn_sweep.cuh, repeated here so
+    that the split rule runs without the library; ``kernel_launch_dims``
+    reads the kernels' side."""
+    return 8 if k == 1 else 1
+
+
+def kernel_launch_dims(Q: int, B: int, k: int, groups: int, slices: int):
+    """(grid x, grid y, grid z, threads per block) of the sweep kernel for
+    these arguments, answered by the built library from the functions its
+    launch uses. Launches nothing."""
+    fn = _entry("knn_bruteforce", "mp2p_knn_sweep_launch_dims", (_I, _I, _I, _I, _I, _P))
+    out = (ctypes.c_int * 4)()
+    fn(Q, B, k, groups, slices, out)
+    return tuple(out)
+
+
+class Split(NamedTuple):
+    """How a sweep is laid on the card: blocks of ``groups`` warps, each
+    block on one chunk of queries and one of ``slices`` slices of
+    ``slice_len`` points, which its warps cut into ``groups`` contiguous
+    parts."""
+    groups: int
+    slices: int
+    slice_len: int
+
+
+def split_form(chunks: int, C: int, n_sm: int, groups: int, warps_per_sm: int) -> Split:
+    """The split with blocks of ``groups`` warps and the most slices that
+    stay within ``warps_per_sm`` warps on every SM and leave every warp
+    ``_MIN_PART`` points. A slice is whole 4-point groups for each warp, so
+    every warp's part starts on a 16-byte border of an aligned map."""
+    per_sm = max(1, warps_per_sm // groups)
+    S = max(1, min(per_sm * n_sm // chunks, C // (groups * _MIN_PART), _MAX_GRID))
+    align = 4 * groups
+    slice_len = max(align, -(-(-(-C // S)) // align) * align)
+    return Split(groups, max(1, -(-C // slice_len)), slice_len)
+
+
+@functools.lru_cache(maxsize=1024)
+def split_chunks(chunks: int, C: int, n_sm: int) -> Split:
+    """The split for ``chunks`` query chunks (over all problems) of C
+    points each on n_sm SMs. What decides a sweep's time, once some 16
+    warps per SM hide the latencies, is how evenly the blocks fall on the
+    SMs: equal blocks take ceil(blocks / n_sm) rounds, and the share of
+    block slots that do work in those rounds is the balance. For each
+    block size of ``_GROUPS`` and each target of ``_WARPS_PER_SM`` the
+    candidate is ``split_form``; among the candidates within
+    ``_BALANCE_SLACK`` of the best balance the one with the largest blocks
+    and then the fewest slices wins, because every slice costs a list per
+    query in scratch memory and a step of the merge."""
+    cands = []
+    for groups in _GROUPS:
+        for warps in _WARPS_PER_SM:
+            form = split_form(chunks, C, n_sm, groups, warps)
+            blocks = chunks * form.slices
+            cands.append((blocks / (-(-blocks // n_sm) * n_sm), form))
+    best = max(balance for balance, _ in cands)
+    return max((form for balance, form in cands if balance >= best - _BALANCE_SLACK),
+               key=lambda form: (form.groups, -form.slices))
+
+
+def _chunks(Q: int, k: int, B: int) -> int:
+    """Query chunks (one per block and slice) of B problems of Q queries."""
+    return max(1, -(-Q // (_WARP * queries_per_thread(k)))) * max(1, B)
+
+
+def sweep_split(Q: int, C: int, n_sm: int, k: int = 1, B: int = 1) -> Split:
+    """The split of B problems of Q queries against C points each: one rule
+    for the three kernels, a function of the sizes and the SM count only."""
+    return split_chunks(_chunks(Q, k, B), C, n_sm)
+
+
+def launch_shape(Q: int, C: int, n_sm: int, k: int = 1, B: int = 1) -> dict:
+    """The launch configuration ``sweep_split`` leads to: blocks, warps,
+    warps per SM and points per warp."""
+    split = sweep_split(Q, C, n_sm, k, B)
+    blocks = _chunks(Q, k, B) * split.slices
+    return {"groups": split.groups, "slices": split.slices, "slice": split.slice_len,
+            "blocks": blocks, "warps": blocks * split.groups,
+            "warps_per_sm": blocks * split.groups / n_sm,
+            "points_per_warp": -(-split.slice_len // split.groups)}
+
+
+def _launch_split(entry, name, q, p, k, B, head):
+    """Allocate the outputs (and the scratch when the points are split
+    across blocks) and launch ``entry`` on q's device and current stream.
+    ``head``: the entry point's arguments before (groups, slice, S, ...).
+    Returns (d2 [B, Q, k], idx [B, Q, k], whether a kernel was launched)."""
+    Q, C = q.shape[-2], p.shape[-2]
+    dev = q.device
+    out_d = torch.empty((B, Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, Q, k), dtype=torch.int32, device=dev)
+    if Q == 0 or B == 0:
+        return out_d, out_i, False
+    groups, S, slice_len = sweep_split(Q, C, _sm_count(dev.index or 0), k, B)
+    part_d = part_i = None
+    if S > 1:
+        part_d = torch.empty((S, B * Q, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((S, B * Q, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = entry(*head, groups, slice_len, S,
+                    None if part_d is None else part_d.data_ptr(),
+                    None if part_i is None else part_i.data_ptr(),
+                    out_d.data_ptr(), out_i.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out_d, out_i, True
 
 
 def knn_sweep(q: torch.Tensor, p: torch.Tensor, k: int):
@@ -186,61 +305,35 @@ def knn_sweep(q: torch.Tensor, p: torch.Tensor, k: int):
 
     CPU tensors run ``knn_plain``; CUDA tensors launch the Hopper kernel
     (and raise if it cannot be built or launched — there is no fallback).
-    ``knn_sweep.launches`` counts kernel launches."""
+    ``knn_sweep.launches`` counts kernel launches (a sweep and the merge of
+    its slices count as one)."""
     if _check(k, q=(q, (2,)), p=(p, (2,))) == "cpu":
         return knn_plain(q, p, k)
-    Q, C = q.shape[0], p.shape[0]
-    out_d = torch.empty((Q, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((Q, k), dtype=torch.int32, device=q.device)
-    if Q == 0:
-        return out_d, out_i
-    _launch(load_kernel(), "knn_sweep", q.device, q.data_ptr(), Q, p.data_ptr(), C, k,
-            out_d.data_ptr(), out_i.data_ptr())
-    knn_sweep.launches += 1
-    return out_d, out_i
+    out_d, out_i, launched = _launch_split(
+        load_kernel(), "knn_sweep", q, p, k, 1,
+        (q.data_ptr(), q.shape[0], p.data_ptr(), p.shape[0], k))
+    knn_sweep.launches += launched
+    return out_d[0], out_i[0]
 
 
 knn_sweep.launches = 0
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def stream_slices(Q: int, C: int, n_sm: int) -> Tuple[int, int]:
-    """(S, slice): how the streamed kernel splits C points across blocks.
-    Enough slices that Q queries give about 16 blocks of 64 per SM, each
-    slice a whole number of shared-memory tiles and at least 4 of them."""
-    q_blocks = max(1, -(-Q // _THREADS))
-    S = max(1, min(-(-_BLOCKS_PER_SM * n_sm // q_blocks), -(-C // _MIN_SLICE), 65535))
-    slice_len = max(_TILE, -(-(-(-C // S)) // _TILE) * _TILE)
-    return max(1, -(-C // slice_len)), slice_len
-
-
 def knn_sweep_streamed(q: torch.Tensor, p: torch.Tensor, k: int,
                        stream_block: int = STREAM_BLOCK):
-    """``knn_sweep`` for large maps: on CUDA tensors the point axis is
-    split across blocks and the partial lists are k-merged
-    (``csrc/knn_streamed.cu``); CPU tensors run ``knn_plain_streamed`` with
-    superblocks of ``stream_block`` points. Same result as ``knn_sweep``.
+    """``knn_sweep`` for large maps (``csrc/knn_streamed.cu``): on CUDA
+    tensors the point axis is split across blocks and the partial lists are
+    k-merged; CPU tensors run ``knn_plain_streamed`` with superblocks of
+    ``stream_block`` points. Same result as ``knn_sweep``.
     ``knn_sweep_streamed.launches`` counts kernel launches (the slice sweep
     and its merge count as one)."""
     if _check(k, q=(q, (2,)), p=(p, (2,))) == "cpu":
         return knn_plain_streamed(q, p, k, stream_block)
-    Q, C = q.shape[0], p.shape[0]
-    out_d = torch.empty((Q, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((Q, k), dtype=torch.int32, device=q.device)
-    if Q == 0:
-        return out_d, out_i
-    S, slice_len = stream_slices(Q, C, _sm_count(q.device.index or 0))
-    part_d = torch.empty((S, Q, k), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((S, Q, k), dtype=torch.int32, device=q.device)
-    _launch(load_streamed_kernel(), "knn_sweep_streamed", q.device,
-            q.data_ptr(), Q, p.data_ptr(), C, k, slice_len, S,
-            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr())
-    knn_sweep_streamed.launches += 1
-    return out_d, out_i
+    out_d, out_i, launched = _launch_split(
+        load_streamed_kernel(), "knn_sweep_streamed", q, p, k, 1,
+        (q.data_ptr(), q.shape[0], p.data_ptr(), p.shape[0], k))
+    knn_sweep_streamed.launches += launched
+    return out_d[0], out_i[0]
 
 
 knn_sweep_streamed.launches = 0
@@ -262,18 +355,14 @@ def knn_sweep_batched(q: torch.Tensor, p: torch.Tensor, k: int):
         raise ValueError(f"batch sizes differ: q {q.shape[0]}, p {p.shape[0]}")
     if _check(k, q=(q, (2, 3)), p=(p, (2, 3))) == "cpu":
         return knn_plain_batched(q, p, k)
-    if B > 65535:
-        raise ValueError("knn_sweep_batched takes at most 65535 problems")
+    if B > _MAX_GRID:
+        raise ValueError(f"knn_sweep_batched takes at most {_MAX_GRID} problems")
     Q, C = q.shape[-2], p.shape[-2]
-    out_d = torch.empty((B, Q, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((B, Q, k), dtype=torch.int32, device=q.device)
-    if Q == 0 or B == 0:
-        return out_d, out_i
-    _launch(load_batched_kernel(), "knn_sweep_batched", q.device,
-            q.data_ptr(), Q, 3 * Q if q.ndim == 3 else 0,
-            p.data_ptr(), C, 3 * C if p.ndim == 3 else 0, B, k,
-            out_d.data_ptr(), out_i.data_ptr())
-    knn_sweep_batched.launches += 1
+    out_d, out_i, launched = _launch_split(
+        load_batched_kernel(), "knn_sweep_batched", q, p, k, B,
+        (q.data_ptr(), Q, 3 * Q if q.ndim == 3 else 0,
+         p.data_ptr(), C, 3 * C if p.ndim == 3 else 0, B, k))
+    knn_sweep_batched.launches += launched
     return out_d, out_i
 
 

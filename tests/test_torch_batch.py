@@ -29,6 +29,7 @@ from mp2p_icp_tpu.parallel.batch import stack_pytrees as jstack_pytrees
 from mp2p_icp_tpu.solvers.gauss_newton import GNParams as JGNParams
 from mp2p_icp_tpu.solvers.solver import SolverGaussNewton as JGN
 from mp2p_icp_tpu.solvers.solver import SolverHorn as JHorn
+import mp2p_icp_tpu_torch
 from mp2p_icp_tpu_torch import convert
 from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
@@ -39,6 +40,16 @@ from mp2p_icp_tpu_torch.parallel import make_batched_align, stack_pytrees
 from mp2p_icp_tpu_torch.parity import TIE_TOL, knn_mismatch
 from mp2p_icp_tpu_torch.quality.paired_ratio import QualityPairedRatio
 from mp2p_icp_tpu_torch.solvers.solver import SolverHorn
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _ask_for_the_cpu():
+    """The port's constructors default to the card; these tests run on the
+    CPU and say so once for the whole file."""
+    mp2p_icp_tpu_torch.set_default_device("cpu")
+    yield
+    mp2p_icp_tpu_torch.set_default_device(None)
+
 
 B, Q, C = 5, 64, 256
 

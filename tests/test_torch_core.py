@@ -1,12 +1,14 @@
 """Parity of the port's core types with the JAX package, on the CPU:
 SE(3) math (including angles near 0 and near π), the padded PointCloud,
-pairings, and the package's promise never to import jax.
+pairings, the default device of the constructors, and the package's promise
+never to import jax.
 
 SE(3) tolerance: atol 1e-5 — both sides are f32 with the same formulas;
 the libraries' sin/cos/arccos differ in the last ulp, which the near-π
 branch amplifies to a few 1e-7.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -18,9 +20,21 @@ import torch
 
 from mp2p_icp_tpu.core import se3 as jse3
 from mp2p_icp_tpu.core.pointcloud import PointCloud as JPointCloud
+import mp2p_icp_tpu_torch
+from mp2p_icp_tpu_torch import convert
 from mp2p_icp_tpu_torch.core import pairings as tpairings
 from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud, round_capacity
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _ask_for_the_cpu():
+    """The port's constructors default to the card; these tests run on the
+    CPU and say so once for the whole file."""
+    mp2p_icp_tpu_torch.set_default_device("cpu")
+    yield
+    mp2p_icp_tpu_torch.set_default_device(None)
+
 
 ATOL = 1e-5
 
@@ -149,6 +163,83 @@ def test_pairings_empty_and_size():
         potential_pairings=p.potential_pairings,
     )
     assert int(p2.size()) == 3
+
+
+def _constructed(**kw):
+    """Every tensor made by the constructors that take ``device=``."""
+    xyz = np.random.RandomState(0).uniform(-1, 1, (10, 3)).astype(np.float32)
+    pc = PointCloud.from_numpy(xyz, intensity=np.ones(10), ring=np.ones(10),
+                               time=np.ones(10), **kw)
+    pc2 = convert.pointcloud_from_numpy(np.zeros((16, 3)), 10, intensity=np.ones(16), **kw)
+    pose = convert.pose_from_numpy(np.eye(3), np.zeros(3), **kw)
+    eye = se3.identity(**kw)
+    ypr = se3.from_xyz_ypr(1.0, 2.0, 3.0, 0.1, 0.2, 0.3, **kw)
+    pairs = tpairings.Pairings.empty(pt2pt_cap=4, **kw)
+    block = tpairings.PairsPt2Pl.empty(3, **kw)
+    none = tpairings.concat_blocks([], tpairings.PairsPt2Pt, **kw)
+    out = [pc.xyz, pc.count, pc.intensity, pc.ring, pc.time, pc2.xyz, pc2.count,
+           pc2.intensity, pose.R, pose.t, eye.R, eye.t, ypr.R, ypr.t,
+           pairs.potential_pairings]
+    for b in (pairs.pt2pt, pairs.pt2ln, pairs.pt2pl, pairs.ln2ln, pairs.pl2pl, block, none):
+        out += [getattr(b, f.name) for f in dataclasses.fields(b)]
+    return out
+
+
+def test_constructors_follow_the_requested_cpu():
+    """This file asks for the CPU once (the fixture above): every
+    constructor then yields CPU tensors, with and without ``device=``."""
+    assert mp2p_icp_tpu_torch.default_device() == torch.device("cpu")
+    for t in _constructed() + _constructed(device="cpu"):
+        assert t.device.type == "cpu"
+
+
+def test_default_device_is_the_card_without_a_request():
+    """In a fresh process, without a request, the default is ``cuda``:
+    read without touching a card. A request changes it, and withdrawing
+    the request restores it; nothing looks whether a card is there."""
+    code = (
+        "import torch, mp2p_icp_tpu_torch as m; "
+        "assert m.default_device() == torch.device('cuda'), m.default_device(); "
+        "m.set_default_device('cpu'); assert m.default_device().type == 'cpu'; "
+        "m.set_default_device('cuda:1'); assert m.default_device() == torch.device('cuda', 1); "
+        "m.set_default_device(None); assert m.default_device() == torch.device('cuda'); "
+        "assert not torch.cuda.is_initialized()"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr
+
+
+def test_no_request_and_no_card_raises_torchs_own_error():
+    """Without a card and without a request the constructors do not give
+    way to the CPU: torch's error surfaces. (Where a card is present the
+    same call succeeds on it.)"""
+    code = (
+        "import sys, torch, numpy as np\n"
+        "from mp2p_icp_tpu_torch.core.pointcloud import PointCloud\n"
+        "try:\n"
+        "    pc = PointCloud.from_numpy(np.zeros((4, 3)))\n"
+        "except (AssertionError, RuntimeError) as e:\n"
+        "    sys.exit(0 if not torch.cuda.is_available() else 1)\n"
+        "sys.exit(0 if pc.xyz.device.type == 'cuda' else 1)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.cuda
+def test_constructors_default_to_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: checks where the constructors put tensors")
+    mp2p_icp_tpu_torch.set_default_device(None)
+    try:
+        for t in _constructed():
+            assert t.device.type == "cuda"
+        for t in _constructed(device="cpu"):
+            assert t.device.type == "cpu"
+    finally:
+        mp2p_icp_tpu_torch.set_default_device("cpu")
 
 
 def test_package_does_not_import_jax():

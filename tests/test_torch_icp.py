@@ -31,12 +31,23 @@ from mp2p_icp_tpu.solvers.gauss_newton import GNParams as JGNParams
 from mp2p_icp_tpu.solvers.robust import RobustKernel as JRobustKernel
 from mp2p_icp_tpu.solvers.solver import SolverGaussNewton as JGN
 from mp2p_icp_tpu.solvers.solver import SolverHorn as JHorn
+import mp2p_icp_tpu_torch
 from mp2p_icp_tpu_torch import convert
 from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.icp import ICP, ICPParameters, IterTermReason
 from mp2p_icp_tpu_torch.matchers import MatcherPointsDistanceThreshold
 from mp2p_icp_tpu_torch.solvers.solver import SolverHorn
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _ask_for_the_cpu():
+    """The port's constructors default to the card; these tests run on the
+    CPU and say so once for the whole file."""
+    mp2p_icp_tpu_torch.set_default_device("cpu")
+    yield
+    mp2p_icp_tpu_torch.set_default_device(None)
+
 
 GT = (1.1, 0.05, 0.01, 0.01, 0.002, 0.001)
 

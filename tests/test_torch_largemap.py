@@ -30,12 +30,22 @@ from mp2p_icp_tpu.ops import nn_bruteforce as jnb
 from mp2p_icp_tpu.solvers.gauss_newton import GNParams as JGNParams
 from mp2p_icp_tpu.solvers.solver import SolverGaussNewton as JGN
 from mp2p_icp_tpu.solvers.solver import SolverHorn as JHorn
+import mp2p_icp_tpu_torch
 from mp2p_icp_tpu_torch import convert
 from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.icp import ICPParameters
 from mp2p_icp_tpu_torch.ops import nn_bruteforce as tnb
 from mp2p_icp_tpu_torch.parity import TIE_TOL, knn_mismatch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _ask_for_the_cpu():
+    """The port's constructors default to the card; these tests run on the
+    CPU and say so once for the whole file."""
+    mp2p_icp_tpu_torch.set_default_device("cpu")
+    yield
+    mp2p_icp_tpu_torch.set_default_device(None)
 
 
 def _corridor_scene(rng, n, length=400.0):
@@ -157,8 +167,9 @@ def test_knn_plain_streamed_fewer_points_than_k():
 @pytest.mark.parametrize("Q,C,n_sm", [(8192, 262144, 132), (777, 200_001, 132),
                                       (1, 300_000, 132), (8192, 1, 132), (64, 5000, 8)])
 def test_stream_slices_cover_the_map(Q, C, n_sm):
-    S, slice_len = tnb.stream_slices(Q, C, n_sm)
-    assert slice_len % 512 == 0 and slice_len >= 512
+    groups, S, slice_len = tnb.sweep_split(Q, C, n_sm)
+    # a slice is whole groups of 4 points for each of a block's warps
+    assert slice_len % (4 * groups) == 0 and slice_len >= 4 * groups
     assert S * slice_len >= C and (S - 1) * slice_len < max(C, 1)
     assert 1 <= S <= 65535
 

@@ -28,6 +28,7 @@ from mp2p_icp_tpu.matchers import MatcherPointsDistanceThreshold as JDistance
 from mp2p_icp_tpu.matchers import MatchState as JMatchState
 from mp2p_icp_tpu.ops.nn_bruteforce import knn_bruteforce as jknn
 from mp2p_icp_tpu.quality.paired_ratio import QualityPairedRatio as JQuality
+import mp2p_icp_tpu_torch
 from mp2p_icp_tpu_torch import convert
 from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pairings import Pairings
@@ -40,6 +41,16 @@ from mp2p_icp_tpu_torch.matchers import (
 from mp2p_icp_tpu_torch.matchers.adaptive import adaptive_threshold_sq
 from mp2p_icp_tpu_torch.ops.nn_bruteforce import NNResult, knn_bruteforce
 from mp2p_icp_tpu_torch.parity import TIE_TOL, true_dist_sq
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _ask_for_the_cpu():
+    """The port's constructors default to the card; these tests run on the
+    CPU and say so once for the whole file."""
+    mp2p_icp_tpu_torch.set_default_device("cpu")
+    yield
+    mp2p_icp_tpu_torch.set_default_device(None)
+
 
 N = 2048
 

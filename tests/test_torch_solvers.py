@@ -22,6 +22,7 @@ from mp2p_icp_tpu.solvers import gauss_newton as jgn
 from mp2p_icp_tpu.solvers import solver as jsolver
 from mp2p_icp_tpu.solvers.common import WeightParameters as JWeightParameters
 from mp2p_icp_tpu.solvers.robust import RobustKernel as JRobustKernel
+import mp2p_icp_tpu_torch
 from mp2p_icp_tpu_torch import convert
 from mp2p_icp_tpu_torch import covariance as tcov
 from mp2p_icp_tpu_torch.core import pairings as tp
@@ -29,6 +30,16 @@ from mp2p_icp_tpu_torch.solvers import gauss_newton as tgn
 from mp2p_icp_tpu_torch.solvers import solver as tsolver
 from mp2p_icp_tpu_torch.solvers.common import WeightParameters
 from mp2p_icp_tpu_torch.solvers.robust import RobustKernel
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _ask_for_the_cpu():
+    """The port's constructors default to the card; these tests run on the
+    CPU and say so once for the whole file."""
+    mp2p_icp_tpu_torch.set_default_device("cpu")
+    yield
+    mp2p_icp_tpu_torch.set_default_device(None)
+
 
 POSE_ATOL = 1e-5
 
