@@ -20,7 +20,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    points on an integer grid with duplicates (so the order of the merge
    decides every tie), Q = 1, 777 and 5000, fewer points than one tile and
    than one block has warps, a batch whose stride is not 16-byte aligned
-   (C = 3001), and the odometry shapes 6144x16384 and 2048x16384 (k=8).
+   (C = 3001), and the odometry shapes 6144x16384 (k=1), 2048x22528 and
+   6144x6144 (k=8: the normals fit of a frame and of the seed).
    Times: each kernel at every shape its path (or the odometry step)
    gives it, as device time per launch of a CUDA graph of 20 wrapper
    calls and as the time of one call between CUDA events (which includes
@@ -40,21 +41,37 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    in one make_batched_align call; each SE(3) error < 0.1, each pose
    within 1e-5 of the port's sequential align on the card with the same
    iterations and termination, K2 launches == matcher calls, no K1 launch;
-7. with --profile only: where the time goes, by torch.profiler over 2
+7. the odometry path (bench.py:580-683): the 36-frame street drive (48
+   rings x 768 azimuths, raw capacity 2^16) through OdometryMapper.run
+   with dt = 0.1: deskew, FirstPoint decimation at 0.5 m into 6144 rows,
+   crop of the 2^15-row map to 2^14, stored-normal point-to-plane +
+   Gauss-Newton, voxel-hash insert, k=8 normals fit of the new voxels;
+   once cold and twice warm. ATE < 0.1 m and within max(1.5x, +0.01 m) of
+   the JAX CPU reference, map count within 2% of it, every quality finite,
+   K1 launches == matcher calls + one normals fit per frame + the seed's,
+   no K2/K3 launch; the map insert run twice on the same input gives equal
+   states;
+8. with --profile only: where the time goes, by torch.profiler over 2
    warm calls (device busy share, launches, the kNN kernels' time) of a
    scan-to-scan align, a scan to the 2M map and the batched call, then
    per-section host times of a scan-to-scan align with a sync around each
-   section; the profiler's tables go to chiprun_out/profile_tables.txt;
-8. one JSON line with the kernels' numbers, then the last line
+   section; then the odometry run: torch.profiler over one warm run of the
+   36 frames (busy share, launches and host syncs per frame, probe rounds
+   per map insert, K1's time by k) and per-stage times with a sync around
+   each stage; the profiler's tables go to chiprun_out/profile_tables.txt;
+9. one JSON line with the kernels' numbers, then the last line
    {"ok": true, "device": {...}}.
 
 The port's constructors put their tensors on the card by default; this
 script passes ``device=`` only where it asks for the CPU (to prepare the
-scans as before, and for the CPU comparison of phase 4).
+scans as before, for the CPU comparison of phase 4 and for the poses of
+the street drive).
 
 Every kernel's launch count is set to 0 just before each path and read
 just after it. Imports torch, numpy, the port and bench.py's scene
-generator (numpy only); never jax.
+generator (numpy only); never jax. The JAX CPU reference values are
+constants here; scripts/torch_odometry_reference.py produces the
+odometry run's.
 """
 
 import argparse
@@ -74,14 +91,20 @@ from mp2p_icp_tpu_torch import default_device
 from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pairings import Pairings
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
+from mp2p_icp_tpu_torch.eval.lidar_sim import make_street_sequence, scan_to_pointcloud
+from mp2p_icp_tpu_torch.eval.trajectory import ate_rmse
+from mp2p_icp_tpu_torch.filters import FilterDecimateVoxels, FilterDeskew
 from mp2p_icp_tpu_torch.icp import ICP, ICPParameters, IterTermReason
 from mp2p_icp_tpu_torch.matchers import (
     LayerMatch,
     MatcherAdaptive,
+    MatcherPoint2Plane,
     MatcherPointsDistanceThreshold,
 )
+from mp2p_icp_tpu_torch.odometry import OdometryMapper
 from mp2p_icp_tpu_torch.ops import cuda_build
 from mp2p_icp_tpu_torch.ops import nn_bruteforce as nnb
+from mp2p_icp_tpu_torch.ops.voxel_hash_map import hash_map_insert
 from mp2p_icp_tpu_torch.parallel import make_batched_align, stack_pytrees
 from mp2p_icp_tpu_torch.parity import knn_mismatch
 from mp2p_icp_tpu_torch.solvers.gauss_newton import GNParams
@@ -120,6 +143,14 @@ GRAPH_LAUNCHES = 20
 # JAX CPU reference of the batched problem (bench.py:431-463): iterations
 # per problem, all STALLED, SE(3) errors 0.0012-0.0081
 BATCH_JAX_ITERS = [17, 27, 24, 19, 25, 34, 28, 15]
+# the odometry run (bench.py:580-683) and the JAX package's result for the
+# same frames on the CPU (scripts/torch_odometry_reference.py): ATE in
+# metres, map points, mean ICP iterations per frame
+ODO_FRAMES = 36
+ODO_DT = 0.1
+ODO_RESOLUTION = 0.5
+ODO_JAX = {"ate_m": 0.026013, "map_points": 13796, "iterations_mean": 3.69}
+ATE_LIMIT = 0.1
 
 
 def check(ok, what):
@@ -181,6 +212,50 @@ def map_icp():
         solvers=[SolverHorn(run_up_to_iteration=5),
                  SolverGaussNewton(run_from_iteration=6, gn_params=GNParams(max_iterations=3))],
     )
+
+
+def odometry_mapper():
+    """The odometry benchmark's mapper (bench.py:621-683 with its defaults:
+    sort-backend decimation, incremental voxel-hash map)."""
+    return OdometryMapper(
+        icp=ICP(
+            matchers=[MatcherPoint2Plane(
+                distance_threshold=1.5, use_point_normals=True,
+                layer_matches=(LayerMatch(global_layer="map", local_layer="decimated"),))],
+            solvers=[SolverGaussNewton(gn_params=GNParams(max_iterations=3))],
+        ),
+        params=ICPParameters(max_iterations=30, crop_capacity=1 << 14, crop_extra_margin=3.0),
+        filters=[
+            FilterDeskew(input_pointcloud_layer="raw", output_pointcloud_layer="deskewed"),
+            FilterDecimateVoxels(
+                input_pointcloud_layer=("deskewed",), output_pointcloud_layer="decimated",
+                voxel_filter_resolution=ODO_RESOLUTION, output_capacity=6144),
+        ],
+        incremental_map_resolution=ODO_RESOLUTION,
+        normals_knn=8, normals_radius=1.5, normals_query_capacity=2048,
+        local_layer="decimated", map_layer="map", map_capacity=1 << 15,
+    )
+
+
+def odometry_frames(scans):
+    """The rendered scans as raw layers of capacity 2^16 on the port's
+    default device."""
+    return [{"raw": scan_to_pointcloud(scan, capacity=1 << 16)} for scan in scans]
+
+
+def pose_of(mat):
+    """A [4, 4] numpy pose on the port's default device."""
+    device = default_device()
+    return se3.Pose(torch.from_numpy(mat[:3, :3].astype(np.float32)).to(device),
+                    torch.from_numpy(mat[:3, 3].astype(np.float32)).to(device))
+
+
+def states_equal(a, b):
+    """Two voxel-hash map states, tensor for tensor."""
+    pairs = [(a.table_k1, b.table_k1), (a.table_k2, b.table_k2), (a.n_dropped, b.n_dropped)]
+    pairs += [(getattr(a.pc, f), getattr(b.pc, f))
+              for f in ("xyz", "count", "intensity", "ring", "time", "normals")]
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in pairs)
 
 
 def sensor_scan(corridor, cx, seed, err_ypr):
@@ -302,14 +377,16 @@ def timed_aligns(icp, loc, glob, params, n, guess=None):
     return walls, res
 
 
-def profile_window(label, run, n, smi, tables):
+def profile_window(label, run, n, smi, tables, warmups=2):
     """torch.profiler over n warm calls of run() (each ends in a host sync):
     wall time, device kernel time and busy share, launch/copy/sync counts
-    and the kNN kernels' rows; appends the profiler's tables to tables."""
+    and the kNN kernels' rows; appends the profiler's tables to tables.
+    Returns {"wall_ms", "device_ms", "kernels", "host": {runtime call:
+    count}, "ops": {aten op: count}, "knn": {kernel: (launches, ms)}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(warmups):
         run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -324,17 +401,49 @@ def profile_window(label, run, n, smi, tables):
     print(f"[profile] {label}: {n} calls under torch.profiler: wall {wall_ms:.1f} ms, "
           f"device kernel time {dev_ms:.3f} ms ({n_kernels} kernels), busy "
           f"{dev_ms / wall_ms:.4f}, idle {1 - dev_ms / wall_ms:.4f} on {smi}")
+    out = {"wall_ms": wall_ms, "device_ms": dev_ms, "kernels": n_kernels, "host": {}, "knn": {},
+           "ops": {e.key: e.count for e in ka if e.key.startswith("aten::")}}
     for e in ka:
         if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemcpyAsync",
                      "cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            out["host"][e.key] = e.count
             print(f"[profile]   {e.key}: {e.count} calls, "
                   f"host {e.self_cpu_time_total / 1e3:.2f} ms")
-        name = re.search(r"knn_\w+", e.key)
+        name = re.search(r"knn_\w+(<\d+>)?", e.key)  # the template argument is k
         if e.device_type == DeviceType.CUDA and name:
+            out["knn"][name.group(0)] = (e.count, e.self_device_time_total / 1e3)
             print(f"[profile]   {name.group(0)}: {e.count} launches, "
                   f"{e.self_device_time_total / 1e3:.3f} ms")
     tables.append(f"== {label}\n" + ka.table(sort_by="self_cpu_time_total", row_limit=40)
                   + "\n\n" + ka.table(sort_by="self_device_time_total", row_limit=20))
+    return out
+
+
+def synced_sections(wrapped, run):
+    """Host seconds spent in each (owner, attribute, label) of ``wrapped``
+    during run(), with a device sync before and after each call (which adds
+    its own cost). Returns ({label: seconds}, what run() returned)."""
+    sections = {}
+
+    def synced(f, label):
+        def g(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = f(*a, **kw)
+            torch.cuda.synchronize()
+            sections[label] = sections.get(label, 0.0) + time.perf_counter() - t0
+            return r
+        return g
+
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in wrapped]
+    try:
+        for (owner, name, label), (_, _, f) in zip(wrapped, saved):
+            setattr(owner, name, synced(f, label))
+        result = run()
+    finally:
+        for owner, name, f in saved:
+            setattr(owner, name, f)
+    return sections, result
 
 
 def profile_align(icp, loc, glob, params, smi, tables):
@@ -351,7 +460,6 @@ def profile_align(icp, loc, glob, params, smi, tables):
     profile_window("scan to scan, KITTI config",
                    lambda: timed_aligns(icp, loc, glob, params, 1), 2, smi, tables)
 
-    sections = {}
     wrapped = [
         (distance_threshold, "knn_bruteforce", "knn (DistanceThreshold)"),
         (adaptive, "knn_bruteforce", "knn (Adaptive)"),
@@ -367,35 +475,60 @@ def profile_align(icp, loc, glob, params, smi, tables):
         (icp_mod, "compute_covariance", "covariance"),
         (icp_mod.ICP, "_quality_stack", "quality"),
     ]
-
-    def synced(f, label):
-        def g(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = f(*a, **kw)
-            torch.cuda.synchronize()
-            sections[label] = sections.get(label, 0.0) + time.perf_counter() - t0
-            return r
-        return g
-
-    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in wrapped]
-    try:
-        for (owner, name, label), (_, _, f) in zip(wrapped, saved):
-            setattr(owner, name, synced(f, label))
-        walls, _ = timed_aligns(icp, loc, glob, params, 3)
-    finally:
-        for owner, name, f in saved:
-            setattr(owner, name, f)
+    sections, (walls, _) = synced_sections(
+        wrapped, lambda: timed_aligns(icp, loc, glob, params, 3))
     print(f"[profile] sectioned aligns {[round(w * 1e3, 1) for w in walls]} ms "
           f"(a sync around each section)")
     for label, secs in sorted(sections.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {label:26s} {secs / 3 * 1e3:8.2f} ms per align")
 
 
+def profile_odometry(mapper, frames, twists, pose0, smi, tables):
+    """Where the odometry run's time goes: torch.profiler over one warm run
+    (the seed and every frame; per-frame figures divide by the frames after
+    the first, so the seed's filters, insert and fit are in them), then each
+    stage's host time with a sync around it."""
+    from mp2p_icp_tpu_torch import odometry as odometry_mod
+
+    def run():
+        return mapper.run(frames, twists=twists, dt=ODO_DT, initial_pose=pose0)
+
+    steps = len(frames) - 1
+    prof = profile_window(f"odometry, {len(frames)} frames", run, 1, smi, tables, warmups=0)
+    syncs = prof["host"].get("cudaStreamSynchronize", 0) + prof["host"].get(
+        "cudaDeviceSynchronize", 0)
+    print(f"[profile] odometry per frame ({steps} steps; the seed's share included): "
+          f"{prof['wall_ms'] / steps:.1f} ms wall under the profiler, "
+          f"{prof['device_ms'] / steps:.3f} ms of kernels, {prof['kernels'] / steps:.0f} kernel "
+          f"launches, {syncs / steps:.1f} host syncs")
+    # the claim of a probe round is the path's only scatter-reduce
+    print(f"[profile]   map insert: {prof['ops'].get('aten::scatter_reduce_', 0) / len(frames):.2f} "
+          f"probe rounds per insert ({len(frames)} inserts, the seed's included), "
+          f"{prof['host'].get('cudaMemcpyAsync', 0) / steps:.0f} copies per frame")
+    for name, (count, ms) in sorted(prof["knn"].items()):
+        print(f"[profile]   {name}: {count / steps:.2f} launches per frame, "
+              f"{ms / count * 1e3:.1f} us each, {ms / steps:.4f} ms per frame")
+
+    wrapped = [
+        (FilterDeskew, "__call__", "deskew"),
+        (FilterDecimateVoxels, "__call__", "decimate (FirstPoint, sort)"),
+        (ICP, "_crop_globals", "crop"),
+        (ICP, "_align_core", "align"),
+        (odometry_mod, "hash_map_insert", "map insert"),
+        (odometry_mod, "estimate_point_normals", "normals fit"),
+    ]
+    sections, r = synced_sections(wrapped, run)
+    total_ms = r["frame_seconds"].sum() * 1e3
+    print(f"[profile] odometry stages with a sync around each: {total_ms / steps:.1f} ms per "
+          f"frame, {r['iterations'].mean():.2f} ICP iterations per frame")
+    for label, secs in sorted(sections.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {label:28s} {secs / steps * 1e3:8.2f} ms per frame")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile each path (phase 7)")
+                    help="also profile each path (phase 8)")
     args = ap.parse_args()
 
     # ---- 1. the card
@@ -527,10 +660,16 @@ def main():
     odo_q, odo_p = scan_q[:6144].contiguous(), map_p[: 1 << 14].contiguous()
     errs["knn_sweep"].append(compare("K1 6144x16384 k=1 (odometry step)", nnb.knn_sweep,
                                      nnb.knn_plain, odo_q, odo_p, 1))
-    errs["knn_sweep"].append(compare("K1 2048x16384 k=8 (odometry normals)", nnb.knn_sweep,
-                                     nnb.knn_plain, odo_q[:2048].contiguous(), odo_p, 8))
+    # the normals fit of a frame: 2048 new voxels against the crop + the
+    # scan; of the seed: the first scan against itself
+    fit_q, fit_p = odo_q[:2048].contiguous(), torch.cat([odo_p, odo_q]).contiguous()
+    errs["knn_sweep"].append(compare("K1 2048x22528 k=8 (odometry normals fit)", nnb.knn_sweep,
+                                     nnb.knn_plain, fit_q, fit_p, 8))
+    errs["knn_sweep"].append(compare("K1 6144x6144 k=8 (odometry seed's normals fit)",
+                                     nnb.knn_sweep, nnb.knn_plain, odo_q, odo_q, 8))
     torch.cuda.synchronize()
-    for Q, C, k, B in ((6144, 1 << 14, 1, 1), (2048, 1 << 14, 8, 1), (N_POINTS, N_POINTS, 1, 1),
+    for Q, C, k, B in ((6144, 1 << 14, 1, 1), (2048, 22528, 8, 1), (6144, 6144, 8, 1),
+                       (N_POINTS, N_POINTS, 1, 1),
                        (N_POINTS, 1 << 16, 1, 1), (N_POINTS, 1 << 18, 1, 1),
                        (N_POINTS, 1 << 16, 1, BATCH)):
         # the grid and block sizes as the built library forms them for the
@@ -558,9 +697,10 @@ def main():
          lambda: nnb.knn_sweep(q, p, 8), lambda: nnb.knn_plain(q, p, 8)),
         ("knn_sweep", "odometry step", 1, 6144, 1 << 14, 1,
          lambda: nnb.knn_sweep(odo_q, odo_p, 1), lambda: nnb.knn_plain(odo_q, odo_p, 1)),
-        ("knn_sweep", "odometry normals", 1, 2048, 1 << 14, 8,
-         lambda: nnb.knn_sweep(odo_q[:2048], odo_p, 8),
-         lambda: nnb.knn_plain(odo_q[:2048], odo_p, 8)),
+        ("knn_sweep", "odometry normals fit", 1, 2048, 22528, 8,
+         lambda: nnb.knn_sweep(fit_q, fit_p, 8), lambda: nnb.knn_plain(fit_q, fit_p, 8)),
+        ("knn_sweep", "odometry seed's normals fit", 1, 6144, 6144, 8,
+         lambda: nnb.knn_sweep(odo_q, odo_q, 8), lambda: nnb.knn_plain(odo_q, odo_q, 8)),
         ("knn_sweep", "1M-map crop", 1, N_POINTS, 1 << 16, 1,
          lambda: nnb.knn_sweep(scan_q, map_64k, 1), lambda: nnb.knn_plain(scan_q, map_64k, 1)),
         ("knn_sweep", "K1 on K3's shape", 1, N_POINTS, 1 << 18, 1,
@@ -612,6 +752,7 @@ def main():
     del maps_b, map_64k, timed
 
     launches = {name: 0 for name in KERNELS}
+    by_path = {name: {} for name in KERNELS}  # launches of each path's last counted window
 
     # ---- 4. the scan-to-scan path
     icp = kitti_icp()
@@ -635,6 +776,7 @@ def main():
           f"K1 launches {n['knn_sweep']} != matcher calls {expected}")
     check(n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0, f"other kernels ran: {n}")
     launches["knn_sweep"] += n["knn_sweep"]
+    by_path["knn_sweep"][f"scan to scan, {len(pairs)} aligns"] = n["knn_sweep"]
 
     res, err = results[0]
     print(f"[align] KITTI config, bench pair {N_POINTS} pts on {kind}: SE(3) error "
@@ -688,6 +830,7 @@ def main():
               f"{label}: {kernel} launches {n[kernel]} != matcher calls {calls}")
         check(sum(n.values()) == n[kernel], f"{label}: other kernels ran: {n}")
         launches[kernel] += n[kernel]
+        by_path[kernel][f"scan to the {label} map, {1 + MAP_TIMED[label]} aligns"] = n[kernel]
         err = float(se3.error_log_norm(gt_map, res.optimal_tf))
         warm = walls[1:]
         print(f"[map] {label} map, crop {crop} ({n_kept} points kept, crop {crop_ms:.1f} ms) "
@@ -728,6 +871,7 @@ def main():
         check(n["knn_sweep"] == n["knn_sweep_streamed"] == 0,
               f"batched: K1/K3 launched during the batched call: {n}")
         launches["knn_sweep_batched"] += n["knn_sweep_batched"]
+        by_path["knn_sweep_batched"]["batched call"] = n["knn_sweep_batched"]
     print(f"[count] batched: K2 launches {n['knn_sweep_batched']} == matcher calls {calls} "
           f"per call, K1 and K3 launches 0")
     seq_walls = []
@@ -755,7 +899,72 @@ def main():
           f"{BATCH * len(warm_b) / sum(warm_b):.2f} scans/s; the same scans aligned one "
           f"after another {BATCH / sum(seq_walls):.2f} scans/s on {smi}")
 
-    # ---- 7. profile (optional)
+    # ---- 7. the odometry path: the street drive, frame by frame
+    t0 = time.perf_counter()
+    gt_o, twists_o, scans_o = make_street_sequence(ODO_FRAMES, dt=ODO_DT)
+    frames_o = odometry_frames(scans_o)
+    pose0_o = pose_of(gt_o[0])
+    mapper = odometry_mapper()
+    print(f"[odometry] {ODO_FRAMES} frames of 48 rings x 768 azimuths rendered in "
+          f"{time.perf_counter() - t0:.1f} s, {int(frames_o[0]['raw'].count)} returns in "
+          f"frame 0, raw capacity {frames_o[0]['raw'].capacity}")
+    runs_o = []
+    for rep in range(3):  # once cold, twice warm
+        torch.cuda.synchronize()
+        reset_counts()
+        r = mapper.run(frames_o, twists=twists_o, dt=ODO_DT, initial_pose=pose0_o)
+        torch.cuda.synchronize()
+        n = counts()
+        # one kNN per ICP iteration, one normals fit per frame, the seed's
+        calls = (sum(matcher_calls(mapper.icp, int(it)) for it in r["iterations"])
+                 + (ODO_FRAMES - 1) + 1)
+        check(n["knn_sweep"] == calls,
+              f"odometry: K1 launches {n['knn_sweep']} != matcher calls + normals fits {calls}")
+        check(n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0,
+              f"odometry: K2/K3 launched: {n}")
+        launches["knn_sweep"] += n["knn_sweep"]
+        by_path["knn_sweep"][f"odometry, one run of {ODO_FRAMES} frames"] = n["knn_sweep"]
+        ate = ate_rmse(r["poses"], gt_o)
+        n_map = int(r["map"].count)
+        frame_ms = r["frame_seconds"] * 1e3
+        new_voxels = np.diff(r["map_counts"])
+        print(f"[odometry] run {rep} ({'cold' if rep == 0 else 'warm'}) on {kind}: "
+              f"{r['scans_per_s']:.2f} scans/s, ms per frame median {np.median(frame_ms):.1f} "
+              f"max {frame_ms.max():.1f}; ICP iterations per frame mean "
+              f"{r['iterations'].mean():.2f} max {r['iterations'].max()}; ATE {ate:.4f} m, "
+              f"map {n_map} points, new voxels per frame mean {new_voxels.mean():.0f} "
+              f"({r['map_counts'][0]} after frame 1), dropped {int(r['map_state'].n_dropped)} "
+              f"[JAX CPU reference: ATE {ODO_JAX['ate_m']} m, {ODO_JAX['map_points']} points, "
+              f"{ODO_JAX['iterations_mean']} iterations per frame] on {smi}")
+        print(f"[count] odometry run {rep}: K1 launches {n['knn_sweep']} == "
+              f"{int(r['iterations'].sum())} matcher calls + {ODO_FRAMES - 1} normals fits "
+              f"+ 1 (the seed's); K2 and K3 launches 0")
+        check(r["poses"].shape == (ODO_FRAMES, 4, 4) and np.isfinite(r["poses"]).all(),
+              "odometry: poses not finite")
+        check(np.isfinite(r["qualities"]).all() and len(r["qualities"]) == ODO_FRAMES - 1,
+              "odometry: a frame's quality is not finite")
+        check(ate < ATE_LIMIT, f"odometry: ATE {ate} m >= {ATE_LIMIT}")
+        check(ate <= max(1.5 * ODO_JAX["ate_m"], ODO_JAX["ate_m"] + 0.01),
+              f"odometry: ATE {ate} m outside max(1.5 x, + 0.01 m) of the JAX CPU "
+              f"reference {ODO_JAX['ate_m']}")
+        check(abs(n_map - ODO_JAX["map_points"]) <= 0.02 * ODO_JAX["map_points"],
+              f"odometry: {n_map} map points, not within 2% of {ODO_JAX['map_points']}")
+        runs_o.append(r)
+    spread = max(float(np.abs(runs_o[0]["poses"] - r["poses"]).max()) for r in runs_o[1:])
+    print(f"[odometry] largest difference between the three runs' poses: {spread:.3g}")
+    # the map insert twice on the same input: equal states, dest included
+    seed_o = mapper.seed_map(frames_o[0], pose0_o, twists_o[0])
+    scan_1 = mapper._local(frames_o[1], torch.from_numpy(twists_o[1]).to(dev)).transformed(
+        pose_of(runs_o[0]["poses"][1]))
+    first, dest_a = hash_map_insert(seed_o, scan_1, ODO_RESOLUTION, with_dest=True)
+    again, dest_b = hash_map_insert(seed_o, scan_1, ODO_RESOLUTION, with_dest=True)
+    check(states_equal(first, again) and torch.equal(dest_a, dest_b),
+          "odometry: the same insert twice gave two states")
+    check(int(first.pc.count) > int(seed_o.pc.count), "odometry: the insert added nothing")
+    print(f"[odometry] the map insert of frame 1 run twice on the same state: equal states "
+          f"and rows ({int(seed_o.pc.count)} -> {int(first.pc.count)} points)")
+
+    # ---- 8. profile (optional)
     if args.profile:
         tables = []
         profile_align(icp, loc, glob, params, smi, tables)
@@ -764,11 +973,12 @@ def main():
             scan_l, gmap_2m, sensor, params_2m).optimal_tf.t[0]), 2, smi, tables)
         profile_window(f"batched, {BATCH} scans vs the 1M map (K2)", lambda: float(
             fn(l_b, map_1m, g_b).optimal_tf.t[0, 0]), 2, smi, tables)
+        profile_odometry(mapper, frames_o, twists_o, pose0_o, smi, tables)
         out = pathlib.Path(__file__).resolve().parent / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "profile_tables.txt").write_text("\n\n".join(tables))
 
-    # ---- 8. results
+    # ---- 9. results
     # a kernel's own line is its first shape (the one its path gives it)
     print(json.dumps({"kernels": [{
         "name": name,
@@ -776,6 +986,7 @@ def main():
         "source": KERNELS[name][0],
         "replaces": KERNELS[name][1],
         "launches": launches[name],
+        "launches_by_path": by_path[name],
         "max_abs_err": max(errs[name]),
         **{key: shapes[name][0][key] for key in
            ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound", "library_ms")},

@@ -20,8 +20,10 @@ from mp2p_icp_tpu_torch.icp import ICP
 from mp2p_icp_tpu_torch.matchers import (
     LayerMatch,
     MatcherAdaptive,
+    MatcherPoint2Plane,
     MatcherPointsDistanceThreshold,
 )
+from mp2p_icp_tpu_torch.ops.voxel_hash_map import VoxelHashMapState
 from mp2p_icp_tpu_torch.quality.paired_ratio import QualityPairedRatio
 from mp2p_icp_tpu_torch.solvers.common import PairWeights, WeightParameters
 from mp2p_icp_tpu_torch.solvers.gauss_newton import GNParams
@@ -69,6 +71,29 @@ def pointcloud_to_numpy(pc: PointCloud) -> dict:
     JAX package."""
     return {f.name: _np(getattr(pc, f.name)) for f in dataclasses.fields(pc)
             if getattr(pc, f.name) is not None}
+
+
+def voxel_hash_map_from_jax(state, device=None) -> VoxelHashMapState:
+    """The port's copy of a JAX package VoxelHashMapState (point buffer with
+    its channels, both key tables, the drop counter), read through numpy."""
+    device = resolve(device)
+
+    def i32(x):
+        return torch.from_numpy(np.array(x, dtype=np.int32)).to(device)
+
+    return VoxelHashMapState(
+        pc=pointcloud_from_jax(state.pc, device=device),
+        table_k1=i32(state.table_k1), table_k2=i32(state.table_k2),
+        n_dropped=i32(state.n_dropped),
+    )
+
+
+def voxel_hash_map_to_numpy(state: VoxelHashMapState) -> dict:
+    """{"pc": {field: array}, "table_k1", "table_k2", "n_dropped"} of a
+    state: the JAX package rebuilds it as ``VoxelHashMapState(pc=PointCloud(
+    **{k: jnp.asarray(v) ...}), table_k1=jnp.asarray(...), ...)``."""
+    return {"pc": pointcloud_to_numpy(state.pc), "table_k1": _np(state.table_k1),
+            "table_k2": _np(state.table_k2), "n_dropped": _np(state.n_dropped)}
 
 
 def results_to_numpy(res) -> dict:
@@ -127,6 +152,8 @@ def matcher_from_config(name: str, cfg: dict):
         return MatcherPointsDistanceThreshold(**cfg)
     if name == "MatcherAdaptive":
         return MatcherAdaptive(**cfg)
+    if name == "MatcherPoint2Plane":
+        return MatcherPoint2Plane(**cfg)
     raise NotImplementedError(f"matcher {name} is not ported yet")
 
 

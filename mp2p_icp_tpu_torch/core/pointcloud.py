@@ -27,6 +27,14 @@ def round_capacity(n: int, minimum: int = 256) -> int:
     return c
 
 
+def scatter_rows(target: torch.Tensor, dest: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """A copy of ``target`` with the rows of ``src`` written at ``dest``.
+    Rows that must not land are sent to ``len(target)``: an extra row takes
+    them and is cut off, so no two kept rows ever share a destination."""
+    extra = target.new_zeros((1,) + target.shape[1:])
+    return torch.cat([target, extra]).index_copy_(0, dest, src)[: target.shape[0]]
+
+
 @dataclasses.dataclass(frozen=True)
 class PointCloud:
     """Fixed-capacity SoA point cloud.

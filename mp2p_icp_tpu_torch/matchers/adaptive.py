@@ -10,8 +10,8 @@ that the KITTI configuration runs:
 2. pt2pt pairs below that threshold (and within the first-to-second
    distance ratio when more than one correspondence is asked for).
 
-Plane detection needs the batched 3x3 eigen solver (``ops/eigen.py``),
-which is not ported yet: ``enable_detect_planes=True`` raises.
+The plane-detection stage (a k = ``plane_search_points`` fit per point on
+``ops/eigen.py``) is not ported yet: ``enable_detect_planes=True`` raises.
 """
 
 from __future__ import annotations
@@ -88,8 +88,8 @@ class MatcherAdaptive(Matcher):
     def __post_init__(self):
         if self.enable_detect_planes:
             raise NotImplementedError(
-                "MatcherAdaptive(enable_detect_planes=True) needs ops/eigen.py, "
-                "not ported yet (ROADMAP item A.6)"
+                "MatcherAdaptive(enable_detect_planes=True): the plane-detection "
+                "stage is not ported yet (ROADMAP item A.6)"
             )
 
     def search_radius(self) -> float:

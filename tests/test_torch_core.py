@@ -246,8 +246,12 @@ def test_package_does_not_import_jax():
     code = (
         "import sys, mp2p_icp_tpu_torch, mp2p_icp_tpu_torch.icp, "
         "mp2p_icp_tpu_torch.convert, mp2p_icp_tpu_torch.parity, "
-        "mp2p_icp_tpu_torch.parallel; "
-        "assert 'jax' not in sys.modules, 'jax was imported'"
+        "mp2p_icp_tpu_torch.parallel, mp2p_icp_tpu_torch.odometry, "
+        "mp2p_icp_tpu_torch.filters, mp2p_icp_tpu_torch.eval.lidar_sim, "
+        "mp2p_icp_tpu_torch.eval.trajectory, mp2p_icp_tpu_torch.ops.voxel_hash_map, "
+        "mp2p_icp_tpu_torch.ops.normals, mp2p_icp_tpu_torch.matchers.point2plane; "
+        "assert 'jax' not in sys.modules, 'jax was imported'; "
+        "assert 'mp2p_icp_tpu' not in sys.modules, 'the JAX package was imported'"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=Path(__file__).resolve().parents[1])

@@ -9,6 +9,11 @@ band of the JAX package's own kNN rounding at street scale. At most 1% of
 the rows may be such ties. The adaptive threshold must match the
 reference's histogram formula to 1e-4 m² on the same kNN result; end to
 end, the port's exact distances may move it within the 2e-3 m² band.
+
+MatcherPoint2Plane, both branches (stored normals; kNN re-fit): weights and
+local indices equal row for row and the planes (centroid, normal) to 1e-4,
+except on at most 1% of the rows, where a kNN near-tie gave another
+neighbour or the fit sits at the planarity threshold.
 """
 
 import dataclasses
@@ -26,6 +31,8 @@ from mp2p_icp_tpu.matchers import MatchContext as JMatchContext
 from mp2p_icp_tpu.matchers import MatcherAdaptive as JAdaptive
 from mp2p_icp_tpu.matchers import MatcherPointsDistanceThreshold as JDistance
 from mp2p_icp_tpu.matchers import MatchState as JMatchState
+from mp2p_icp_tpu.matchers.point2plane import MatcherPoint2Plane as JPoint2Plane
+from mp2p_icp_tpu.ops.normals import estimate_point_normals as jnormals
 from mp2p_icp_tpu.ops.nn_bruteforce import knn_bruteforce as jknn
 from mp2p_icp_tpu.quality.paired_ratio import QualityPairedRatio as JQuality
 import mp2p_icp_tpu_torch
@@ -35,6 +42,7 @@ from mp2p_icp_tpu_torch.core.pairings import Pairings
 from mp2p_icp_tpu_torch.matchers import (
     MatchContext,
     MatcherAdaptive,
+    MatcherPoint2Plane,
     MatcherPointsDistanceThreshold,
     MatchState,
 )
@@ -237,3 +245,47 @@ def test_paired_ratio_quality_matches_jax(layers, reuse):
                      ctx=MatchContext(icp_iteration=0))
     assert abs(float(rt.quality) - float(rj.quality)) <= 0.01
     assert bool(rt.hard_discard) == bool(rj.hard_discard)
+
+
+@pytest.mark.parametrize("stored_normals", [True, False], ids=["stored_normals", "knn_refit"])
+@pytest.mark.parametrize("xyz_ypr", [(0.0,) * 6, (0.3, 0.1, 0.0, 0.01, 0.0, 0.0)])
+def test_point2plane_matches_jax(layers, xyz_ypr, stored_normals):
+    gj, lj, gt, lt = layers
+    if stored_normals:
+        gj = {"raw": jnormals(gj["raw"], knn=8, max_radius=3.0)}
+        gt = {"raw": convert.pointcloud_from_jax(gj["raw"])}  # the same normals in both
+    jm = JPoint2Plane(distance_threshold=3.0, knn=7, use_point_normals=stored_normals)
+    tm = _to_port(jm)
+    assert tm == MatcherPoint2Plane(distance_threshold=3.0, knn=7,
+                                    use_point_normals=stored_normals)
+    assert tm.search_radius() == jm.search_radius() == 3.0
+    assert tm.out_blocks(lt) == {"pt2pl": N}
+    (bj, _, potj), (bt, _, pott), _ = _run(jm, tm, (gj, lj, gt, lt), xyz_ypr, 0)
+    assert int(potj) == int(pott) == N
+    bj, bt = bj["pt2pl"], bt["pt2pl"]
+    np.testing.assert_array_equal(bt.local.numpy(), np.asarray(bj.local))
+    wj, wt = np.asarray(bj.weight), bt.weight.numpy()
+    same = (wj == wt) & (np.asarray(bj.local_idx) == bt.local_idx.numpy())
+    both = same & (wj > 0)
+    for name in ("plane_centroid", "plane_normal"):
+        gap = np.abs(np.asarray(getattr(bj, name)) - getattr(bt, name).numpy()).max(axis=1)
+        same &= ~both | (gap <= 1e-4)
+    assert (wt > 0).sum() > 200
+    assert (~same).sum() <= 0.01 * (wj > 0).sum(), ((~same).sum(), (wj > 0).sum())  # tie rows
+
+
+def test_point2plane_state_and_refusals(layers):
+    _, _, gt, lt = layers
+    pt = _poses((0.0,) * 6)[1]
+    tm = MatcherPoint2Plane(distance_threshold=1.5)
+    blocks, state, _ = tm.match(gt, lt, pt, MatchState.create(lt, gt), MatchContext(icp_iteration=0))
+    assert torch.equal(state.local_paired["raw"], blocks["pt2pl"].weight > 0)
+    assert not state.global_paired["raw"].any()
+    # already paired local points are skipped by the next matcher
+    again, _, _ = tm.match(gt, lt, pt, state, MatchContext(icp_iteration=0))
+    assert int(again["pt2pl"].count()) == 0
+    with pytest.raises(ValueError, match="no normals channel"):
+        MatcherPoint2Plane(use_point_normals=True).match(
+            gt, lt, pt, None, MatchContext(icp_iteration=0))
+    with pytest.raises(NotImplementedError, match="spatial_axis"):
+        MatcherPoint2Plane(spatial_axis="space")
