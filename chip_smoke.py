@@ -20,8 +20,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    points on an integer grid with duplicates (so the order of the merge
    decides every tie), Q = 1, 777 and 5000, fewer points than one tile and
    than one block has warps, a batch whose stride is not 16-byte aligned
-   (C = 3001), and the odometry shapes 6144x16384 (k=1), 2048x22528 and
-   6144x6144 (k=8: the normals fit of a frame and of the seed).
+   (C = 3001), the odometry shapes 6144x16384 (k=1), 2048x22528 and
+   6144x6144 (k=8: the normals fit of a frame and of the seed), and K2 at
+   the fleet step's shapes on street scans: 8x6144x16384 (k=1) and
+   8x2048x22528 (k=8).
    Times: each kernel at every shape its path (or the odometry step)
    gives it, as device time per launch of a CUDA graph of 20 wrapper
    calls and as the time of one call between CUDA events (which includes
@@ -46,20 +48,36 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    with dt = 0.1: deskew, FirstPoint decimation at 0.5 m into 6144 rows,
    crop of the 2^15-row map to 2^14, stored-normal point-to-plane +
    Gauss-Newton, voxel-hash insert, k=8 normals fit of the new voxels;
-   once cold and twice warm. ATE < 0.1 m and within max(1.5x, +0.01 m) of
+   once cold and once warm. ATE < 0.1 m and within max(1.5x, +0.01 m) of
    the JAX CPU reference, map count within 2% of it, every quality finite,
    K1 launches == matcher calls + one normals fit per frame + the seed's,
    no K2/K3 launch; the map insert run twice on the same input gives equal
    states;
-8. with --profile only: where the time goes, by torch.profiler over 2
+8. the fleet path (bench.py:738-776): 8 streams of 20 frames, stream b =
+   frames [2b, 2b+20) of the street drive with its twists and its true
+   start pose, through BatchedOdometryMapper.run once and .run_offline once
+   cold and twice warm; OdometryMapper.run_offline on the 36 frames; and
+   the 8 streams one after another through OdometryMapper.run. Each
+   stream's fleet poses must equal its sequential poses (R and t within
+   1e-5) with the same iterations per frame, the same final map count and
+   nothing dropped; run_offline must equal run to the bit, for one stream
+   and for the fleet; each stream's ATE must lie within max(1.5x, +0.01 m)
+   of the JAX CPU reference for that stream and its map count within 2%;
+   K2 launches == the fleet's ICP iterations (the slowest stream's, frame
+   by frame) + one normals fit per fleet frame, K1 launches == the 8
+   seeds, no K3 launch. Printed: aggregate scans/s of the fleet beside the
+   sequential streams', ms per fleet frame against the 100 ms period,
+   iterations, K2 launches, host reads and probe rounds per fleet frame;
+9. with --profile only: where the time goes, by torch.profiler over 2
    warm calls (device busy share, launches, the kNN kernels' time) of a
    scan-to-scan align, a scan to the 2M map and the batched call, then
    per-section host times of a scan-to-scan align with a sync around each
    section; then the odometry run: torch.profiler over one warm run of the
    36 frames (busy share, launches and host syncs per frame, probe rounds
    per map insert, K1's time by k) and per-stage times with a sync around
-   each stage; the profiler's tables go to chiprun_out/profile_tables.txt;
-9. one JSON line with the kernels' numbers, then the last line
+   each stage; the same for one warm fleet run; the profiler's tables go
+   to chiprun_out/profile_tables.txt;
+10. one JSON line with the kernels' numbers, then the last line
    {"ok": true, "device": {...}}.
 
 The port's constructors put their tensors on the card by default; this
@@ -68,10 +86,10 @@ scans as before, for the CPU comparison of phase 4 and for the poses of
 the street drive).
 
 Every kernel's launch count is set to 0 just before each path and read
-just after it. Imports torch, numpy, the port and bench.py's scene
-generator (numpy only); never jax. The JAX CPU reference values are
-constants here; scripts/torch_odometry_reference.py produces the
-odometry run's.
+just after it. Imports torch, numpy and the port; nothing of the JAX side.
+The JAX CPU reference values are constants here;
+scripts/torch_odometry_reference.py produces the odometry run's and, with
+--fleet, the fleet's.
 """
 
 import argparse
@@ -86,12 +104,16 @@ import time
 import numpy as np
 import torch
 
-import bench
 from mp2p_icp_tpu_torch import default_device
 from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pairings import Pairings
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
-from mp2p_icp_tpu_torch.eval.lidar_sim import make_street_sequence, scan_to_pointcloud
+from mp2p_icp_tpu_torch.eval.lidar_sim import (
+    make_scene,
+    make_street_sequence,
+    sample_scan,
+    scan_to_pointcloud,
+)
 from mp2p_icp_tpu_torch.eval.trajectory import ate_rmse
 from mp2p_icp_tpu_torch.filters import FilterDecimateVoxels, FilterDeskew
 from mp2p_icp_tpu_torch.icp import ICP, ICPParameters, IterTermReason
@@ -101,7 +123,7 @@ from mp2p_icp_tpu_torch.matchers import (
     MatcherPoint2Plane,
     MatcherPointsDistanceThreshold,
 )
-from mp2p_icp_tpu_torch.odometry import OdometryMapper
+from mp2p_icp_tpu_torch.odometry import BatchedOdometryMapper, OdometryMapper
 from mp2p_icp_tpu_torch.ops import cuda_build
 from mp2p_icp_tpu_torch.ops import nn_bruteforce as nnb
 from mp2p_icp_tpu_torch.ops.voxel_hash_map import hash_map_insert
@@ -131,7 +153,7 @@ LIBRARY = {"knn_sweep": "knn_bruteforce", "knn_sweep_streamed": "knn_streamed",
 MAP_CASES = (("1M", 1 << 20, 1 << 16, (0.00133, 30, "STALLED")),
              ("2M", 1 << 21, 1 << 18, (0.00087, 33, "STALLED")),
              ("16M", 1 << 24, 1 << 18, (0.00139, 32, "STALLED")))
-MAP_TIMED = {"1M": 5, "2M": 3, "16M": 2}  # warm aligns timed per map
+MAP_TIMED = {"1M": 3, "2M": 2, "16M": 1}  # warm aligns timed per map
 BATCH = 8
 # the least time the card can take: the kernels issue 9 FP32 instructions
 # per pair (3 sub, 3 mul, 2 add, 1 compare), none an FMA, so its 67 TFLOP/s
@@ -151,6 +173,24 @@ ODO_DT = 0.1
 ODO_RESOLUTION = 0.5
 ODO_JAX = {"ate_m": 0.026013, "map_points": 13796, "iterations_mean": 3.69}
 ATE_LIMIT = 0.1
+# the fleet (bench.py:738-752): stream b = frames [2b, 2b + 20) of the drive.
+# The JAX package's OdometryMapper.run on each stream on the CPU
+# (scripts/torch_odometry_reference.py --fleet; its own test holds its
+# batched run to these sequential runs): ATE in metres, map points, mean
+# ICP iterations per frame; frame by frame the slowest stream takes 4.79
+FLEET_STRIDE = 2
+FLEET_FRAMES = ODO_FRAMES - BATCH * FLEET_STRIDE
+FLEET_JAX = (
+    {"ate_m": 0.033288, "map_points": 11665, "iterations_mean": 3.58},
+    {"ate_m": 0.015307, "map_points": 11343, "iterations_mean": 3.63},
+    {"ate_m": 0.013923, "map_points": 10456, "iterations_mean": 3.16},
+    {"ate_m": 0.014438, "map_points": 10662, "iterations_mean": 3.26},
+    {"ate_m": 0.020158, "map_points": 10357, "iterations_mean": 3.21},
+    {"ate_m": 0.014085, "map_points": 10391, "iterations_mean": 3.37},
+    {"ate_m": 0.029321, "map_points": 10214, "iterations_mean": 3.53},
+    {"ate_m": 0.012371, "map_points": 10192, "iterations_mean": 3.32},
+)
+SENSOR_PERIOD_MS = 100.0
 
 
 def check(ok, what):
@@ -177,8 +217,8 @@ def kitti_icp():
 def street_pair(scene, seed_g, seed_l):
     """(local layers, global layers) of one bench pair, on the port's
     default device (the scan is moved into the sensor frame on the CPU)."""
-    g = bench.sample_scan(scene, np.random.RandomState(seed_g), n=N_POINTS)
-    loc = bench.sample_scan(scene, np.random.RandomState(seed_l), n=N_POINTS)
+    g = sample_scan(scene, np.random.RandomState(seed_g), n=N_POINTS)
+    loc = sample_scan(scene, np.random.RandomState(seed_l), n=N_POINTS)
     gt = se3.from_xyz_ypr(*GT, device="cpu")
     loc = se3.apply(se3.inverse(gt), torch.from_numpy(loc)).numpy()
     return ({"raw": PointCloud.from_numpy(loc)}, {"raw": PointCloud.from_numpy(g)})
@@ -525,11 +565,212 @@ def profile_odometry(mapper, frames, twists, pose0, smi, tables):
         print(f"[profile]   {label:28s} {secs / steps * 1e3:8.2f} ms per frame")
 
 
+def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind):
+    """Phase 8. ``run_36``: the result of OdometryMapper.run on the whole
+    drive (phase 7), which OdometryMapper.run_offline must equal. Adds the
+    phase's launches to ``launches`` / ``by_path``; returns what
+    profile_fleet needs."""
+    n = FLEET_FRAMES
+    offs = [FLEET_STRIDE * b for b in range(BATCH)]
+    streams = [frames[o:o + n] for o in offs]
+    stream_tw = [twists[o:o + n] for o in offs]
+    p0s = [pose_of(gt[o]) for o in offs]
+    bm = BatchedOdometryMapper(mapper)
+    kw = dict(twists=stream_tw, initial_poses=p0s, dt=ODO_DT)
+
+    # the deliberate host reads (bool() of a device flag: one per ICP
+    # iteration, one per probe round after the unconditional ones) and the
+    # probe rounds (each round's claim is the path's only scatter-reduce)
+    # of the fleet's first run, counted by wrapping the two methods; the
+    # seeds' share is read off when the staging ends
+    tally = {"reads": 0, "rounds": 0}
+    seeds = {}
+    real_stage = bm._stage
+
+    def counting_stage(*a, **k):
+        out = real_stage(*a, **k)
+        seeds.update(tally)
+        return out
+
+    real_bool, real_reduce = torch.Tensor.__bool__, torch.Tensor.scatter_reduce_
+
+    def counting_bool(self):
+        tally["reads"] += self.is_cuda
+        return real_bool(self)
+
+    def counting_reduce(self, *a, **k):
+        tally["rounds"] += 1
+        return real_reduce(self, *a, **k)
+
+    fleet_runs = []
+    for label, fn in (("run", bm.run), ("run_offline, cold", bm.run_offline),
+                      ("run_offline, warm", bm.run_offline), ("run_offline, warm", bm.run_offline)):
+        torch.cuda.synchronize()
+        reset_counts()
+        if label == "run":
+            torch.Tensor.__bool__, torch.Tensor.scatter_reduce_ = counting_bool, counting_reduce
+            bm._stage = counting_stage
+        try:
+            r = fn(streams, **kw)
+        finally:
+            torch.Tensor.__bool__, torch.Tensor.scatter_reduce_ = real_bool, real_reduce
+            bm._stage = real_stage
+        torch.cuda.synchronize()
+        c = counts()
+        slowest = r["iterations"].max(axis=0)  # a fleet frame runs its slowest stream's
+        calls = sum(matcher_calls(mapper.icp, int(it)) for it in slowest) + (n - 1)
+        check(c["knn_sweep_batched"] == calls,
+              f"fleet {label}: K2 launches {c['knn_sweep_batched']} != fleet ICP iterations "
+              f"+ normals fits {calls}")
+        check(c["knn_sweep"] == BATCH and c["knn_sweep_streamed"] == 0,
+              f"fleet {label}: K1 launches must be the {BATCH} seeds, K3 none: {c}")
+        launches["knn_sweep_batched"] += c["knn_sweep_batched"]
+        launches["knn_sweep"] += c["knn_sweep"]
+        by_path["knn_sweep_batched"]["fleet"] = c["knn_sweep_batched"]
+        by_path["knn_sweep"]["fleet"] = c["knn_sweep"]
+        frame_ms = r["frame_seconds"] * 1e3
+        print(f"[fleet] {label}: {BATCH} streams x {n} frames on {kind}: {r['scans_per_s']:.2f} "
+              f"scans/s in all, ms per fleet frame median {np.median(frame_ms):.1f} max "
+              f"{frame_ms.max():.1f} (sensor period {SENSOR_PERIOD_MS:.0f} ms per robot); ICP "
+              f"iterations per fleet frame mean {slowest.mean():.2f} max {slowest.max()} "
+              f"(the streams' own mean {r['iterations'].mean():.2f}); K2 launches "
+              f"{c['knn_sweep_batched']} = {int(slowest.sum())} iterations + {n - 1} fits "
+              f"({c['knn_sweep_batched'] / (n - 1):.2f} per fleet frame), K1 {c['knn_sweep']} "
+              f"(the seeds), K3 0 on {smi}")
+        check(r["poses"].shape == (BATCH, n, 4, 4) and np.isfinite(r["poses"]).all(),
+              f"fleet {label}: poses not finite")
+        check(r["qualities"].shape == (BATCH, n - 1) and np.isfinite(r["qualities"]).all(),
+              f"fleet {label}: a quality is not finite")
+        fleet_runs.append(r)
+    rb = fleet_runs[0]
+    reads, rounds = (tally[key] - seeds[key] for key in ("reads", "rounds"))
+    print(f"[fleet] run, per fleet frame: {reads / (n - 1):.2f} deliberate host reads "
+          f"({int(rb['iterations'].max(axis=0).sum())} for the ICP iterations, the rest the "
+          f"probe loop's), {rounds / (n - 1):.2f} probe rounds per fleet insert; the {BATCH} "
+          f"seeds' inserts took {seeds['rounds'] / BATCH:.2f} rounds and "
+          f"{seeds['reads'] / BATCH:.2f} reads each")
+
+    for r in fleet_runs[1:]:
+        same = all(np.array_equal(rb[key], r[key])
+                   for key in ("poses", "qualities", "iterations", "map_counts"))
+        check(same and states_equal(rb["map_states"], r["map_states"]),
+              "fleet: run_offline differs from run")
+    print("[fleet] run_offline equals run to the bit (poses, qualities, iterations, map "
+          "states), three times")
+
+    # one stream: run_offline on the whole drive against phase 7's run
+    torch.cuda.synchronize()
+    reset_counts()
+    r_off = mapper.run_offline(frames, twists=twists, dt=ODO_DT, initial_pose=pose_of(gt[0]))
+    torch.cuda.synchronize()
+    c = counts()
+    launches["knn_sweep"] += c["knn_sweep"]
+    by_path["knn_sweep"][f"odometry run_offline, {len(frames)} frames"] = c["knn_sweep"]
+    check(c["knn_sweep"] == int(r_off["iterations"].sum()) + len(frames)
+          and c["knn_sweep_batched"] == c["knn_sweep_streamed"] == 0,
+          f"odometry run_offline: launches {c}")
+    same = all(np.array_equal(run_36[key], r_off[key])
+               for key in ("poses", "qualities", "iterations", "map_counts"))
+    check(same and states_equal(run_36["map_state"], r_off["map_state"]),
+          "odometry: run_offline differs from run")
+    off_ms = r_off["frame_seconds"] * 1e3
+    run_ms = run_36["frame_seconds"] * 1e3
+    print(f"[odometry] run_offline on the {len(frames)} frames equals run to the bit; "
+          f"{r_off['scans_per_s']:.2f} scans/s, ms per frame median {np.median(off_ms):.1f} "
+          f"(run, warm: {run_36['scans_per_s']:.2f} scans/s, median {np.median(run_ms):.1f}) "
+          f"on {smi}")
+
+    # the same streams one after another, in the same call
+    seq_s, seq_calls = 0.0, 0
+    reset_counts()
+    for b in range(BATCH):
+        torch.cuda.synchronize()
+        rs = mapper.run(streams[b], twists=stream_tw[b], initial_pose=p0s[b], dt=ODO_DT)
+        torch.cuda.synchronize()
+        seq_s += (n - 1) / rs["scans_per_s"]
+        seq_calls += int(rs["iterations"].sum()) + (n - 1) + 1  # matcher calls, fits, the seed
+        gap = float(np.abs(rb["poses"][b] - rs["poses"]).max())
+        ate = ate_rmse(rb["poses"][b], gt[offs[b]:offs[b] + n])
+        n_map, n_seq = int(rb["maps"].count[b]), int(rs["map"].count)
+        ref = FLEET_JAX[b]
+        print(f"[fleet] stream {b} (frames {offs[b]}..{offs[b] + n - 1}): ATE {ate:.4f} m, map "
+              f"{n_map} points, iterations mean {rb['iterations'][b].mean():.2f} [JAX CPU "
+              f"reference: {ref['ate_m']} m, {ref['map_points']} points, "
+              f"{ref['iterations_mean']}]; sequential run: max |R, t difference| {gap:.3g}, "
+              f"map {n_seq} points, {rs['scans_per_s']:.2f} scans/s")
+        check(gap <= 1e-5, f"fleet stream {b}: poses differ from the sequential run by {gap}")
+        check(np.array_equal(rb["iterations"][b], rs["iterations"]),
+              f"fleet stream {b}: iterations {rb['iterations'][b]} != sequential "
+              f"{rs['iterations']}")
+        check(n_map == n_seq, f"fleet stream {b}: map {n_map} points, sequential {n_seq}")
+        check(int(rb["map_states"].n_dropped[b]) == 0 and int(rs["map_state"].n_dropped) == 0,
+              f"fleet stream {b}: points dropped")
+        check(ate < ATE_LIMIT and ate <= max(1.5 * ref["ate_m"], ref["ate_m"] + 0.01),
+              f"fleet stream {b}: ATE {ate} m outside max(1.5 x, + 0.01 m) of the JAX CPU "
+              f"reference {ref['ate_m']}")
+        check(abs(n_map - ref["map_points"]) <= 0.02 * ref["map_points"],
+              f"fleet stream {b}: {n_map} map points, not within 2% of {ref['map_points']}")
+    c = counts()
+    check(c["knn_sweep"] == seq_calls and c["knn_sweep_batched"] == 0,
+          f"sequential streams: K1 launches {c['knn_sweep']} != {seq_calls}, or K2 ran: {c}")
+    launches["knn_sweep"] += c["knn_sweep"]
+    by_path["knn_sweep"][f"the fleet's {BATCH} streams one after another"] = c["knn_sweep"]
+    warm = [r["scans_per_s"] for r in fleet_runs[2:]]
+    print(f"[fleet] aggregate: run {rb['scans_per_s']:.2f} scans/s, run_offline cold "
+          f"{fleet_runs[1]['scans_per_s']:.2f}, warm {warm[0]:.2f} and {warm[1]:.2f}; the same "
+          f"{BATCH} streams one after another {BATCH * (n - 1) / seq_s:.2f} scans/s on {smi}")
+    return bm, streams, kw
+
+
+def profile_fleet(bm, streams, kw, smi, tables):
+    """Where a warm fleet run's time goes: torch.profiler over one run, then
+    each stage's host time with a sync around it."""
+    from mp2p_icp_tpu_torch import odometry as odometry_mod
+
+    def run():
+        return bm.run(streams, **kw)
+
+    steps = len(streams[0]) - 1
+    prof = profile_window(f"fleet, {len(streams)} streams x {steps + 1} frames", run, 1, smi,
+                          tables, warmups=0)
+    syncs = prof["host"].get("cudaStreamSynchronize", 0) + prof["host"].get(
+        "cudaDeviceSynchronize", 0)
+    print(f"[profile] fleet per fleet frame ({steps} steps; the seeds' share included): "
+          f"{prof['wall_ms'] / steps:.1f} ms wall under the profiler, "
+          f"{prof['device_ms'] / steps:.3f} ms of kernels, {prof['kernels'] / steps:.0f} kernel "
+          f"launches, {syncs / steps:.1f} host syncs, "
+          f"{prof['host'].get('cudaMemcpyAsync', 0) / steps:.0f} copies")
+    for name, (count, ms) in sorted(prof["knn"].items()):
+        print(f"[profile]   {name}: {count / steps:.2f} launches per fleet frame, "
+              f"{ms / count * 1e3:.1f} us each, {ms / steps:.4f} ms per fleet frame")
+    wrapped = [
+        (FilterDeskew, "__call__", "deskew"),
+        (FilterDecimateVoxels, "__call__", "decimate (FirstPoint, sort)"),
+        (odometry_mod, "crop_batched", "crop"),
+        (odometry_mod, "_align_batched", "align"),
+        (odometry_mod, "hash_map_insert", "map insert"),
+        (odometry_mod, "estimate_point_normals", "normals fit"),
+    ]
+    sections, r = synced_sections(wrapped, run)
+    print(f"[profile] fleet stages with a sync around each: "
+          f"{r['frame_seconds'].sum() * 1e3 / steps:.1f} ms per fleet frame, "
+          f"{r['iterations'].max(axis=0).mean():.2f} ICP iterations per fleet frame")
+    for label, secs in sorted(sections.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {label:28s} {secs / steps * 1e3:8.2f} ms per fleet frame")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile each path (phase 8)")
+                    help="also profile each path (phase 9)")
     args = ap.parse_args()
+
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        """Prints the host seconds since the previous phase ended."""
+        clock.append(time.perf_counter())
+        print(f"[phase] {name}: {clock[-1] - clock[-2]:.1f} s")
 
     # ---- 1. the card
     if not torch.cuda.is_available():
@@ -561,9 +802,17 @@ def main():
                 print(f"[build]   {entry}: {line.strip().removeprefix('ptxas info    : ')}")
     print(f"[build] all kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
+    # the street drive of the odometry and fleet paths (its scans also give
+    # the fleet shapes of phase 3 their data)
+    t0 = time.perf_counter()
+    gt_o, twists_o, scans_o = make_street_sequence(ODO_FRAMES, dt=ODO_DT)
+    print(f"[odometry] {ODO_FRAMES} frames of 48 rings x 768 azimuths rendered in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    phase_done("build and street drive")
     # ---- 3. kernels against their plain versions
     errs = {name: [] for name in KERNELS}
-    scene = bench.make_scene(np.random.RandomState(0))
+    scene = make_scene(np.random.RandomState(0))
     loc, glob = street_pair(scene, 1, 2)
     made = [loc["raw"].xyz, loc["raw"].count, se3.identity().t, se3.from_xyz_ypr(*GT).R,
             Pairings.empty(pt2pt_cap=4).pt2pt.weight]
@@ -667,11 +916,26 @@ def main():
                                      nnb.knn_plain, fit_q, fit_p, 8))
     errs["knn_sweep"].append(compare("K1 6144x6144 k=8 (odometry seed's normals fit)",
                                      nnb.knn_sweep, nnb.knn_plain, odo_q, odo_q, 8))
+    # the fleet step: stream b's queries are returns of street frame 2b, its
+    # map the returns of the next frame; the fit takes 2048 of the queries
+    # against map + scan
+    returns = [torch.from_numpy(sc["xyz"][sc["valid"]]) for sc in scans_o[:2 * BATCH]]
+    fleet_q = torch.stack([returns[2 * b][:6144] for b in range(BATCH)]).to(dev)
+    fleet_p = torch.stack([returns[2 * b + 1][: 1 << 14] for b in range(BATCH)]).to(dev)
+    fleet_fq = fleet_q[:, :2048].contiguous()
+    fleet_fp = torch.cat([fleet_p, fleet_q], dim=1).contiguous()
+    errs["knn_sweep_batched"].append(compare(
+        f"K2 {BATCH}x6144x16384 k=1 (fleet step, street scans)", nnb.knn_sweep_batched,
+        nnb.knn_plain_batched, fleet_q, fleet_p, 1))
+    errs["knn_sweep_batched"].append(compare(
+        f"K2 {BATCH}x2048x22528 k=8 (fleet normals fit, street scans)", nnb.knn_sweep_batched,
+        nnb.knn_plain_batched, fleet_fq, fleet_fp, 8))
     torch.cuda.synchronize()
     for Q, C, k, B in ((6144, 1 << 14, 1, 1), (2048, 22528, 8, 1), (6144, 6144, 8, 1),
                        (N_POINTS, N_POINTS, 1, 1),
                        (N_POINTS, 1 << 16, 1, 1), (N_POINTS, 1 << 18, 1, 1),
-                       (N_POINTS, 1 << 16, 1, BATCH)):
+                       (N_POINTS, 1 << 16, 1, BATCH),
+                       (6144, 1 << 14, 1, BATCH), (2048, 22528, 8, BATCH)):
         # the grid and block sizes as the built library forms them for the
         # wrapper's split (both register tiles, k = 1 and k = 8), beside the
         # wrapper's own arithmetic
@@ -717,6 +981,12 @@ def main():
          lambda: nnb.knn_sweep_batched(scans_b, map_64k, 1), None),
         ("knn_sweep_batched", "batched B=2", 2, N_POINTS, 1 << 16, 1,
          lambda: nnb.knn_sweep_batched(scans_b[:2], maps_b[:2], 1), None),
+        ("knn_sweep_batched", "fleet step", BATCH, 6144, 1 << 14, 1,
+         lambda: nnb.knn_sweep_batched(fleet_q, fleet_p, 1),
+         lambda: nnb.knn_plain_batched(fleet_q, fleet_p, 1)),
+        ("knn_sweep_batched", "fleet normals fit", BATCH, 2048, 22528, 8,
+         lambda: nnb.knn_sweep_batched(fleet_fq, fleet_fp, 8),
+         lambda: nnb.knn_plain_batched(fleet_fq, fleet_fp, 8)),
     ]
     graph_times = [[] for _ in timed]
     for _ in range(2):  # two turns over all shapes
@@ -751,6 +1021,7 @@ def main():
           f"{statistics.median(graph_ms(eight_k1)):.4f} ms in a CUDA graph on {smi}")
     del maps_b, map_64k, timed
 
+    phase_done("kernels against their plain versions, times")
     launches = {name: 0 for name in KERNELS}
     by_path = {name: {} for name in KERNELS}  # launches of each path's last counted window
 
@@ -806,6 +1077,7 @@ def main():
           f"({cpu_s:.1f} s)")
     check(gap < 5e-3, f"CPU/GPU pose gap {gap}")
 
+    phase_done("scan to scan")
     # ---- 5. the scan-to-large-map path
     micp = map_icp()
     scan_l, sensor, gt_map = sensor_scan(corridor, 200.0, 34,
@@ -844,6 +1116,7 @@ def main():
         maps[label] = (gmap, mparams)
     map_1m = maps["1M"][0]
 
+    phase_done("scan to large maps")
     # ---- 6. the batched path: B scans against the shared 1M map
     rngb = np.random.RandomState(35)
     problems = []
@@ -899,17 +1172,15 @@ def main():
           f"{BATCH * len(warm_b) / sum(warm_b):.2f} scans/s; the same scans aligned one "
           f"after another {BATCH / sum(seq_walls):.2f} scans/s on {smi}")
 
+    phase_done("batched")
     # ---- 7. the odometry path: the street drive, frame by frame
-    t0 = time.perf_counter()
-    gt_o, twists_o, scans_o = make_street_sequence(ODO_FRAMES, dt=ODO_DT)
     frames_o = odometry_frames(scans_o)
     pose0_o = pose_of(gt_o[0])
     mapper = odometry_mapper()
-    print(f"[odometry] {ODO_FRAMES} frames of 48 rings x 768 azimuths rendered in "
-          f"{time.perf_counter() - t0:.1f} s, {int(frames_o[0]['raw'].count)} returns in "
-          f"frame 0, raw capacity {frames_o[0]['raw'].capacity}")
+    print(f"[odometry] {int(frames_o[0]['raw'].count)} returns in frame 0, raw capacity "
+          f"{frames_o[0]['raw'].capacity}")
     runs_o = []
-    for rep in range(3):  # once cold, twice warm
+    for rep in range(2):  # once cold, once warm
         torch.cuda.synchronize()
         reset_counts()
         r = mapper.run(frames_o, twists=twists_o, dt=ODO_DT, initial_pose=pose0_o)
@@ -951,7 +1222,7 @@ def main():
               f"odometry: {n_map} map points, not within 2% of {ODO_JAX['map_points']}")
         runs_o.append(r)
     spread = max(float(np.abs(runs_o[0]["poses"] - r["poses"]).max()) for r in runs_o[1:])
-    print(f"[odometry] largest difference between the three runs' poses: {spread:.3g}")
+    print(f"[odometry] largest difference between the two runs' poses: {spread:.3g}")
     # the map insert twice on the same input: equal states, dest included
     seed_o = mapper.seed_map(frames_o[0], pose0_o, twists_o[0])
     scan_1 = mapper._local(frames_o[1], torch.from_numpy(twists_o[1]).to(dev)).transformed(
@@ -964,7 +1235,12 @@ def main():
     print(f"[odometry] the map insert of frame 1 run twice on the same state: equal states "
           f"and rows ({int(seed_o.pc.count)} -> {int(first.pc.count)} points)")
 
-    # ---- 8. profile (optional)
+    phase_done("odometry")
+    # ---- 8. the fleet path: 8 streams of the drive, one frame index at a time
+    fleet = fleet_phase(mapper, frames_o, twists_o, gt_o, runs_o[-1], launches, by_path, smi, kind)
+
+    phase_done("fleet")
+    # ---- 9. profile (optional)
     if args.profile:
         tables = []
         profile_align(icp, loc, glob, params, smi, tables)
@@ -974,11 +1250,13 @@ def main():
         profile_window(f"batched, {BATCH} scans vs the 1M map (K2)", lambda: float(
             fn(l_b, map_1m, g_b).optimal_tf.t[0, 0]), 2, smi, tables)
         profile_odometry(mapper, frames_o, twists_o, pose0_o, smi, tables)
+        profile_fleet(*fleet, smi, tables)
         out = pathlib.Path(__file__).resolve().parent / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "profile_tables.txt").write_text("\n\n".join(tables))
 
-    # ---- 9. results
+    phase_done("profile")
+    # ---- 10. results
     # a kernel's own line is its first shape (the one its path gives it)
     print(json.dumps({"kernels": [{
         "name": name,

@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.core.se3 import Pose
@@ -86,6 +87,25 @@ def voxel_hash_map_from_jax(state, device=None) -> VoxelHashMapState:
         table_k1=i32(state.table_k1), table_k2=i32(state.table_k2),
         n_dropped=i32(state.n_dropped),
     )
+
+
+def stacked_voxel_hash_maps_from_jax(states, device=None) -> VoxelHashMapState:
+    """The port's stacked state (a leading B on every tensor) of a list of
+    B JAX package VoxelHashMapStates of one shape, or of one state that the
+    JAX package already stacked: a fleet step can then start from the same
+    state in both packages."""
+    if not hasattr(states, "table_k1"):  # a list of states (a state is a tuple itself)
+        return pytree.tree_map(lambda *xs: torch.stack(xs),
+                               *[voxel_hash_map_from_jax(s, device=device) for s in states])
+    return voxel_hash_map_from_jax(states, device=device)
+
+
+def unstack(tree) -> list:
+    """The B members of a stacked pytree of the port (a map state, a
+    PointCloud, a Pose), each ready for ``voxel_hash_map_to_numpy`` /
+    ``pointcloud_to_numpy``."""
+    B = pytree.tree_leaves(tree)[0].shape[0]
+    return [pytree.tree_map(lambda x: x[b], tree) for b in range(B)]
 
 
 def voxel_hash_map_to_numpy(state: VoxelHashMapState) -> dict:

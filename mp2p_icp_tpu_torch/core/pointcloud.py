@@ -28,11 +28,23 @@ def round_capacity(n: int, minimum: int = 256) -> int:
 
 
 def scatter_rows(target: torch.Tensor, dest: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """A copy of ``target`` with the rows of ``src`` written at ``dest``.
-    Rows that must not land are sent to ``len(target)``: an extra row takes
+    """A copy of ``target`` [..., C(, w)] with the rows of ``src``
+    [..., N(, w)] written at ``dest`` [..., N]; leading axes are independent
+    problems. Rows that must not land are sent to row C: an extra row takes
     them and is cut off, so no two kept rows ever share a destination."""
-    extra = target.new_zeros((1,) + target.shape[1:])
-    return torch.cat([target, extra]).index_copy_(0, dest, src)[: target.shape[0]]
+    axis = dest.ndim - 1
+    C = target.shape[axis]
+    extra = target.new_zeros(target.shape[:axis] + (1,) + target.shape[axis + 1:])
+    index = dest.reshape(dest.shape + (1,) * (src.ndim - dest.ndim)).expand(src.shape)
+    return torch.cat([target, extra], dim=axis).scatter_(axis, index, src).narrow(axis, 0, C)
+
+
+def take_rows(source: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``source`` [..., C(, w)] at the rows ``rows`` [..., M] (int64) of each
+    problem: [..., M(, w)]. Without leading axes it is ``source[rows]``."""
+    if source.ndim == rows.ndim:
+        return torch.gather(source, -1, rows)
+    return torch.gather(source, -2, rows[..., None].expand(*rows.shape, source.shape[-1]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +79,8 @@ class PointCloud:
         return self.xyz.device
 
     def valid_mask(self) -> torch.Tensor:
-        return torch.arange(self.capacity, device=self.device) < self.count
+        """[..., C] bool: the leading ``count`` rows of each cloud."""
+        return torch.arange(self.capacity, device=self.device) < self.count[..., None]
 
     @staticmethod
     def from_numpy(
@@ -110,14 +123,15 @@ class PointCloud:
 
     def transformed(self, pose) -> "PointCloud":
         """Rigidly transform valid points (padding rows stay at the
-        sentinel); normals rotate with the pose."""
+        sentinel); normals rotate with the pose. A batch of clouds takes a
+        batch of poses."""
         from mp2p_icp_tpu_torch.core import se3
 
-        m = self.valid_mask()[:, None]
+        m = self.valid_mask()[..., None]
         new_xyz = torch.where(m, se3.apply(pose, self.xyz), self.xyz)
         nrm = self.normals
         if nrm is not None:
-            nrm = torch.where(m, nrm @ pose.R.T, nrm)
+            nrm = torch.where(m, se3.rotate(pose, nrm), nrm)
         return dataclasses.replace(self, xyz=new_xyz, normals=nrm)
 
 

@@ -38,13 +38,23 @@ def identity(dtype=torch.float32, device=None) -> Pose:
                 torch.zeros(3, dtype=dtype, device=device))
 
 
+def matmul3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for A [..., n, 3] and B [..., 3, m], as three broadcast
+    products added in index order. Only elementwise kernels run, so a value
+    does not depend on how many problems share the call: a library product
+    may take another kernel, and another rounding, for a batch, and a fleet
+    step must give each stream the pose and the map points of its own run."""
+    return (A[..., :, 0, None] * B[..., 0, None, :] + A[..., :, 1, None] * B[..., 1, None, :]
+            + A[..., :, 2, None] * B[..., 2, None, :])
+
+
 def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return (M @ v[..., :, None])[..., 0]
+    return matmul3(M, v[..., :, None])[..., 0]
 
 
 def compose(a: Pose, b: Pose) -> Pose:
     """a ∘ b: apply b first, then a."""
-    return Pose(a.R @ b.R, _matvec(a.R, b.t) + a.t)
+    return Pose(matmul3(a.R, b.R), _matvec(a.R, b.t) + a.t)
 
 
 def inverse(p: Pose) -> Pose:
@@ -55,14 +65,14 @@ def inverse(p: Pose) -> Pose:
 def apply(p: Pose, points: torch.Tensor) -> torch.Tensor:
     """Transform points [..., N, 3] (or a single [..., 3]) by the pose."""
     if points.ndim > p.t.ndim:
-        return points @ p.R.transpose(-1, -2) + p.t[..., None, :]
+        return matmul3(points, p.R.transpose(-1, -2)) + p.t[..., None, :]
     return _matvec(p.R, points) + p.t
 
 
 def rotate(p: Pose, vecs: torch.Tensor) -> torch.Tensor:
     """Rotate vectors (no translation) — for normals / line directions."""
     if vecs.ndim > p.t.ndim:
-        return vecs @ p.R.transpose(-1, -2)
+        return matmul3(vecs, p.R.transpose(-1, -2))
     return _matvec(p.R, vecs)
 
 
@@ -105,7 +115,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     theta_sq = torch.sum(w * w, dim=-1)
     A, B, _ = _sinc_coeffs(theta_sq)
     W = hat(w)
-    return _eye_like(W) + A[..., None, None] * W + B[..., None, None] * (W @ W)
+    return _eye_like(W) + A[..., None, None] * W + B[..., None, None] * matmul3(W, W)
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
@@ -162,7 +172,7 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     theta_sq = torch.sum(w * w, dim=-1)
     _, B, C = _sinc_coeffs(theta_sq)
     W = hat(w)
-    return _eye_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
+    return _eye_like(W) + B[..., None, None] * W + C[..., None, None] * matmul3(W, W)
 
 
 def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
@@ -182,7 +192,7 @@ def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
         )
         / torch.clamp(theta_sq, min=_EPS),
     )
-    return _eye_like(W) - 0.5 * W + cot_term[..., None, None] * (W @ W)
+    return _eye_like(W) - 0.5 * W + cot_term[..., None, None] * matmul3(W, W)
 
 
 def exp(tangent: torch.Tensor) -> Pose:
@@ -220,15 +230,15 @@ def _se3_Q(rho: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     c3 = torch.where(
         small, torch.full_like(c3_big, 0.5 * (1.0 / 24.0 + 3.0 / 120.0)), c3_big
     )
-    TP = T @ P
-    PT = P @ T
-    TPT = TP @ T
-    TT = T @ T
+    TP = matmul3(T, P)
+    PT = matmul3(P, T)
+    TPT = matmul3(TP, T)
+    TT = matmul3(T, T)
     return (
         0.5 * P
-        + c1[..., None, None] * (TP + PT + T @ PT)
-        - c2[..., None, None] * (TT @ P + P @ TT - 3.0 * TPT)
-        - c3[..., None, None] * (TPT @ T + TT @ PT)
+        + c1[..., None, None] * (TP + PT + matmul3(T, PT))
+        - c2[..., None, None] * (matmul3(TT, P) + matmul3(P, TT) - 3.0 * TPT)
+        - c3[..., None, None] * (matmul3(TPT, T) + matmul3(TT, PT))
     )
 
 
@@ -238,7 +248,7 @@ def se3_left_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
     rho, theta = xi[..., :3], xi[..., 3:]
     Jinv = so3_left_jacobian_inv(theta)
     Q = _se3_Q(rho, theta)
-    top = torch.cat([Jinv, -Jinv @ Q @ Jinv], dim=-1)
+    top = torch.cat([Jinv, -matmul3(matmul3(Jinv, Q), Jinv)], dim=-1)
     bottom = torch.cat([torch.zeros_like(Q), Jinv], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 

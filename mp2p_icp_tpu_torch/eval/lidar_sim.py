@@ -18,6 +18,10 @@ walls + cylindrical pillars):
 - per-point ring ids and a simple range/incidence intensity model.
 
 All rays of a scan are cast in one vectorised batch on the host.
+
+``make_scene`` / ``sample_scan`` are the registration benchmark's unordered
+point pool and its sweeps (no ray cast), kept here so that the port's
+scripts need nothing of the JAX side.
 """
 
 from __future__ import annotations
@@ -142,6 +146,32 @@ def make_street_scene(
             (cx, cy, rng.uniform(0.12, 0.4), rng.uniform(2.0, 4.5))
         )
     return Scene(walls=walls, cylinders=cylinders)
+
+
+def make_scene(rng: np.random.RandomState, n: int = 200_000, extent: float = 60.0) -> np.ndarray:
+    """The registration benchmark's point pool (the port's copy of
+    ``make_scene`` of bench.py, draw for draw): a dense structured street
+    scene, noisy ground plus wall planes in both orientations, so every
+    translation axis is constrained. Returns [n, 3] float32."""
+    ground = np.stack([rng.uniform(-extent, extent, n // 2),
+                       rng.uniform(-extent, extent, n // 2),
+                       np.zeros(n // 2)], 1)
+    walls_y = np.stack([rng.uniform(-extent, extent, n // 4),
+                        rng.choice([-20.0, -10.0, 10.0, 20.0], n // 4),
+                        rng.uniform(0, 4, n // 4)], 1)
+    walls_x = np.stack([rng.choice([-25.0, -15.0, 15.0, 25.0], n // 4),
+                        rng.uniform(-extent, extent, n // 4),
+                        rng.uniform(0, 4, n // 4)], 1)
+    return np.concatenate([ground, walls_y, walls_x]).astype(np.float32)
+
+
+def sample_scan(scene: np.ndarray, rng: np.random.RandomState, n: int = 8192,
+                noise: float = 0.02) -> np.ndarray:
+    """One sensor sweep of ``make_scene``'s pool (the port's copy of
+    ``sample_scan`` of bench.py): an independent random subset plus
+    per-scan Gaussian noise, so every scan sees different points."""
+    idx = rng.choice(scene.shape[0], size=n, replace=False)
+    return (scene[idx] + noise * rng.randn(n, 3)).astype(np.float32)
 
 
 # HDL-64E-style elevation span

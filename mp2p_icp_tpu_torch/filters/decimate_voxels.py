@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from mp2p_icp_tpu_torch.core.pointcloud import PointCloud, scatter_rows
+from mp2p_icp_tpu_torch.core.pointcloud import PointCloud, scatter_rows, take_rows
 from mp2p_icp_tpu_torch.filters.base import FilterBase
 from mp2p_icp_tpu_torch.ops.voxel_hash_map import hash_decimate_first_point
 from mp2p_icp_tpu_torch.ops.voxel_unique import first_point_select
@@ -71,16 +71,17 @@ class FilterDecimateVoxels(FilterBase):
         if self.backend == "hash":
             return self._call_hash(layers)
         inputs = [layers[name] for name in self.input_pointcloud_layer]
-        xyz = torch.cat([pc.xyz for pc in inputs], dim=0)
-        valid = torch.cat([pc.valid_mask() for pc in inputs], dim=0)
+        # a batch of clouds [B, C, 3] decimates as B problems at once
+        xyz = torch.cat([pc.xyz for pc in inputs], dim=-2)
+        valid = torch.cat([pc.valid_mask() for pc in inputs], dim=-1)
 
         if self.flatten_to is not None:
             flat = torch.cat(
-                [xyz[:, :2], torch.full_like(xyz[:, :1], self.flatten_to)], dim=1
+                [xyz[..., :2], torch.full_like(xyz[..., :1], self.flatten_to)], dim=-1
             )
-            xyz = torch.where(valid[:, None], flat, xyz)
+            xyz = torch.where(valid[..., None], flat, xyz)
 
-        C = xyz.shape[0]
+        C = xyz.shape[-2]
         out_cap = self.output_capacity or C
 
         # per-map bypass (reference FilterDecimateVoxels.cpp:158-192): an
@@ -99,7 +100,8 @@ class FilterDecimateVoxels(FilterBase):
                     "size output_capacity accordingly"
                 )
             bypass_pt = torch.cat(
-                [(pc.count <= min_pts).expand(pc.capacity) for pc in inputs]
+                [(pc.count <= min_pts)[..., None].expand(pc.xyz.shape[:-1]) for pc in inputs],
+                dim=-1,
             )
             valid_decim = valid & ~bypass_pt
 
@@ -114,16 +116,16 @@ class FilterDecimateVoxels(FilterBase):
         """Output assembly: the first min(n, out_cap) voxel winners
         (``src``: their input rows), their channels, then the bypassed
         maps."""
-        out_valid = torch.arange(out_cap, device=xyz.device) < n
+        out_valid = torch.arange(out_cap, device=xyz.device) < n[..., None]
         out = PointCloud(
-            xyz=torch.where(out_valid[:, None], xyz[src], PointCloud.PAD_VALUE),
+            xyz=torch.where(out_valid[..., None], take_rows(xyz, src), PointCloud.PAD_VALUE),
             count=torch.clamp(n, max=out_cap),
         )
 
         # channel passthrough (a winner is a concrete source point)
         if len(inputs) == 1:
             def gather(ch):
-                return None if ch is None else torch.where(out_valid, ch[src], 0.0)
+                return None if ch is None else torch.where(out_valid, take_rows(ch, src), 0.0)
 
             pc0 = inputs[0]
             out = dataclasses.replace(
@@ -136,18 +138,18 @@ class FilterDecimateVoxels(FilterBase):
         # FilterDecimateVoxels.cpp:168-186); channels ride along
         if bypass_pt is not None:
             byp = valid & bypass_pt
-            rank = torch.cumsum(byp, dim=0) - 1
-            dest = torch.clamp(torch.where(byp, out.count + rank, out_cap), 0, out_cap)
-            n_byp = torch.sum(byp, dtype=torch.int32)
+            rank = torch.cumsum(byp, dim=-1) - 1
+            dest = torch.clamp(torch.where(byp, out.count[..., None] + rank, out_cap), 0, out_cap)
+            n_byp = torch.sum(byp, dim=-1, dtype=torch.int32)
 
             def append_ch(out_ch, chs):
                 if out_ch is None and all(c is None for c in chs):
                     return None
-                o = out_ch if out_ch is not None else xyz.new_zeros(out_cap)
+                o = out_ch if out_ch is not None else xyz.new_zeros(dest.shape[:-1] + (out_cap,))
                 s = torch.cat([
-                    c if c is not None else xyz.new_zeros(pc.capacity)
+                    c if c is not None else xyz.new_zeros(pc.xyz.shape[:-1])
                     for pc, c in zip(inputs, chs)
-                ])
+                ], dim=-1)
                 return scatter_rows(o, dest, s)
 
             out = PointCloud(
@@ -176,10 +178,10 @@ class FilterDecimateVoxels(FilterBase):
         else:
             # channels only ride the single-input case, as with 'sort'
             src = PointCloud(
-                xyz=torch.cat([pc.xyz for pc in inputs], dim=0),
+                xyz=torch.cat([pc.xyz for pc in inputs], dim=-2),
                 count=sum(pc.count for pc in inputs),
             )
-            valid = torch.cat([pc.valid_mask() for pc in inputs], dim=0)
+            valid = torch.cat([pc.valid_mask() for pc in inputs], dim=-1)
         out_cap = self.output_capacity or src.capacity
         new_layers = dict(layers)
         new_layers[self.output_pointcloud_layer] = hash_decimate_first_point(

@@ -63,23 +63,24 @@ class FilterDeskew(FilterBase):
         tw = list(self.twist)
         if variables:
             tw = [variables.get(n, d) for n, d in zip(_TWIST_NAMES, tw)]
-        # variables arrive as 0-d tensors on the device: no host read
-        twist = torch.stack([
+        # variables arrive as tensors on the device (no host read): 0-d for
+        # one cloud, [B] for a batch of clouds [B, C, 3], one twist each
+        twist = torch.stack(torch.broadcast_tensors(*[
             torch.as_tensor(x, dtype=torch.float32, device=pc.device) for x in tw
-        ])
-        v, w = twist[:3], twist[3:]
-        theta = torch.sqrt(torch.sum(w * w) + 1e-30)
+        ]), dim=-1)
+        v, w = twist[..., :3], twist[..., 3:]
+        theta = torch.sqrt(torch.sum(w * w, dim=-1) + 1e-30)[..., None]  # [..., 1]
         n = w / theta
-        small = theta < 1e-8
+        small = (theta < 1e-8)[..., None]
         t = pc.time
-        phi = t * theta  # [C]
+        phi = t * theta  # [..., C]
         sin_p = torch.sin(phi)
         cos1_p = 1.0 - torch.cos(phi)
         # rotation: p + sin(phi) n x p + (1 - cos(phi)) n x (n x p)
-        n_rows = n.expand_as(pc.xyz)
+        n_rows = n[..., None, :].expand_as(pc.xyz)
         nxp = torch.linalg.cross(n_rows, pc.xyz)
         nxnxp = torch.linalg.cross(n_rows, nxp)
-        rot_p = pc.xyz + sin_p[:, None] * nxp + cos1_p[:, None] * nxnxp
+        rot_p = pc.xyz + sin_p[..., None] * nxp + cos1_p[..., None] * nxnxp
         rot_p = torch.where(small, pc.xyz, rot_p)
         # translation: t v + t ((1 - cos phi) / phi) n x v
         #                  + t ((phi - sin phi) / phi) n x (n x v)
@@ -89,10 +90,11 @@ class FilterDeskew(FilterBase):
         safe_phi = torch.where(tiny, 1.0, phi)
         c_a = torch.where(tiny, 0.5 * phi, cos1_p / safe_phi)
         c_b = torch.where(tiny, phi * phi / 6.0, (phi - sin_p) / safe_phi)
-        trans = t[:, None] * (v[None, :] + c_a[:, None] * nxv[None, :]
-                              + c_b[:, None] * nxnxv[None, :])
-        trans = torch.where(small, t[:, None] * v[None, :], trans)
-        new_xyz = torch.where(pc.valid_mask()[:, None], rot_p + trans, pc.xyz)
+        v_rows = v[..., None, :]
+        trans = t[..., None] * (v_rows + c_a[..., None] * nxv[..., None, :]
+                                + c_b[..., None] * nxnxv[..., None, :])
+        trans = torch.where(small, t[..., None] * v_rows, trans)
+        new_xyz = torch.where(pc.valid_mask()[..., None], rot_p + trans, pc.xyz)
         out = dict(layers)
         out[self.output_pointcloud_layer] = dataclasses.replace(pc, xyz=new_xyz)
         return out

@@ -42,15 +42,16 @@ class FilterMerge(FilterBase):
             target = layers[self.target_layer]
         else:
             target = PointCloud(
-                xyz=src.xyz.new_full((self.target_capacity, 3), PointCloud.PAD_VALUE),
+                xyz=src.xyz.new_full(src.xyz.shape[:-2] + (self.target_capacity, 3),
+                                     PointCloud.PAD_VALUE),
                 count=torch.zeros_like(src.count),
             )
         C = target.capacity
         # the source's valid points go to target.count onward; invalid rows
         # and the overflow to slot C, which is cut off
         s_valid = src.valid_mask()
-        rank = torch.cumsum(s_valid, dim=0) - 1
-        dest = torch.clamp(torch.where(s_valid, target.count + rank, C), 0, C)
+        rank = torch.cumsum(s_valid, dim=-1) - 1
+        dest = torch.clamp(torch.where(s_valid, target.count[..., None] + rank, C), 0, C)
 
         # per-point channels ride the same scatter (the reference's
         # insertAnotherMap copies full point records): a channel present on
@@ -58,8 +59,9 @@ class FilterMerge(FilterBase):
         def merge_ch(t_ch, s_ch, width=()):
             if t_ch is None and s_ch is None:
                 return None
-            t = t_ch if t_ch is not None else src.xyz.new_zeros((C,) + width)
-            s = s_ch if s_ch is not None else src.xyz.new_zeros((src.capacity,) + width)
+            batch = src.xyz.shape[:-2]
+            t = t_ch if t_ch is not None else src.xyz.new_zeros(batch + (C,) + width)
+            s = s_ch if s_ch is not None else src.xyz.new_zeros(batch + (src.capacity,) + width)
             return scatter_rows(t, dest, s)
 
         out = dict(layers)

@@ -23,22 +23,40 @@ whether a frame merges is known on the host (``merge_every``), so a frame
 that does not merge skips the map update. The pose chain stays on the
 device; the ICP loop reads its termination flags once per iteration.
 
-Equality contracts (tests/test_torch_odometry.py): both map modes keep the
-same FirstPoint winner per voxel on the same poses, and the port tracks the
-JAX package on the same frames.
+One step serves one stream and a fleet. Every stage of the frame takes
+leading batch axes (filters, transform, map insert, compaction, normals
+fit), so ``BatchedOdometryMapper`` hands the same ``_step`` stacked inputs:
+B streams with their own maps, poses and twists advance one frame index at
+a time, each ICP iteration and each normals fit is one launch of the
+batched kNN sweep for all streams, and the host reads one flag per
+iteration (and per probe round of the map insert) for the whole fleet. A
+fleet frame runs as many ICP iterations as its slowest stream; a stream
+that has stopped keeps its pose.
 
-Not ported yet: ``run_offline``, ``BatchedOdometryMapper``,
-``SpatialOdometryMapper``.
+``run_offline`` (both classes) is ``run`` on inputs staged once: the frames
+stacked into one pytree on the device, the twists in one tensor. In the JAX
+package its point is one dispatch for the whole sequence; here the frame
+loop stays on the host either way (the ICP loop reads its flag every
+iteration), so the mode saves only the per-call staging of ``run`` and
+changes no result.
+
+Equality contracts (tests/test_torch_odometry.py, tests/test_torch_fleet.py):
+both map modes keep the same FirstPoint winner per voxel on the same poses,
+the port tracks the JAX package on the same frames, a fleet's streams equal
+their sequential runs, and ``run_offline`` equals ``run``.
+
+Not ported yet: ``SpatialOdometryMapper``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud, scatter_rows
@@ -46,6 +64,7 @@ from mp2p_icp_tpu_torch.core.se3 import Pose
 from mp2p_icp_tpu_torch.filters import FilterMerge, apply_filter_pipeline
 from mp2p_icp_tpu_torch.ops.normals import estimate_point_normals
 from mp2p_icp_tpu_torch.ops.voxel_hash_map import empty_voxel_hash_map, hash_map_insert
+from mp2p_icp_tpu_torch.parallel.batch import _align_batched, crop_batched, stack_pytrees
 
 _TWIST_NAMES = ("vx", "vy", "vz", "wx", "wy", "wz")
 
@@ -122,9 +141,9 @@ class OdometryMapper:
         )
 
     def _local(self, raw_layers, twist) -> PointCloud:
-        """The frame's filtered local layer, the twist feeding the deskew
-        variables as 0-d tensors."""
-        variables = {name: twist[i] for i, name in enumerate(_TWIST_NAMES)}
+        """The frame's filtered local layer, the twist [..., 6] feeding the
+        deskew variables as 0-d tensors (a fleet's as [B] tensors)."""
+        variables = {name: twist[..., i] for i, name in enumerate(_TWIST_NAMES)}
         return apply_filter_pipeline(self.filters, raw_layers, variables)[self.local_layer]
 
     def _candidates(self, near_map: PointCloud, src_world: PointCloud):
@@ -132,10 +151,10 @@ class OdometryMapper:
         The crop covers the scan's box and a margin, so every new point's
         neighbourhood lies inside it."""
         cand = PointCloud(
-            xyz=torch.cat([near_map.xyz, src_world.xyz]),
+            xyz=torch.cat([near_map.xyz, src_world.xyz], dim=-2),
             count=near_map.count + src_world.count,
         )
-        return cand, torch.cat([near_map.valid_mask(), src_world.valid_mask()])
+        return cand, torch.cat([near_map.valid_mask(), src_world.valid_mask()], dim=-1)
 
     def _fit(self, pc: PointCloud, source=None, source_valid=None) -> PointCloud:
         return estimate_point_normals(
@@ -154,8 +173,12 @@ class OdometryMapper:
         a PointCloud (sort-maintenance mode) or a VoxelHashMapState
         (incremental mode). The guess is the motion model
         prev_pose·exp(dt·twist_prev) when ``dt`` is given, else the
-        previous relative pose."""
-        matchers = tuple(self.icp.matchers)
+        previous relative pose.
+
+        Stacked inputs (poses [B, 3, 3] / [B, 3], twists [B, 6], layers
+        [B, C, 3], a stacked map state) advance B streams by one frame; the
+        results then carry a leading B and ``do_merge`` holds for all."""
+        batch = prev_pose.t.shape[:-1]
         map_pc = self._map_pc(map_state)
         seed_rel = se3.exp(dt * twist_prev) if dt is not None else rel_prev
         guess = se3.compose(prev_pose, seed_rel)
@@ -163,10 +186,13 @@ class OdometryMapper:
         l_layers = {self.local_layer: src}
         # crop once: for the align and, below, as the candidate pool of the
         # normals fit
-        g_crop, gidx = self.icp._crop_globals(
-            self.params, {self.map_layer: map_pc}, l_layers, guess
-        )
-        res = self.icp._align_core(self.params, g_crop, l_layers, guess, None, gidx)
+        g_layers = {self.map_layer: map_pc}
+        if batch:
+            g_crop, gidx, _ = crop_batched(self.icp, self.params, g_layers, l_layers, guess)
+            res = _align_batched(self.icp, self.params, l_layers, g_crop, guess, gidx)
+        else:
+            g_crop, gidx = self.icp._crop_globals(self.params, g_layers, l_layers, guess)
+            res = self.icp._align_core(self.params, g_crop, l_layers, guess, None, gidx)
         pose = res.optimal_tf
         rel_new = se3.compose(se3.inverse(prev_pose), pose)
         if not do_merge:
@@ -193,12 +219,13 @@ class OdometryMapper:
             C = merged.pc.capacity
             cap_n = self.normals_query_capacity
             win = dest < C
-            rank = torch.cumsum(win, dim=0) - 1
+            rank = torch.cumsum(win, dim=-1) - 1
             slot = torch.where(win & (rank < cap_n), rank, cap_n)
             q_xyz = scatter_rows(
-                src_world.xyz.new_full((cap_n, 3), PointCloud.PAD_VALUE), slot, src_world.xyz)
-            d_map = scatter_rows(dest.new_full((cap_n,), C), slot, dest)
-            n_q = torch.clamp(torch.sum(win, dtype=torch.int32), max=cap_n)
+                src_world.xyz.new_full(batch + (cap_n, 3), PointCloud.PAD_VALUE),
+                slot, src_world.xyz)
+            d_map = scatter_rows(dest.new_full(batch + (cap_n,), C), slot, dest)
+            n_q = torch.clamp(torch.sum(win, dim=-1, dtype=torch.int32), max=cap_n)
             qfit = self._fit(PointCloud(xyz=q_xyz, count=n_q),
                              *self._candidates(near_map, src_world))
             merged = merged._replace(pc=dataclasses.replace(
@@ -234,11 +261,79 @@ class OdometryMapper:
         return apply_filter_pipeline(self.map_filters, layers, None)[self.map_layer]
 
     # ------------------------------------------------------------------
-    def run_offline(self, *args, **kwargs):
-        raise NotImplementedError(
-            "OdometryMapper.run_offline (the whole sequence as one program) is "
-            "not ported yet; use run()"
-        )
+    def _drive(self, map_state, pose0: Pose, n: int, frame_of: Callable, twists,
+               dt: Optional[float], progress_every: int = 0) -> Dict:
+        """Frames 1 ... n-1 through ``_step``, for one stream or a fleet
+        (everything stacked). ``frame_of(i)`` gives frame i's raw layers;
+        ``twists`` is one [n, ..., 6] tensor on the device or None. Poses,
+        qualities, iteration counts and map counts are written into
+        tensors on the device, frame by frame, and fetched after the last
+        frame.
+        Returns numpy arrays with the frame axis first: "R" [n-1, ..., 3, 3],
+        "t", "qualities", "iterations", "map_counts", and "frame_seconds"
+        [n-1], "elapsed", "map_state"."""
+        device, batch = pose0.t.device, pose0.t.shape[:-1]
+        step_dt = dt if (dt is not None and twists is not None) else None
+        zeros6 = torch.zeros(batch + (6,), device=device)
+
+        def twist_of(i):
+            return zeros6 if twists is None else twists[i]
+
+        # whether frame i merges is decided on the host: the flags never go
+        # to the device
+        merges = [self.merge_every <= 1 or i % self.merge_every == 0 for i in range(n)]
+        steps = max(n - 1, 0)
+        Rs = torch.empty((steps,) + batch + (3, 3), device=device)
+        ts = torch.empty((steps,) + batch + (3,), device=device)
+        qs = torch.empty((steps,) + batch, device=device)
+        its = torch.empty((steps,) + batch, dtype=torch.int32, device=device)
+        counts = torch.empty((steps,) + batch, dtype=torch.int32, device=device)
+        abs_pose = pose0
+        rel_prev = Pose(*(x.expand(batch + x.shape) for x in se3.identity(device=device)))
+        frame_s = []
+        t0 = time.perf_counter()
+        for i in range(1, n):
+            t_frame = time.perf_counter()
+            map_state, res, rel_prev = self._step(
+                map_state, frame_of(i), abs_pose, rel_prev, twist_of(i),
+                twist_of(i - 1), merges[i], step_dt,
+            )
+            abs_pose = res.optimal_tf
+            Rs[i - 1], ts[i - 1], qs[i - 1] = abs_pose.R, abs_pose.t, res.quality
+            its[i - 1] = res.n_iterations
+            counts[i - 1] = self._map_pc(map_state).count
+            if progress_every and i % progress_every == 0:
+                float(abs_pose.t.reshape(-1)[0])  # waits for the frame's map update
+            frame_s.append(time.perf_counter() - t_frame)
+        # the fetch, enqueued last, bounds every enqueued step
+        out = {"R": Rs.cpu().numpy(), "t": ts.cpu().numpy(),
+               "qualities": qs.cpu().numpy(), "iterations": its.cpu().numpy(),
+               "map_counts": counts.cpu().numpy()}
+        out.update(elapsed=time.perf_counter() - t0, map_state=map_state,
+                   frame_seconds=np.asarray(frame_s, np.float64))
+        return out
+
+    def _twist_table(self, twists, device):
+        """The per-frame twists as one [n, 6] tensor on the device."""
+        if twists is None:
+            return None
+        return torch.as_tensor(np.asarray(twists, np.float32), device=device)
+
+    def _results(self, drive: Dict, pose0: Pose) -> Dict:
+        n = len(drive["R"]) + 1
+        mats = np.tile(np.eye(4, dtype=np.float64), (n, 1, 1))
+        mats[0, :3, :3], mats[0, :3, 3] = pose0.R.cpu().numpy(), pose0.t.cpu().numpy()
+        mats[1:, :3, :3], mats[1:, :3, 3] = drive["R"], drive["t"]
+        return {
+            "poses": mats,
+            "map": self._map_pc(drive["map_state"]),
+            "map_state": drive["map_state"],
+            "scans_per_s": (n - 1) / max(drive["elapsed"], 1e-9),
+            "qualities": drive["qualities"],
+            "iterations": drive["iterations"],
+            "frame_seconds": drive["frame_seconds"],
+            "map_counts": drive["map_counts"],
+        }
 
     def run(
         self,
@@ -266,57 +361,124 @@ class OdometryMapper:
         last ICP iteration of a frame reads the device, its map update may
         still run) and "map_counts" (map points after the frame)."""
         device = next(iter(frames[0].values())).device
-        step_dt = dt if (dt is not None and twists is not None) else None
-        n = len(frames)
-        zeros6 = torch.zeros(6, device=device)
-        tw_dev = (
-            [torch.as_tensor(np.asarray(t, np.float32), device=device) for t in twists]
-            if twists is not None else None
-        )
-
-        def twist_of(i):
-            return zeros6 if tw_dev is None else tw_dev[i]
-
+        tw = self._twist_table(twists, device)
         pose0 = initial_pose or se3.identity(device=device)
-        map_state = self.seed_map(frames[0], pose0, twist_of(0))
-        abs_pose = pose0
-        rel_prev = se3.identity(device=device)
-        poses: List[Pose] = [pose0]
-        qualities, iterations, frame_s, counts = [], [], [], []
-        t0 = time.perf_counter()
-        for i in range(1, n):
-            t_frame = time.perf_counter()
-            do_merge = self.merge_every <= 1 or i % self.merge_every == 0
-            map_state, res, rel_prev = self._step(
-                map_state, frames[i], abs_pose, rel_prev, twist_of(i),
-                twist_of(i - 1), do_merge, step_dt,
-            )
-            abs_pose = res.optimal_tf
-            poses.append(abs_pose)
-            qualities.append(res.quality)
-            iterations.append(res.n_iterations)
-            counts.append(self._map_pc(map_state).count)
-            if progress_every and i % progress_every == 0:
-                float(abs_pose.t[0])  # waits for the frame's map update
-            frame_s.append(time.perf_counter() - t_frame)
-        # one final fetch, enqueued last, bounds every enqueued step
-        mats = np.tile(np.eye(4, dtype=np.float64), (n, 1, 1))
-        mats[:, :3, :3] = torch.stack([p.R for p in poses]).cpu().numpy()
-        mats[:, :3, 3] = torch.stack([p.t for p in poses]).cpu().numpy()
-        elapsed = time.perf_counter() - t0
+        map_state = self.seed_map(frames[0], pose0, None if tw is None else tw[0])
+        return self._results(self._drive(
+            map_state, pose0, len(frames), frames.__getitem__, tw, dt, progress_every), pose0)
 
-        def fetch(xs, dtype):
-            if not xs:
-                return np.zeros(0, dtype)
-            return torch.stack(xs).cpu().numpy().astype(dtype)
+    def run_offline(
+        self,
+        frames: Sequence[Dict[str, PointCloud]],
+        twists: Optional[Sequence] = None,
+        initial_pose: Optional[Pose] = None,
+        dt: Optional[float] = None,
+    ) -> Dict:
+        """Same contract and results as ``run``, with the inputs staged
+        once: frames 1 ... N-1 stacked into one pytree on the device
+        ([N-1, C, ...] per field), the twists in one tensor (the merge
+        flags stay on the host, which decides them); poses and qualities
+        are written into preallocated device tensors and fetched after the
+        last frame.
 
+        In the JAX package this mode is one dispatch for the whole
+        sequence. Here the ICP loop still reads its termination flag once
+        per iteration, so the frame loop stays on the host and the mode
+        saves none of the per-iteration launches or syncs: it is ``run``
+        without per-frame input handling."""
+        device = next(iter(frames[0].values())).device
+        tw = self._twist_table(twists, device)
+        pose0 = initial_pose or se3.identity(device=device)
+        map_state = self.seed_map(frames[0], pose0, None if tw is None else tw[0])
+        frames_x = stack_pytrees(list(frames[1:])) if len(frames) > 1 else None
+
+        def frame_of(i):
+            return pytree.tree_map(lambda x: x[i - 1], frames_x)
+
+        return self._results(self._drive(
+            map_state, pose0, len(frames), frame_of, tw, dt), pose0)
+
+
+@dataclasses.dataclass
+class BatchedOdometryMapper:
+    """B independent odometry streams, one frame index at a time: fleet or
+    multi-robot mapping on one card (port of ``BatchedOdometryMapper`` of
+    the JAX package, which vmaps its fused step).
+
+    One stream keeps the card idle most of a frame: the host's launches
+    set the pace, and an ICP iteration costs the host the same for one
+    problem and for B. The fleet runs ``mapper._step`` on stacked inputs:
+    per-stream maps, poses and twists, one batched kNN sweep per ICP
+    iteration and per normals fit for all streams. Whether a frame merges
+    is one host flag for the whole fleet. Each stream's result equals its
+    own ``OdometryMapper.run``.
+    """
+
+    mapper: OdometryMapper
+
+    def _stage(self, streams, twists, initial_poses):
+        """Seeds every stream's map and stacks the per-stream state.
+        Returns (stacked map state, stacked pose0 [B], twists [n, B, 6] or
+        None, n)."""
+        m = self.mapper
+        B, n = len(streams), len(streams[0])
+        if any(len(s) != n for s in streams):
+            raise ValueError("the streams of a fleet must have equal lengths")
+        if twists is not None and len(twists) != B:
+            raise ValueError(f"{len(twists)} twist sequences for {B} streams")
+        device = next(iter(streams[0][0].values())).device
+        poses0 = initial_poses or [se3.identity(device=device) for _ in range(B)]
+        tw = None
+        if twists is not None:
+            tw = torch.as_tensor(np.asarray(twists, np.float32), device=device).transpose(0, 1)
+        maps = stack_pytrees([
+            m.seed_map(streams[b][0], poses0[b], None if tw is None else tw[0, b])
+            for b in range(B)])
+        return maps, stack_pytrees(list(poses0)), tw, n
+
+    def _results(self, drive: Dict, pose0: Pose) -> Dict:
+        """The fleet's results with the stream axis first."""
+        m = self.mapper
+        steps, B = drive["t"].shape[:2]
+        mats = np.tile(np.eye(4, dtype=np.float64), (B, steps + 1, 1, 1))
+        mats[:, 0, :3, :3], mats[:, 0, :3, 3] = pose0.R.cpu().numpy(), pose0.t.cpu().numpy()
+        mats[:, 1:, :3, :3] = drive["R"].transpose(1, 0, 2, 3)
+        mats[:, 1:, :3, 3] = drive["t"].transpose(1, 0, 2)
         return {
             "poses": mats,
-            "map": self._map_pc(map_state),
-            "map_state": map_state,
-            "scans_per_s": (n - 1) / max(elapsed, 1e-9),
-            "qualities": fetch(qualities, np.float32),
-            "iterations": np.asarray(iterations, np.int32),
-            "frame_seconds": np.asarray(frame_s, np.float64),
-            "map_counts": fetch(counts, np.int32),
+            "maps": m._map_pc(drive["map_state"]),
+            "map_states": drive["map_state"],
+            "scans_per_s": B * steps / max(drive["elapsed"], 1e-9),
+            "qualities": drive["qualities"].T,
+            "iterations": drive["iterations"].T,
+            "frame_seconds": drive["frame_seconds"],
+            "map_counts": drive["map_counts"].T,
         }
+
+    def run(self, streams, twists=None, initial_poses=None, dt: Optional[float] = None):
+        """streams: list of B frame sequences of equal length; twists:
+        optional list of B per-frame twist sequences; initial_poses: list
+        of B poses. Returns {"poses": [B, N, 4, 4], "maps": the stacked
+        map PointCloud, "map_states", "scans_per_s": B·(N-1) / elapsed,
+        "qualities": [B, N-1]} and, as ``OdometryMapper.run``,
+        "iterations" and "map_counts" [B, N-1] and "frame_seconds" [N-1]
+        (one fleet frame serves all streams)."""
+        maps, pose0, tw, n = self._stage(streams, twists, initial_poses)
+        frames_dev = [None] + [stack_pytrees([s[i] for s in streams]) for i in range(1, n)]
+        return self._results(self.mapper._drive(
+            maps, pose0, n, frames_dev.__getitem__, tw, dt), pose0)
+
+    def run_offline(self, streams, twists=None, initial_poses=None,
+                    dt: Optional[float] = None):
+        """Same contract and results as ``run``, with the whole fleet's
+        frames stacked into one pytree on the device ([N-1, B, C, ...] per
+        field). As for ``OdometryMapper.run_offline``, the frame loop stays
+        on the host: the mode saves no launch and no sync."""
+        maps, pose0, tw, n = self._stage(streams, twists, initial_poses)
+        frames_x = stack_pytrees([stack_pytrees([s[i] for s in streams])
+                                  for i in range(1, n)]) if n > 1 else None
+
+        def frame_of(i):
+            return pytree.tree_map(lambda x: x[i - 1], frames_x)
+
+        return self._results(self.mapper._drive(maps, pose0, n, frame_of, tw, dt), pose0)

@@ -11,7 +11,7 @@ iteration only gathers.
 A normal is zero where the neighbourhood is not plane-like (the matchers'
 criterion l0 < eigen_threshold * l2), which the matchers read as "no plane
 here". The kNN is ``knn_bruteforce``: on CUDA tensors the K1 kernel with
-k = ``knn``.
+k = ``knn`` (K2, through ``knn_bruteforce_batched``, for a batch of clouds).
 """
 
 from __future__ import annotations
@@ -21,9 +21,9 @@ from typing import Optional
 
 import torch
 
-from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
+from mp2p_icp_tpu_torch.core.pointcloud import PointCloud, take_rows
 from mp2p_icp_tpu_torch.ops.eigen import estimate_points_eigen
-from mp2p_icp_tpu_torch.ops.nn_bruteforce import knn_bruteforce
+from mp2p_icp_tpu_torch.ops.nn_bruteforce import knn_bruteforce, knn_bruteforce_batched
 
 
 def estimate_point_normals(
@@ -40,17 +40,23 @@ def estimate_point_normals(
 
     source: optional denser cloud to take the neighbourhoods from (the
     accumulated map plus the new scan, while ``pc`` is the new points);
-    source_valid: its validity when it is not the leading rows."""
+    source_valid: its validity when it is not the leading rows.
+
+    A batch of clouds (xyz [B, Q, 3], with ``source`` [B, C, 3] when given)
+    is fitted as B problems; its kNN is one batched sweep (K2 on CUDA
+    tensors)."""
     src = source if source is not None else pc
     valid = pc.valid_mask()
     sv = source_valid if source_valid is not None else src.valid_mask()
-    res = knn_bruteforce(
+    front_end = knn_bruteforce_batched if pc.xyz.ndim == 3 else knn_bruteforce
+    res = front_end(
         pc.xyz, valid, src.xyz, sv, k=knn, max_radius_sq=max_radius * max_radius,
     )
-    neigh = src.xyz[torch.clamp(res.idx, 0, src.capacity - 1).long()]
+    rows = torch.clamp(res.idx, 0, src.capacity - 1).long()  # [..., Q, k]
+    neigh = take_rows(src.xyz, rows.flatten(-2)).reshape(rows.shape + (3,))
     pe = estimate_points_eigen(neigh, res.valid)
     enough = pe.count >= min_points_to_fit
-    is_plane = pe.eigenvalues[:, 0] < plane_eigen_threshold * pe.eigenvalues[:, 2]
+    is_plane = pe.eigenvalues[..., 0] < plane_eigen_threshold * pe.eigenvalues[..., 2]
     keep = valid & enough & is_plane
-    normals = torch.where(keep[:, None], pe.eigenvectors[:, :, 0], 0.0)
+    normals = torch.where(keep[..., None], pe.eigenvectors[..., 0], 0.0)
     return dataclasses.replace(pc, normals=normals)

@@ -22,7 +22,7 @@ _INVALID_KEY = torch.iinfo(torch.int64).max
 
 
 def voxel_cells(xyz: torch.Tensor, voxel_size) -> torch.Tensor:
-    """[C, 3] int64 cells floor(xyz / voxel_size) + OFFSET, clipped to
+    """[..., C, 3] int64 cells floor(xyz / voxel_size) + OFFSET, clipped to
     [0, 2·OFFSET). The divide is kept (not a multiply by the reciprocal),
     so a point on a cell border falls in the same voxel as in the JAX
     package. The clip is done in float, before the conversion, so that
@@ -34,28 +34,30 @@ def voxel_cells(xyz: torch.Tensor, voxel_size) -> torch.Tensor:
 def key_words(cells: torch.Tensor, valid: torch.Tensor):
     """The exact two-word voxel key (k1 = (c0 << 15) | c1 < 2^30, k2 = c2)
     as int64; invalid rows get (SENTINEL, SENTINEL)."""
-    k1 = torch.where(valid, cells[:, 0] * (1 << 15) + cells[:, 1], SENTINEL)
-    k2 = torch.where(valid, cells[:, 2], SENTINEL)
+    k1 = torch.where(valid, cells[..., 0] * (1 << 15) + cells[..., 1], SENTINEL)
+    k2 = torch.where(valid, cells[..., 2], SENTINEL)
     return k1, k2
 
 
 def first_point_select(xyz: torch.Tensor, valid: torch.Tensor, voxel_size,
                        out_cap: int, flatten_z: bool = False):
-    """FirstPoint voxel winners. Returns (sel [out_cap] int64, n_voxels):
-    sel[j] is the input index of the winner of the voxel of rank j (voxels
-    in key order) for j < min(n_voxels, out_cap), and C beyond."""
-    C = xyz.shape[0]
+    """FirstPoint voxel winners of xyz [..., C, 3] with valid [..., C];
+    leading axes are independent problems, sorted and compacted together.
+    Returns (sel [..., out_cap] int64, n_voxels [...]): sel[j] is the input
+    index of the winner of the voxel of rank j (voxels in key order) for
+    j < min(n_voxels, out_cap), and C beyond."""
+    C = xyz.shape[-2]
     cells = voxel_cells(xyz, voxel_size)
     if flatten_z:
-        cells = torch.cat([cells[:, :2], torch.zeros_like(cells[:, :1])], dim=1)
+        cells = torch.cat([cells[..., :2], torch.zeros_like(cells[..., :1])], dim=-1)
     k1, k2 = key_words(cells, valid)
     key = torch.where(valid, k1 * (1 << 15) + k2, _INVALID_KEY)
-    keys, order = torch.sort(key, stable=True)
-    first = torch.ones(1, dtype=torch.bool, device=xyz.device)
-    new_seg = torch.cat([first, keys[1:] != keys[:-1]]) & (keys != _INVALID_KEY)
-    seg_id = torch.cumsum(new_seg, dim=0) - 1
-    n = torch.sum(new_seg, dtype=torch.int32)
+    keys, order = torch.sort(key, dim=-1, stable=True)
+    first = torch.ones_like(keys[..., :1], dtype=torch.bool)
+    new_seg = torch.cat([first, keys[..., 1:] != keys[..., :-1]], dim=-1) & (keys != _INVALID_KEY)
+    seg_id = torch.cumsum(new_seg, dim=-1) - 1
+    n = torch.sum(new_seg, dim=-1, dtype=torch.int32)
     # a winner goes to its voxel rank; every other row to slot out_cap
     dest = torch.where(new_seg & (seg_id < out_cap), seg_id, out_cap)
-    sel = torch.full((out_cap + 1,), C, dtype=torch.int64, device=xyz.device)
-    return sel.scatter_(0, dest, order)[:out_cap], n
+    sel = torch.full(key.shape[:-1] + (out_cap + 1,), C, dtype=torch.int64, device=xyz.device)
+    return sel.scatter_(-1, dest, order)[..., :out_cap], n

@@ -76,8 +76,11 @@ def make_batched_align(icp: ICP, params: ICPParameters = None,
             )
 
     def run(local_map, global_map, guess: Pose) -> ICPResults:
-        return _align_batched(icp, params, point_layers(local_map),
-                              point_layers(global_map), guess, broadcast_globals)
+        l_layers, g_layers = point_layers(local_map), point_layers(global_map)
+        _check_batched(l_layers, g_layers, guess, broadcast_globals)
+        g_layers, gidx_maps, g_dim = crop_batched(
+            icp, params, g_layers, l_layers, guess, None if broadcast_globals else 0)
+        return _align_batched(icp, params, l_layers, g_layers, guess, gidx_maps, g_dim)
 
     return run
 
@@ -95,12 +98,11 @@ def _where(mask: torch.Tensor, new, old):
     )
 
 
-def _align_batched(icp: ICP, params: ICPParameters, l_layers: Dict[str, PointCloud],
-                   g_layers: Dict[str, PointCloud], guess: Pose, broadcast: bool):
+def _check_batched(l_layers: Dict[str, PointCloud], g_layers: Dict[str, PointCloud],
+                   guess: Pose, broadcast: bool):
     if not g_layers or not l_layers:
         raise ValueError("empty input maps")
     B = guess.t.shape[0]
-    device = guess.t.device
     for name, layer in l_layers.items():
         if layer.xyz.ndim != 3 or layer.xyz.shape[0] != B:
             raise ValueError(f"local layer {name!r} must be batched [B={B}, C, 3]")
@@ -111,16 +113,29 @@ def _align_batched(icp: ICP, params: ICPParameters, l_layers: Dict[str, PointClo
                 f"global layer {name!r} must be "
                 f"{'one [C, 3] map' if broadcast else f'batched [B={B}, C, 3]'}")
 
-    g_dim = None if broadcast else 0
-    gidx_maps: dict = {}
-    if icp._crop_layers(params, g_layers):
-        # each problem crops at its own guess: the cropped layers are batched
-        g_layers, gidx_maps = vmap(
-            lambda g, l, pose: icp._crop_globals(params, g, l, pose),
-            in_dims=(g_dim, 0, 0),
-        )(g_layers, l_layers, guess)
-        g_dim = 0
 
+
+def crop_batched(icp: ICP, params: ICPParameters, g_layers, l_layers, guess: Pose, g_dim=0):
+    """``ICP._crop_globals`` for every problem at its own guess. ``g_dim``
+    is 0 for batched global layers and None for one shared map. Returns
+    (layers, index maps, g_dim of the returned layers): after a crop the
+    layers are batched; without one they come back as they are."""
+    if not icp._crop_layers(params, g_layers):
+        return g_layers, {}, g_dim
+    g_layers, gidx_maps = vmap(
+        lambda g, l, pose: icp._crop_globals(params, g, l, pose),
+        in_dims=(g_dim, 0, 0),
+    )(g_layers, l_layers, guess)
+    return g_layers, gidx_maps, 0
+
+
+def _align_batched(icp: ICP, params: ICPParameters, l_layers: Dict[str, PointCloud],
+                   g_layers: Dict[str, PointCloud], guess: Pose, gidx_maps: dict, g_dim=0):
+    """The batched ICP loop on global layers that are already cropped
+    (``crop_batched``; the fleet odometry step crops once and keeps the crop
+    as the candidate pool of its normals fit)."""
+    B = guess.t.shape[0]
+    device = guess.t.device
     checkpoints = quality_checkpoints(params)
     finished = [False] * len(icp.solvers)  # no latch in the batched loop
     one = Pose(guess.R[0], guess.t[0])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The JAX package's result for the odometry run of chip_smoke.py, on the CPU.
 
-    python3 scripts/torch_odometry_reference.py [--frames N] [--port]
+    python3 scripts/torch_odometry_reference.py [--frames N] [--port] [--fleet]
 
 Builds the street drive with the port's simulator
 (``mp2p_icp_tpu_torch.eval.lidar_sim.make_street_sequence``: the frames
@@ -12,7 +12,12 @@ cropped to 2^14, stored-normal point-to-plane + Gauss-Newton, k=8 normals
 fit of the new voxels, motion-model guess at dt = 0.1), and prints the
 constants that chip_smoke.py holds the port against: ATE, map points, ICP
 iterations per frame. ``--port`` also runs the port on the CPU (its plain
-kNN) on the same frames, for a preview of the comparison.
+kNN) on the same frames, for a preview of the comparison. ``--fleet`` runs,
+instead of the whole drive, the 8 streams of the fleet phase (stream b =
+frames [2b, 2b + 20) of the drive, bench.py:738-752) one after another
+through the JAX package's ``OdometryMapper.run`` and prints the constants
+``FLEET_JAX`` (per stream: ATE, map points, mean iterations); the JAX
+package's own test holds its batched run to these sequential runs.
 
 This script is not part of the port: it imports both packages. JAX runs on
 the CPU (set JAX_PLATFORMS=cpu).
@@ -45,6 +50,7 @@ from mp2p_icp_tpu_torch.eval.lidar_sim import make_street_sequence  # noqa: E402
 from mp2p_icp_tpu_torch.eval.trajectory import ate_rmse  # noqa: E402
 
 DT = 0.1
+FLEET_B, FLEET_STRIDE = 8, 2  # bench.py:738-745: stream b starts at frame 2 b
 
 
 def jax_mapper(iterations):
@@ -82,6 +88,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=36)
     ap.add_argument("--port", action="store_true", help="also run the port on the CPU")
+    ap.add_argument("--fleet", action="store_true",
+                    help="run the fleet phase's 8 streams instead of the whole drive")
     args = ap.parse_args()
 
     gt, twists, scans = make_street_sequence(args.frames)
@@ -91,6 +99,27 @@ def main():
     pose0 = jse3.Pose(jnp.asarray(gt[0, :3, :3], jnp.float32),
                       jnp.asarray(gt[0, :3, 3], jnp.float32))
     iterations = []
+    if args.fleet:
+        n = args.frames - FLEET_B * FLEET_STRIDE
+        mapper, streams = jax_mapper(iterations), []
+        for b in range(FLEET_B):
+            o = FLEET_STRIDE * b
+            del iterations[:]
+            t0 = time.perf_counter()
+            run = mapper.run(frames[o:o + n], twists=twists[o:o + n], dt=DT,
+                             initial_pose=jse3.Pose(jnp.asarray(gt[o, :3, :3], jnp.float32),
+                                                    jnp.asarray(gt[o, :3, 3], jnp.float32)))
+            jax.effects_barrier()
+            streams.append({
+                "ate_m": ate_rmse(run["poses"], gt[o:o + n]),
+                "map_points": int(run["map"].count),
+                "iterations_mean": float(np.mean(iterations)),
+                "iterations_per_frame": list(iterations),
+                "seconds": time.perf_counter() - t0,
+            })
+        print(json.dumps({"package": "mp2p_icp_tpu (JAX) on " + jax.devices()[0].platform,
+                          "frames_per_stream": n, "streams": streams}))
+        return
     t0 = time.perf_counter()
     run = jax_mapper(iterations).run(frames, twists=twists, dt=DT, initial_pose=pose0)
     jax.effects_barrier()

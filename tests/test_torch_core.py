@@ -256,3 +256,17 @@ def test_package_does_not_import_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_side():
+    """chip_smoke.py imports torch, numpy and the port:
+    neither jax, nor the JAX package, nor the JAX benchmark's script."""
+    code = (
+        "import sys, chip_smoke; "
+        "bad = [m for m in ('jax', 'mp2p_icp_tpu', 'bench') if m in sys.modules]; "
+        "assert not bad, bad; "
+        "assert callable(chip_smoke.main) and 'mp2p_icp_tpu_torch' in sys.modules"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr

@@ -5,6 +5,7 @@ metrics value for value."""
 import numpy as np
 import pytest
 
+import bench
 from mp2p_icp_tpu.core import se3 as jse3
 from mp2p_icp_tpu.eval import lidar_sim as jsim
 from mp2p_icp_tpu.eval import trajectory as jtraj
@@ -48,6 +49,23 @@ def test_lidar_sim_equals_the_jax_package():
     assert int(pj.count) == int(pt.count) == int(scan_j["valid"].sum())
     for name in ("xyz", "intensity", "ring", "time"):
         np.testing.assert_array_equal(getattr(pt, name).numpy(), np.asarray(getattr(pj, name)))
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_scene_pool_and_sweeps_equal_the_benchmark_script(seed):
+    """The port's copies of bench.make_scene / bench.sample_scan: the same
+    draws from the same RandomState, array for array."""
+    scene_b = bench.make_scene(np.random.RandomState(seed))
+    scene_t = sim.make_scene(np.random.RandomState(seed))
+    assert scene_t.dtype == np.float32 and scene_t.shape == (200_000, 3)
+    np.testing.assert_array_equal(scene_t, scene_b)
+    np.testing.assert_array_equal(sim.make_scene(np.random.RandomState(seed), n=4000, extent=30.0),
+                                  bench.make_scene(np.random.RandomState(seed), n=4000, extent=30.0))
+    for n, noise in ((8192, 0.02), (777, 0.1)):
+        a = sim.sample_scan(scene_t, np.random.RandomState(seed + 1), n=n, noise=noise)
+        b = bench.sample_scan(scene_b, np.random.RandomState(seed + 1), n=n, noise=noise)
+        assert a.dtype == np.float32 and a.shape == (n, 3)
+        np.testing.assert_array_equal(a, b)
 
 
 def test_street_sequence_is_the_benchmark_drive():

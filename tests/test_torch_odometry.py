@@ -275,9 +275,12 @@ def test_guess_without_dt_uses_the_previous_relative_pose(sequence):
     assert np.linalg.norm(r["poses"][1, :3, 3] - gt[1, :3, 3]) < 0.2
 
 
-def test_unported_entry_points_raise():
-    with pytest.raises(NotImplementedError, match="run_offline"):
-        _mapper(PORT).run_offline([])
+def test_unported_entry_points_raise(sequence):
+    """Options that exclude each other raise; ``run_offline`` no longer
+    does (it is held equal to ``run`` in tests/test_torch_fleet.py)."""
+    gt, twists, frames_t, _, p0_t, _ = sequence
+    r = _mapper(PORT).run_offline(frames_t[:2], twists=twists[:2], dt=DT, initial_pose=p0_t)
+    assert r["poses"].shape == (2, 4, 4) and np.isfinite(r["poses"]).all()
     with pytest.raises(ValueError, match="map_filters"):
         OdometryMapper(icp=None, params=None, incremental_map_resolution=0.5,
                        map_filters=[FilterDecimateVoxels()])
