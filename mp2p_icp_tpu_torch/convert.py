@@ -14,22 +14,34 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from mp2p_icp_tpu_torch.core.metric_map import (
+    Georeferencing,
+    LineSet,
+    MetricMap,
+    PlaneSet,
+    VoxelGridLayer,
+)
+from mp2p_icp_tpu_torch.core.params import Expression
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.core.se3 import Pose
 from mp2p_icp_tpu_torch.device import resolve
-from mp2p_icp_tpu_torch.icp import ICP
+from mp2p_icp_tpu_torch.icp import ICP, ICPParameters
 from mp2p_icp_tpu_torch.matchers import (
     LayerMatch,
     MatcherAdaptive,
+    MatcherPoint2Line,
     MatcherPoint2Plane,
     MatcherPointsDistanceThreshold,
+    MatcherPointsInlierRatio,
 )
 from mp2p_icp_tpu_torch.ops.voxel_hash_map import VoxelHashMapState
 from mp2p_icp_tpu_torch.quality.paired_ratio import QualityPairedRatio
+from mp2p_icp_tpu_torch.quality.range_image import QualityRangeImageSimilarity
+from mp2p_icp_tpu_torch.quality.voxels import QualityVoxels
 from mp2p_icp_tpu_torch.solvers.common import PairWeights, WeightParameters
 from mp2p_icp_tpu_torch.solvers.gauss_newton import GNParams
 from mp2p_icp_tpu_torch.solvers.robust import RobustKernel
-from mp2p_icp_tpu_torch.solvers.solver import SolverGaussNewton, SolverHorn
+from mp2p_icp_tpu_torch.solvers.solver import SolverGaussNewton, SolverHorn, SolverOLAE
 
 # JAX-side fields with no counterpart in the port: the hash-grid candidate
 # budget (the grid path is not ported) and the shard count (read only when
@@ -72,6 +84,45 @@ def pointcloud_to_numpy(pc: PointCloud) -> dict:
     JAX package."""
     return {f.name: _np(getattr(pc, f.name)) for f in dataclasses.fields(pc)
             if getattr(pc, f.name) is not None}
+
+
+def voxel_grid_from_jax(vg, device=None) -> VoxelGridLayer:
+    """The port's copy of a JAX package VoxelGridLayer (read through numpy)."""
+    device = resolve(device)
+    return VoxelGridLayer(
+        keys=torch.from_numpy(np.array(vg.keys, dtype=np.int32)).to(device),
+        occupancy=torch.from_numpy(np.array(vg.occupancy, dtype=np.float32)).to(device),
+        valid=torch.from_numpy(np.array(vg.valid, dtype=bool)).to(device),
+        resolution=float(vg.resolution),
+    )
+
+
+def layer_from_jax(layer, device=None):
+    """A point layer or a voxel layer of the JAX package, by its fields."""
+    if hasattr(layer, "occupancy"):
+        return voxel_grid_from_jax(layer, device=device)
+    return pointcloud_from_jax(layer, device=device)
+
+
+def metric_map_from_jax(mm, device=None) -> MetricMap:
+    """The port's copy of a JAX package MetricMap: its layers, lines,
+    planes, id, label and georeferencing."""
+    device = resolve(device)
+
+    def t(x, dtype=np.float32):
+        return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+    geo = mm.georeferencing
+    return MetricMap(
+        layers={k: layer_from_jax(v, device=device) for k, v in mm.layers.items()},
+        lines=LineSet(point=t(mm.lines.point), direction=t(mm.lines.direction),
+                      count=t(mm.lines.count, np.int32)),
+        planes=PlaneSet(normal=t(mm.planes.normal), centroid=t(mm.planes.centroid),
+                        count=t(mm.planes.count, np.int32)),
+        id=mm.id,
+        label=mm.label,
+        georeferencing=None if geo is None else Georeferencing(**dataclasses.asdict(geo)),
+    )
 
 
 def voxel_hash_map_from_jax(state, device=None) -> VoxelHashMapState:
@@ -154,8 +205,19 @@ def _kernel(v) -> RobustKernel:
         return RobustKernel.from_string(v)
 
 
+def expressions_from_jax(cfg: dict) -> dict:
+    """``cfg`` with every JAX package Expression replaced by the port's
+    Expression of the same text (nested dicts too)."""
+    def one(v):
+        if type(v).__name__ == "Expression" and hasattr(v, "text"):
+            return Expression(v.text)
+        return expressions_from_jax(v) if isinstance(v, dict) else v
+
+    return {k: one(v) for k, v in cfg.items()}
+
+
 def _module_fields(cfg: dict) -> dict:
-    cfg = dict(cfg)
+    cfg = expressions_from_jax(cfg)
     if cfg.pop("spatial_axis", None) is not None:
         raise NotImplementedError("spatially sharded matchers are not ported yet")
     for k in _DROPPED_FIELDS:
@@ -174,17 +236,26 @@ def matcher_from_config(name: str, cfg: dict):
         return MatcherAdaptive(**cfg)
     if name == "MatcherPoint2Plane":
         return MatcherPoint2Plane(**cfg)
+    if name == "MatcherPoint2Line":
+        return MatcherPoint2Line(**cfg)
+    if name == "MatcherPointsInlierRatio":
+        return MatcherPointsInlierRatio(**cfg)
     raise NotImplementedError(f"matcher {name} is not ported yet")
+
+
+def _weight_params(wp: dict) -> WeightParameters:
+    wp = dict(wp)
+    wp["pair_weights"] = PairWeights(**wp["pair_weights"])
+    wp["robust_kernel"] = _kernel(wp["robust_kernel"])
+    return WeightParameters(**wp)
 
 
 def solver_from_config(name: str, cfg: dict):
     """A port solver from a JAX solver's class name and asdict."""
-    cfg = dict(cfg)
-    if name == "SolverHorn":
-        wp = dict(cfg.pop("weight_params"))
-        wp["pair_weights"] = PairWeights(**wp["pair_weights"])
-        wp["robust_kernel"] = _kernel(wp["robust_kernel"])
-        return SolverHorn(weight_params=WeightParameters(**wp), **cfg)
+    cfg = expressions_from_jax(cfg)
+    if name in ("SolverHorn", "SolverOLAE"):
+        cls = SolverHorn if name == "SolverHorn" else SolverOLAE
+        return cls(weight_params=_weight_params(cfg.pop("weight_params")), **cfg)
     if name == "SolverGaussNewton":
         gp = dict(cfg.pop("gn_params"))
         gp["pair_weights"] = PairWeights(**gp["pair_weights"])
@@ -195,14 +266,26 @@ def solver_from_config(name: str, cfg: dict):
 
 def quality_from_config(name: str, cfg: dict):
     """A port quality evaluator from a JAX evaluator's class name and asdict."""
+    cfg = dict(cfg)
+    if name == "QualityVoxels":
+        return QualityVoxels(**cfg)
+    if name == "QualityRangeImageSimilarity":
+        return QualityRangeImageSimilarity(**cfg)
     if name != "QualityPairedRatio":
         raise NotImplementedError(f"quality evaluator {name} is not ported yet")
-    cfg = dict(cfg)
     if cfg.get("matcher") is not None:
         cfg["matcher"] = matcher_from_config(
             "MatcherPointsDistanceThreshold", cfg["matcher"]
         )
     return QualityPairedRatio(**cfg)
+
+
+def params_from_config(cfg: dict) -> ICPParameters:
+    """The port's ICPParameters from ``dataclasses.asdict`` of the JAX
+    package's (the hook and the functors are passed on as they are)."""
+    cfg = dict(cfg)
+    cfg["quality_checkpoints"] = tuple(tuple(c) for c in cfg["quality_checkpoints"])
+    return ICPParameters(**cfg)
 
 
 def icp_from_config(matchers, solvers, quality_evaluators=None,

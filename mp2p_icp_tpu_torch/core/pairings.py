@@ -124,6 +124,34 @@ def concat_blocks(blocks, cls, device=None):
     )
 
 
+def _decimate_block(block, capacity: int):
+    """A block's valid rows, thinned by an even stride to at most
+    ``capacity`` and moved to the front in their order; the rest filled
+    with 0 (-1 for indices). A block of at most ``capacity`` rows is
+    returned as it is. The compaction is a cumsum rank and a scatter (no
+    host read), as in ``ICP._crop_globals``."""
+    if block.capacity <= capacity:
+        return block
+    valid = block.valid()
+    rank = torch.cumsum(valid, dim=-1) - 1
+    total = torch.sum(valid, dim=-1)
+    stride = torch.clamp((total + capacity - 1) // capacity, min=1)
+    keep = valid & (rank % stride == 0)
+    rank = torch.cumsum(keep, dim=-1) - 1
+    count = torch.clamp(torch.sum(keep, dim=-1), max=capacity)
+    n = block.capacity
+    slot = torch.where(keep & (rank < capacity), rank, capacity)
+    order = torch.zeros(capacity + 1, dtype=torch.int64, device=valid.device).scatter(
+        0, slot, torch.arange(n, device=valid.device))[:capacity]
+    live = torch.arange(capacity, device=valid.device) < count
+    out = {}
+    for f in dataclasses.fields(block):
+        a = getattr(block, f.name)[order]
+        fill = -1 if not a.is_floating_point() else 0
+        out[f.name] = torch.where(live if a.ndim == 1 else live[:, None], a, fill)
+    return type(block)(**out)
+
+
 @dataclasses.dataclass(frozen=True)
 class Pairings:
     """The correspondence set handed from matchers to solvers."""
@@ -162,6 +190,16 @@ class Pairings:
             + self.pt2pl.count()
             + self.ln2ln.count()
             + self.pl2pl.count()
+        )
+
+    def decimated(self, capacity: int) -> "Pairings":
+        """Every block thinned to at most ``capacity`` valid rows by an even
+        stride and compacted: the bounded per-iteration record of
+        ``ICPParameters.record_pairings`` (the reference keeps the full
+        Pairings per iteration, LogRecord.h:58-71)."""
+        return Pairings(
+            **{name: _decimate_block(getattr(self, name), capacity) for name in BLOCK_TYPES},
+            potential_pairings=self.potential_pairings,
         )
 
 

@@ -19,6 +19,9 @@ walls + cylindrical pillars):
 
 All rays of a scan are cast in one vectorised batch on the host.
 
+``render_planar_scan`` renders one sweep of a planar 2D scanner (a Hokuyo
+UTM-30LX by default) in the same scenes.
+
 ``make_scene`` / ``sample_scan`` are the registration benchmark's unordered
 point pool and its sweeps (no ray cast), kept here so that the port's
 scripts need nothing of the JAX side.
@@ -273,6 +276,34 @@ def render_spinning_scan(
         ).astype(np.float32),
         "valid": valid_rm,
     }
+
+
+def render_planar_scan(
+    scene: Scene,
+    x: float,
+    y: float,
+    yaw: float,
+    rng: np.random.RandomState,
+    n_rays: int = 1081,
+    fov_deg: float = 270.0,
+    max_range: float = 30.0,
+    range_noise: float = 0.01,
+    height: float = 1.0,
+) -> np.ndarray:
+    """One sweep of a planar scanner at (x, y, ``height``) heading ``yaw``
+    (rad): ``n_rays`` rays evenly over ``fov_deg`` centred on the heading
+    (the Hokuyo UTM-30LX layout by default: 1081 rays over 270°, 0.25°
+    apart, 30 m), Gaussian range noise. Returns the [M, 3] float32 returns
+    within range in the sensor frame (z = 0), in firing order."""
+    a = np.deg2rad(np.linspace(-fov_deg / 2.0, fov_deg / 2.0, n_rays))
+    dirs = np.stack([np.cos(yaw + a), np.sin(yaw + a), np.zeros_like(a)], axis=-1)
+    origins = np.broadcast_to(np.array([x, y, height], np.float64), dirs.shape)
+    with np.errstate(invalid="ignore"):  # inf * 0 of rays parallel to a wall
+        r, sid = scene.ray_cast(origins, dirs)
+    r = r + range_noise * rng.randn(n_rays)
+    hit = (sid >= 0) & (r > 0.1) & (r < max_range)
+    return np.stack([r * np.cos(a), r * np.sin(a), np.zeros_like(r)], axis=-1)[hit].astype(
+        np.float32)
 
 
 def scan_to_pointcloud(scan: dict, capacity=None, device=None):

@@ -6,9 +6,9 @@ context) to fixed-capacity pairing blocks. The ICP loop runs on the host,
 so ``gate`` is a plain 0/1 float and the loop simply skips a matcher whose
 window does not cover the iteration.
 
-Not ported: ``GridCache`` / ``HashGrid`` (every production call of the JAX
-package passes an empty grid cache) and ``MetricMap`` inputs — layers come
-as a plain ``{name: PointCloud}`` dict.
+A map comes as a ``{name: layer}`` dict or as a ``MetricMap``. Not
+ported: ``GridCache`` / ``HashGrid`` (every production call of the JAX
+package passes an empty grid cache).
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from mp2p_icp_tpu_torch.core import se3
+from mp2p_icp_tpu_torch.core.metric_map import MetricMap
+from mp2p_icp_tpu_torch.core.params import Expression, iteration_env
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.core.se3 import Pose
 
@@ -33,24 +35,28 @@ class LayerMatch:
 
 
 def point_layers(m) -> Dict[str, PointCloud]:
-    """The point layers of a map given as a ``{name: PointCloud}`` dict."""
-    if not isinstance(m, dict):
-        raise NotImplementedError(
-            f"maps are passed as a dict of PointCloud layers; {type(m).__name__} "
-            "input (MetricMap) is not ported yet"
-        )
-    return {k: v for k, v in m.items() if isinstance(v, PointCloud)}
+    """The layers of a map, as the JAX package hands them on: a
+    ``MetricMap`` gives its point layers, a dict is returned as it is (voxel
+    layers included, for the quality evaluators that read them)."""
+    if isinstance(m, MetricMap):
+        return {k: v for k, v in m.layers.items() if isinstance(v, PointCloud)}
+    return m
 
 
-def static_value(value, name: str) -> float:
-    """A module parameter as a float. The JAX package also accepts
-    ICP_ITERATION expressions (core/params.py), which are not ported yet."""
+def static_value(value, name: str, iteration=0):
+    """A module parameter at ICP iteration ``iteration``: a number as a
+    float; an ``Expression`` evaluated as the JAX package evaluates it on
+    its traced float32 iteration (core/params.py), rounded to float32. A
+    host iteration gives a float; a tensor iteration (per problem under
+    ``torch.func.vmap``) gives a float32 tensor."""
+    if isinstance(value, Expression):
+        out = value(iteration_env(iteration))
+        if isinstance(iteration, torch.Tensor):
+            return torch.as_tensor(out, dtype=torch.float32, device=iteration.device)
+        return float(torch.as_tensor(out, dtype=torch.float32))
     if isinstance(value, (int, float)) and not isinstance(value, bool):
         return float(value)
-    raise NotImplementedError(
-        f"{name}={value!r}: only numeric values are supported; ICP_ITERATION "
-        "expressions (core/params.py) are not ported yet"
-    )
+    raise TypeError(f"{name}={value!r}: a number or an Expression is expected")
 
 
 class MatchState(NamedTuple):
@@ -77,9 +83,10 @@ class MatchState(NamedTuple):
 
 
 class MatchContext(NamedTuple):
-    """The reference's MatchContext{icpIteration}; a host int here."""
+    """The reference's MatchContext{icpIteration}: a host int in the ICP
+    loop; a per-problem int32 tensor for the batched final quality."""
 
-    icp_iteration: int
+    icp_iteration: object
     # per global layer, the [crop_capacity] i32 table from a cropped row to
     # the row of the user's map (-1 for padding), set when ICP cropped the
     # layer (ICP._crop_globals): matchers record global_idx through it, so
@@ -104,8 +111,14 @@ class Matcher:
     run_from_iteration: int = 0
     run_up_to_iteration: int = 0  # 0 = no upper bound
 
-    def gate(self, iteration: int) -> float:
-        """1.0 when this matcher runs at ``iteration``, else 0.0."""
+    def gate(self, iteration):
+        """1.0 when this matcher runs at ``iteration``, else 0.0: a float
+        for a host iteration, a float32 tensor for a tensor one."""
+        if isinstance(iteration, torch.Tensor):
+            on = (iteration >= self.run_from_iteration) & self.enabled
+            if self.run_up_to_iteration > 0:
+                on = on & (iteration <= self.run_up_to_iteration)
+            return on.to(torch.float32)
         on = self.enabled and iteration >= self.run_from_iteration
         if self.run_up_to_iteration > 0:
             on = on and iteration <= self.run_up_to_iteration

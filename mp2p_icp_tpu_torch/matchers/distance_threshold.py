@@ -4,7 +4,8 @@ Port of ``mp2p_icp_tpu/matchers/distance_threshold.py`` (reference:
 Matcher_Points_DistanceThreshold.cpp:48-269): for each transformed local
 point, its k nearest global points; a pair is kept when
 distSq < threshold² + (angularFactor·|p|)²; one-to-one exclusivity is a
-deterministic segment-min (ops.nn.resolve_one_to_one).
+deterministic segment-min (ops.nn.resolve_one_to_one). ``threshold`` may
+be an ``Expression`` over ``ICP_ITERATION`` (core/params.py).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from mp2p_icp_tpu_torch.ops.nn_bruteforce import knn_bruteforce
 class MatcherPointsDistanceThreshold(Matcher):
     """Params (reference: Matcher_Points_DistanceThreshold.h:60-71)."""
 
-    threshold: float = 0.50
+    threshold: object = 0.50  # float | Expression
     threshold_angular_deg: float = 0.0
     pairings_per_point: int = 1
     max_local_points_per_layer: int = 0
@@ -48,8 +49,9 @@ class MatcherPointsDistanceThreshold(Matcher):
     angular_range_hint: float = 100.0
 
     def search_radius(self) -> float:
-        """The largest pairing distance, for the large-map crop's margin."""
-        thr = static_value(self.threshold, "threshold")
+        """The largest pairing distance, for the large-map crop's margin (an
+        Expression is taken at iteration 0, as in the JAX package)."""
+        thr = static_value(self.threshold, "threshold", 0)
         if self.threshold_angular_deg <= 0:
             return thr
         ang = math.radians(self.threshold_angular_deg) * self.angular_range_hint
@@ -66,7 +68,10 @@ class MatcherPointsDistanceThreshold(Matcher):
 
     def match(self, global_map, local_map, pose, state: MatchState, ctx: MatchContext):
         gate = self.gate(ctx.icp_iteration)
-        thr = static_value(self.threshold, "threshold")
+        # a host gate (the ICP loop) or a per-problem tensor (the batched
+        # final quality of an evaluator with its own matcher)
+        on = gate.to(torch.int32) if isinstance(gate, torch.Tensor) else int(gate)
+        thr = static_value(self.threshold, "threshold", ctx.icp_iteration)
         ang_factor_sq = math.radians(self.threshold_angular_deg) ** 2
         k = self.pairings_per_point
         l_layers, g_layers = point_layers(local_map), point_layers(global_map)
@@ -80,7 +85,7 @@ class MatcherPointsDistanceThreshold(Matcher):
             local = l_layers[lm.local_layer]
             glayer = g_layers[lm.global_layer]
             pts, valid = transformed_local(local, pose)
-            potential = potential + local.count * (k * int(gate))
+            potential = potential + local.count * (k * on)
             if state is not None and not self.allow_match_already_matched_points:
                 valid = valid & ~state.local_paired[lm.local_layer]
             valid = subsample_mask(valid, local.count, self.max_local_points_per_layer)

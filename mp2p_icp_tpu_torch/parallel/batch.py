@@ -15,12 +15,15 @@ Semantics are those of ``vmap`` over a ``while_loop``:
 - the loop ends when no problem runs; the iteration's one host sync reads
   that flag;
 - each problem crops the (possibly shared) global map at its own guess,
-  so after a crop both sides of the sweep are batched.
-
-Not supported yet, and raising ``NotImplementedError``: solvers with the
-``run_until_translation_correction_smaller_than`` latch (it reads the step
-on the host), quality evaluators that run their own matcher, and the
-options ``ICP.align`` does not support either.
+  so after a crop both sides of the sweep are batched;
+- ``Expression`` fields take the shared iteration; the
+  ``run_until_translation_correction_smaller_than`` latch is a per-problem
+  tensor (``ICP._run_solvers`` decides it on the device);
+- the final quality is evaluated at each problem's own final iteration,
+  and a quality evaluator with its own matcher runs that matcher under
+  vmap (its kNN is one batched launch);
+- records, the hook and the optimal scale are per problem. As in the JAX
+  package, a batch writes no debug files.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from mp2p_icp_tpu_torch.icp import (
     ICPResults,
     IterTermReason,
     quality_checkpoints,
+    stack_records,
 )
 from mp2p_icp_tpu_torch.matchers.base import point_layers
 
@@ -62,18 +66,6 @@ def make_batched_align(icp: ICP, params: ICPParameters = None,
     ``termination_reason`` are [B] int32 tensors."""
     params = params or ICPParameters()
     icp._check_options(params)
-    for s in icp.solvers:
-        if s.run_until_translation_correction_smaller_than > 0:
-            raise NotImplementedError(
-                "batched align: run_until_translation_correction_smaller_than "
-                "is not supported yet"
-            )
-    for ev in icp.quality_evaluators:
-        if not getattr(ev, "reuse_icp_pairings", True) and ev.matcher is not None:
-            raise NotImplementedError(
-                "batched align: quality evaluators with their own matcher are "
-                "not supported yet"
-            )
 
     def run(local_map, global_map, guess: Pose) -> ICPResults:
         l_layers, g_layers = point_layers(local_map), point_layers(global_map)
@@ -103,6 +95,8 @@ def _check_batched(l_layers: Dict[str, PointCloud], g_layers: Dict[str, PointClo
     if not g_layers or not l_layers:
         raise ValueError("empty input maps")
     B = guess.t.shape[0]
+    l_layers = {k: v for k, v in l_layers.items() if isinstance(v, PointCloud)}
+    g_layers = {k: v for k, v in g_layers.items() if isinstance(v, PointCloud)}
     for name, layer in l_layers.items():
         if layer.xyz.ndim != 3 or layer.xyz.shape[0] != B:
             raise ValueError(f"local layer {name!r} must be batched [B={B}, C, 3]")
@@ -137,7 +131,7 @@ def _align_batched(icp: ICP, params: ICPParameters, l_layers: Dict[str, PointClo
     B = guess.t.shape[0]
     device = guess.t.device
     checkpoints = quality_checkpoints(params)
-    finished = [False] * len(icp.solvers)  # no latch in the batched loop
+    finished = torch.zeros(B, len(icp.solvers), dtype=torch.bool, device=device)
     one = Pose(guess.R[0], guess.t[0])
     pairings = pytree.tree_map(  # empty pairings with the full layout
         lambda x: x.expand(B, *x.shape),
@@ -147,28 +141,35 @@ def _align_batched(icp: ICP, params: ICPParameters, l_layers: Dict[str, PointClo
     reason = torch.full((B,), _RUNNING, dtype=torch.int32, device=device)
     running = reason == _RUNNING
     n_iter = torch.zeros(B, dtype=torch.int32, device=device)
+    records = [] if params.record_iterations else None
 
     for iteration in range(params.max_iterations):
         m_active = [m.gate(iteration) > 0 for m in icp.matchers]
         s_active = [s.gate(iteration) for s in icp.solvers]
 
-        def step(g, l, p, prev, maps):
-            return icp._step(params, None, iteration, m_active, s_active, finished,
-                             g, l, p, prev, maps)[:5]
+        def step(g, l, p, prev, maps, fin):
+            return icp._step(params, None, iteration, m_active, s_active, fin,
+                             g, l, p, prev, maps)
 
-        new_pairs, new_pose, no_pairs, solver_ok, stalled = vmap(
-            step, in_dims=(g_dim, 0, 0, 0, 0))(g_layers, l_layers, pose, prev_pose,
-                                               gidx_maps)
-        prev_pose, pose = (_where(running, pose, prev_pose),
-                           _where(running & solver_ok & ~no_pairs, new_pose, pose))
+        new_pairs, new_pose, no_pairs, solver_ok, stalled, new_fin = vmap(
+            step, in_dims=(g_dim, 0, 0, 0, 0, 0))(g_layers, l_layers, pose, prev_pose,
+                                                  gidx_maps, finished)
+        prev_pose, pose = _where(running, pose, prev_pose), _where(running, new_pose, pose)
         pairings = _where(running, new_pairs, pairings)
+        finished = _where(running, new_fin, finished)
         n_iter = n_iter + running.to(torch.int32)
         step_reason = torch.where(
             no_pairs, int(IterTermReason.NO_PAIRINGS),
             torch.where(~solver_ok, int(IterTermReason.SOLVER_ERROR),
                         torch.where(stalled, int(IterTermReason.STALLED), _RUNNING)),
         ).to(torch.int32)
-        reason = torch.where(running, step_reason, reason)
+        if params.iteration_hook is not None:
+            stop = vmap(lambda R, t, n: torch.as_tensor(
+                params.iteration_hook(iteration, R, t, n), dtype=torch.bool, device=device))(
+                    new_pose.R, new_pose.t, vmap(lambda pr: pr.size())(new_pairs))
+            step_reason = torch.where((step_reason == _RUNNING) & stop,
+                                      int(IterTermReason.HOOK_REQUEST), step_reason)
+        reason = torch.where(running, step_reason, reason).to(torch.int32)
         if iteration + 1 in checkpoints:
             q = vmap(lambda pr, g, l, p: icp._quality_stack(pr, g, l, p, iteration + 1),
                      in_dims=(0, g_dim, 0, 0))(pairings, g_layers, l_layers, pose)
@@ -176,21 +177,32 @@ def _align_batched(icp: ICP, params: ICPParameters, l_layers: Dict[str, PointClo
             reason = torch.where(
                 fail, int(IterTermReason.QUALITY_CHECKPOINT_FAILED), reason
             ).to(torch.int32)
+        if records is not None:
+            records.append((pose, vmap(lambda pr: pr.size())(pairings),
+                            vmap(lambda pr: pr.decimated(params.record_pairings_capacity))(
+                                pairings) if params.record_pairings else None))
         running = reason == _RUNNING
         if not bool(running.any()):  # the iteration's one host sync
             break
 
     reason = torch.where(running, int(IterTermReason.MAX_ITERATIONS), reason).to(torch.int32)
-    # the final quality reads no iteration-dependent state (evaluators with
-    # their own matcher are refused above)
-    quality = vmap(lambda pr, g, l, p: icp._quality_stack(pr, g, l, p, 0),
-                   in_dims=(0, g_dim, 0, 0))(pairings, g_layers, l_layers, pose)
+    recorded = {}
+    if records:
+        # the iteration axis second: [B, max_iterations, ...]; stopped
+        # problems repeat their final state, as every problem does after
+        # the loop ends
+        records += [records[-1]] * (params.max_iterations - len(records))
+        recorded = pytree.tree_map(lambda x: x.movedim(0, 1), stack_records(records))
+    # each problem's quality at its own final iteration (JAX icp.py:762-765)
+    quality = vmap(icp._quality_stack, in_dims=(0, g_dim, 0, 0, 0))(
+        pairings, g_layers, l_layers, pose, n_iter)
     return ICPResults(
         optimal_tf=pose,
-        optimal_scale=torch.ones(B, device=device),
+        optimal_scale=vmap(icp._optimal_scale)(pairings, pose),
         n_iterations=n_iter,
         termination_reason=reason,
         quality=quality,
         final_pairings=pairings,
         covariance=vmap(compute_covariance)(pairings, pose),
+        **recorded,
     )

@@ -34,7 +34,7 @@ class GNParams:
     min_delta: float = 1e-7
     max_cost: float = 0.0  # stop once sqrt(total weighted errSq) <= this
     kernel: RobustKernel = RobustKernel.NONE
-    kernel_param: float = 1.0
+    kernel_param: object = 1.0  # float | Expression over ICP_ITERATION
     pair_weights: PairWeights = dataclasses.field(default_factory=PairWeights)
     damping: float = 1e-9  # Tikhonov damping for rank-deficient pairings
 

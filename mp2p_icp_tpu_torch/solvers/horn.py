@@ -84,3 +84,16 @@ def optimal_tf_horn(
         current_estimate=current_estimate,
     )
     return horn_from_vector_pairs(vp)
+
+
+def horn_scale(pairings: Pairings, wp: Optional[WeightParameters] = None) -> torch.Tensor:
+    """Optimal uniform scale ``s`` with global ≈ s·R·local + t: the
+    reference's Horn scale expression (optimal_tf_horn.cpp:177-195),
+    s = sqrt(Σw|b|² / Σw|r|²) over the centred vector pairs (b global, r
+    local), weighted as the rotation solve is. Reporting only: the pose
+    stays rigid. No pairs give 1."""
+    vp = build_vector_pairs(pairings, wp or WeightParameters(), normalize_point_vectors=False)
+    num = torch.sum(vp.w * torch.sum(vp.b * vp.b, dim=-1))
+    den = torch.sum(vp.w * torch.sum(vp.r * vp.r, dim=-1))
+    ok = (num > 0) & (den > 0)
+    return torch.where(ok, torch.sqrt(num / torch.clamp(den, min=1e-30)), 1.0)

@@ -32,6 +32,7 @@ from mp2p_icp_tpu.solvers.solver import SolverHorn as JHorn
 import mp2p_icp_tpu_torch
 from mp2p_icp_tpu_torch import convert
 from mp2p_icp_tpu_torch.core import se3
+from mp2p_icp_tpu_torch.core.params import Expression
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.icp import ICP, ICPParameters, IterTermReason
 from mp2p_icp_tpu_torch.matchers import MatcherPointsDistanceThreshold
@@ -39,7 +40,8 @@ from mp2p_icp_tpu_torch.ops import nn_bruteforce as tnb
 from mp2p_icp_tpu_torch.parallel import make_batched_align, stack_pytrees
 from mp2p_icp_tpu_torch.parity import TIE_TOL, knn_mismatch
 from mp2p_icp_tpu_torch.quality.paired_ratio import QualityPairedRatio
-from mp2p_icp_tpu_torch.solvers.solver import SolverHorn
+from mp2p_icp_tpu_torch.solvers.gauss_newton import GNParams
+from mp2p_icp_tpu_torch.solvers.solver import SolverGaussNewton, SolverHorn
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -247,21 +249,69 @@ def test_stopped_problem_stays_frozen():
         assert int(res.n_iterations[b]) == seq.n_iterations
 
 
-@pytest.mark.parametrize("what", ["latch", "own_matcher_quality", "record_iterations"])
+@pytest.mark.parametrize("what", ["latch", "own_matcher_quality", "record_iterations",
+                                  "expression", "hook"])
 def test_unsupported_batched_options_raise(what):
-    icp = ICP(matchers=[MatcherPointsDistanceThreshold()], solvers=[SolverHorn()])
-    params = ICPParameters()
+    """The options that the batched align refused before they were ported
+    run now, and every problem of the batch equals its sequential align
+    (R, t within 1e-5, the same iterations, termination and quality):
+
+    - the run_until latch, decided on the device per problem;
+    - a quality evaluator with its own matcher whose threshold is an
+      ICP_ITERATION expression: the batched final quality is evaluated at
+      each problem's own final iteration (the problems end at different
+      iterations, and the quality at iteration 0 differs for at least one);
+    - the per-iteration records, row for row;
+    - an Expression threshold of the ICP's matcher (the shared iteration);
+    - a hook that stops a problem once its |t| exceeds 0.3 m."""
+    scene, locals_, _ = _align_problems()
+    matchers = [MatcherPointsDistanceThreshold(threshold=2.0)]
+    solvers = [SolverHorn()]
+    quality = (QualityPairedRatio(),)
+    kw = dict(max_iterations=10)
     if what == "latch":
-        icp = ICP(matchers=icp.matchers,
-                  solvers=[SolverHorn(run_until_translation_correction_smaller_than=0.05)])
+        solvers = [SolverHorn(run_until_translation_correction_smaller_than=0.05),
+                   SolverGaussNewton(gn_params=GNParams(max_iterations=2))]
     elif what == "own_matcher_quality":
-        icp = ICP(matchers=icp.matchers, solvers=icp.solvers, quality_evaluators=[
-            QualityPairedRatio(reuse_icp_pairings=False,
-                               matcher=MatcherPointsDistanceThreshold())])
+        quality = (QualityPairedRatio(reuse_icp_pairings=False, matcher=MatcherPointsDistanceThreshold(
+            threshold=Expression("2.0 - 0.15*ICP_ITERATION"))),)
+    elif what == "record_iterations":
+        kw.update(record_iterations=True, record_pairings=True, record_pairings_capacity=64)
+    elif what == "expression":
+        matchers = [MatcherPointsDistanceThreshold(threshold=Expression("2.0 - 0.1*ICP_ITERATION"))]
     else:
-        params = ICPParameters(record_iterations=True)
-    with pytest.raises(NotImplementedError):
-        make_batched_align(icp, params)
+        kw.update(iteration_hook=lambda it, R, t, n: torch.linalg.vector_norm(t) > 0.3)
+    icp = ICP(matchers=matchers, solvers=solvers, quality_evaluators=quality)
+    params = ICPParameters(**kw)
+    gmap = {"raw": PointCloud.from_numpy(scene, capacity=4096)}
+    l_t = [{"raw": PointCloud.from_numpy(x, capacity=512)} for x in locals_]
+    guesses = [se3.from_xyz_ypr(-0.6 * b, 0.3 * b, 0.0, 0.1 * b, 0.0, 0.0) for b in range(3)]
+    res = make_batched_align(icp, params, broadcast_globals=True)(
+        stack_pytrees(l_t), gmap, stack_pytrees(guesses))
+    quality_at_0 = []
+    for b in range(3):
+        seq = icp.align(l_t[b], gmap, guesses[b], params)
+        np.testing.assert_allclose(res.optimal_tf.R[b].numpy(), seq.optimal_tf.R.numpy(),
+                                   atol=1e-5)
+        np.testing.assert_allclose(res.optimal_tf.t[b].numpy(), seq.optimal_tf.t.numpy(),
+                                   atol=1e-5)
+        assert int(res.n_iterations[b]) == seq.n_iterations
+        assert int(res.termination_reason[b]) == seq.termination_reason
+        assert float(res.quality[b]) == pytest.approx(float(seq.quality), abs=1e-6)
+        quality_at_0.append(float(icp._quality_stack(
+            seq.final_pairings, gmap, l_t[b], seq.optimal_tf, 0)))
+        if what == "record_iterations":
+            assert res.iteration_poses.t.shape == (3, 10, 3)
+            np.testing.assert_allclose(res.iteration_poses.t[b].numpy(),
+                                       seq.iteration_poses.t.numpy(), atol=1e-5)
+            assert torch.equal(res.iteration_pair_counts[b], seq.iteration_pair_counts)
+            assert torch.equal(res.iteration_pairings.pt2pt.global_idx[b],
+                               seq.iteration_pairings.pt2pt.global_idx)
+    if what == "own_matcher_quality":
+        assert len(set(res.n_iterations.tolist())) > 1
+        assert any(abs(q0 - float(q)) > 1e-3 for q0, q in zip(quality_at_0, res.quality))
+    if what == "hook":
+        assert (res.termination_reason == IterTermReason.HOOK_REQUEST).any()
 
 
 def test_convert_round_trips_stacked_clouds():

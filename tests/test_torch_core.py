@@ -249,7 +249,12 @@ def test_package_does_not_import_jax():
         "mp2p_icp_tpu_torch.parallel, mp2p_icp_tpu_torch.odometry, "
         "mp2p_icp_tpu_torch.filters, mp2p_icp_tpu_torch.eval.lidar_sim, "
         "mp2p_icp_tpu_torch.eval.trajectory, mp2p_icp_tpu_torch.ops.voxel_hash_map, "
-        "mp2p_icp_tpu_torch.ops.normals, mp2p_icp_tpu_torch.matchers.point2plane; "
+        "mp2p_icp_tpu_torch.ops.normals, mp2p_icp_tpu_torch.matchers.point2plane, "
+        "mp2p_icp_tpu_torch.core.params, mp2p_icp_tpu_torch.core.metric_map, "
+        "mp2p_icp_tpu_torch.io.icplog, mp2p_icp_tpu_torch.io.debug_dump, "
+        "mp2p_icp_tpu_torch.solvers.olae, mp2p_icp_tpu_torch.matchers.inlier_ratio, "
+        "mp2p_icp_tpu_torch.matchers.point2line, mp2p_icp_tpu_torch.ops.voxel_occupancy, "
+        "mp2p_icp_tpu_torch.quality.voxels, mp2p_icp_tpu_torch.quality.range_image; "
         "assert 'jax' not in sys.modules, 'jax was imported'; "
         "assert 'mp2p_icp_tpu' not in sys.modules, 'the JAX package was imported'"
     )

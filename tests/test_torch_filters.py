@@ -23,6 +23,7 @@ from mp2p_icp_tpu.filters.merge import FilterMerge as JMerge
 from mp2p_icp_tpu.ops.voxel_unique import first_point_select as jselect
 import mp2p_icp_tpu_torch
 from mp2p_icp_tpu_torch import convert
+from mp2p_icp_tpu_torch.core.metric_map import MetricMap
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.filters import (
     DecimateMethod,
@@ -235,7 +236,12 @@ def test_pipeline_runs_filters_in_order():
     # the deskewed coordinates agree to 1e-5, so a point within that of a
     # voxel border may fall on either side: compare the counts closely
     assert abs(int(ot["decimated"].count) - int(oj["decimated"].count)) <= 3
-    with pytest.raises(NotImplementedError, match="MetricMap"):
+    # a MetricMap is updated in place and gives the same layers
+    mm = MetricMap(layers={"raw": pt})
+    assert apply_filter_pipeline(ft, mm) is mm
+    assert sorted(mm.layers) == sorted(ot)
+    assert torch.equal(mm.layers["decimated"].xyz, ot["decimated"].xyz)
+    with pytest.raises(TypeError, match="MetricMap"):
         apply_filter_pipeline(ft, object())
     with pytest.raises(NotImplementedError):
         FilterBase()({"raw": pt})

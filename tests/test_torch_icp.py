@@ -14,12 +14,15 @@ The port is built from the JAX modules with convert.icp_from_config.
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 import bench
+import chip_smoke
 from mp2p_icp_tpu.core import se3 as jse3
 from mp2p_icp_tpu.core.pointcloud import PointCloud as JPointCloud
 from mp2p_icp_tpu.icp import ICP as JICP
@@ -34,6 +37,7 @@ from mp2p_icp_tpu.solvers.solver import SolverHorn as JHorn
 import mp2p_icp_tpu_torch
 from mp2p_icp_tpu_torch import convert
 from mp2p_icp_tpu_torch.core import se3
+from mp2p_icp_tpu_torch.core.metric_map import MetricMap
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.icp import ICP, ICPParameters, IterTermReason
 from mp2p_icp_tpu_torch.matchers import MatcherPointsDistanceThreshold
@@ -153,12 +157,23 @@ def test_no_pairings_terminates():
     dict(record_iterations=True), dict(record_pairings=True),
     dict(iteration_hook=lambda *a: False), dict(generate_debug_files=True),
 ])
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, tmp_path):
+    """The options that raised before they were ported run now and leave
+    the registration as it is: the same pose, iterations and quality as
+    the align without them (tests/test_torch_engine_options.py holds each
+    against the JAX package)."""
     g, loc = street_pair(256)
     icp = ICP(matchers=[MatcherPointsDistanceThreshold()], solvers=[SolverHorn()])
-    with pytest.raises(NotImplementedError):
-        icp.align({"raw": PointCloud.from_numpy(loc)}, {"raw": PointCloud.from_numpy(g)},
-                  se3.identity(), ICPParameters(**option))
+    maps = ({"raw": PointCloud.from_numpy(loc)}, {"raw": PointCloud.from_numpy(g)})
+    option = dict(option, debug_file_name_format=str(tmp_path / "run-$UNIQUE_ID.icplog.npz"))
+    res = icp.align(*maps, se3.identity(), ICPParameters(**option))
+    ref = icp.align(*maps, se3.identity(), ICPParameters())
+    assert torch.equal(res.optimal_tf.R, ref.optimal_tf.R)
+    assert torch.equal(res.optimal_tf.t, ref.optimal_tf.t)
+    assert res.n_iterations == ref.n_iterations
+    assert float(res.quality) == float(ref.quality)
+    assert (res.iteration_poses is not None) == bool(option.get("record_iterations"))
+    assert len(list(tmp_path.iterdir())) == int(bool(option.get("generate_debug_files")))
 
 
 def test_unported_inputs_raise():
@@ -170,9 +185,77 @@ def test_unported_inputs_raise():
     res = icp.align(local, {"raw": PointCloud.from_numpy(g)}, se3.identity(),
                     ICPParameters(crop_capacity=128))
     assert res.n_iterations > 0 and int(res.final_pairings.pt2pt.global_idx.max()) < 256
-    # MetricMap-like input (anything but a dict of layers)
-    with pytest.raises(NotImplementedError, match="MetricMap"):
+    # a MetricMap gives the align of its point layers; any other object raises
+    mm = MetricMap(layers=dict(local), id=3, label="scan")
+    res_mm = icp.align(mm, {"raw": PointCloud.from_numpy(g)}, se3.identity())
+    res_dict = icp.align(local, {"raw": PointCloud.from_numpy(g)}, se3.identity())
+    assert torch.equal(res_mm.optimal_tf.t, res_dict.optimal_tf.t)
+    with pytest.raises(TypeError, match="MetricMap"):
         icp.align(dataclasses.make_dataclass("M", ["layers"])(local),
                   {"raw": PointCloud.from_numpy(g)}, se3.identity())
     with pytest.raises(ValueError):
         ICP(matchers=[], solvers=[SolverHorn()]).align(local, local, se3.identity())
+
+
+# ------------------------------------------------- the engine configurations
+def _engine_reference():
+    """scripts/torch_engine_reference.py: the JAX package's configurations
+    of chip_smoke.py's engine phase and the runs on both packages."""
+    path = str(Path(__file__).resolve().parents[1] / "scripts")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import torch_engine_reference
+
+    return torch_engine_reference
+
+
+def _assert_runs_match(port, ref, scale=False):
+    """Same termination, iterations ±1, poses within 5e-3 (error_log_norm
+    of the two SE(3) logs), quality within 5e-3, the scale to 1e-4."""
+    assert port["termination"] == ref["termination"]
+    assert abs(port["iterations"] - ref["iterations"]) <= 1
+    gap = se3.error_log_norm(se3.exp(torch.tensor(ref["log"])), se3.exp(torch.tensor(port["log"])))
+    assert float(gap) < 5e-3
+    assert port["quality"] == pytest.approx(ref["quality"], abs=5e-3)
+    if scale:
+        assert port["scale"] == pytest.approx(ref["scale"], rel=1e-4)
+
+
+def test_engine_configuration_matches_jax():
+    """chip_smoke.py's 3D engine configuration (InlierRatio + OLAE, then
+    Adaptive with planes + Gauss-Newton; paired-ratio, voxel and
+    range-image qualities; a Horn solver's scale) at 2048 points and 2^16
+    voxel cells, without a hook and with the hook that stops at iteration
+    4. convert builds chip_smoke.py's configuration from the JAX one."""
+    ref = _engine_reference()
+    jicp = ref.jax_engine_icp()
+    ticp = convert.icp_from_config(
+        [convert.config_of(m) for m in jicp.matchers], [convert.config_of(s) for s in jicp.solvers],
+        [convert.config_of(q) for q in jicp.quality_evaluators])
+    mine = chip_smoke.engine_icp()
+    assert (ticp.matchers, ticp.solvers, ticp.quality_evaluators) == (
+        mine.matchers, mine.solvers, tuple(mine.quality_evaluators))
+    jax_runs = ref.run_engine(2048, 1 << 16)
+    port_runs = ref.run_port_engine(2048, 1 << 16)
+    for label in ("no hook", "stopping hook"):
+        _assert_runs_match(port_runs[label], jax_runs[label], scale=True)
+    assert port_runs["stopping hook"]["iterations"] == chip_smoke.ENGINE_HOOK_STOP + 1
+    assert float(se3.error_log_norm(se3.from_xyz_ypr(*GT), se3.exp(torch.tensor(
+        port_runs["no hook"]["log"])))) < 0.1
+
+
+def test_point2line_configuration_matches_jax():
+    """The 2D demo (Point2Line k=5 + DistanceThreshold + Gauss-Newton) on
+    chip_smoke.py's 9 planar pairs at 361 rays, each from its motion-model
+    guess: every align as the JAX package's and within 0.1 of the truth."""
+    ref = _engine_reference()
+    jicp = ref.jax_point2line_icp()
+    ticp = convert.icp_from_config([convert.config_of(m) for m in jicp.matchers],
+                                   [convert.config_of(s) for s in jicp.solvers])
+    assert (ticp.matchers, ticp.solvers) == (chip_smoke.point2line_icp().matchers,
+                                             chip_smoke.point2line_icp().solvers)
+    jax_runs, port_runs = ref.run_planar(361), ref.run_port_planar(361)
+    for (_, _, rel), port, jax_run in zip(chip_smoke.planar_pairs(361), port_runs, jax_runs):
+        _assert_runs_match(port, jax_run)
+        gt = se3.from_xyz_ypr(rel[0], rel[1], 0.0, rel[2], 0.0, 0.0)
+        assert float(se3.error_log_norm(gt, se3.exp(torch.tensor(port["log"])))) < 0.1

@@ -216,8 +216,11 @@ def test_two_matchers_share_paired_masks(layers):
 
 
 def test_adaptive_plane_detection_raises():
-    with pytest.raises(NotImplementedError, match="A.6"):
-        MatcherAdaptive(enable_detect_planes=True)
+    """The plane stage is ported (test_adaptive_planes_match_jax holds it
+    against the JAX package): it sets the kNN's k; a sharded map still
+    raises."""
+    assert MatcherAdaptive(enable_detect_planes=True, plane_search_points=6)._knn() == 6
+    assert MatcherAdaptive(max_pt2pt_correspondences=2)._knn() == 2
     with pytest.raises(NotImplementedError):
         _to_port(dataclasses.replace(JDistance(), spatial_axis="space"))
 
@@ -289,3 +292,105 @@ def test_point2plane_state_and_refusals(layers):
             gt, lt, pt, None, MatchContext(icp_iteration=0))
     with pytest.raises(NotImplementedError, match="spatial_axis"):
         MatcherPoint2Plane(spatial_axis="space")
+
+
+def _rows_match(bj, bt, vec_fields=(), frac=0.01, atol=1e-4):
+    """Weights and local indices equal row for row, and the given [C, 3]
+    fields within atol (a direction up to its sign), except on at most
+    ``frac`` of the kept rows (kNN near-ties and fits at a threshold)."""
+    wj, wt = np.asarray(bj.weight), bt.weight.numpy()
+    same = (wj == wt) & (np.asarray(bj.local_idx) == bt.local_idx.numpy())
+    both = same & (wj > 0)
+    for name in vec_fields:
+        a, b = np.asarray(getattr(bj, name)), getattr(bt, name).numpy()
+        gap = np.minimum(np.abs(a - b).max(axis=1), np.abs(a + b).max(axis=1))
+        same &= ~both | (gap <= atol)
+    assert (~same).sum() <= frac * max((wj > 0).sum(), 1), ((~same).sum(), (wj > 0).sum())
+    return wt
+
+
+@pytest.mark.parametrize("ratio,max_local", [(0.8, 0), (0.5, 700)])
+@pytest.mark.parametrize("xyz_ypr", [(0.0,) * 6, (0.3, 0.1, 0.0, 0.01, 0.0, 0.0)])
+def test_inlier_ratio_matches_jax(layers, ratio, max_local, xyz_ypr):
+    """Unbounded 1-NN and the masked quantile: the kept set equals the JAX
+    package's except ties at the cut (within the kNN's rounding band)."""
+    from mp2p_icp_tpu.matchers import MatcherPointsInlierRatio as JInlier
+
+    jm = JInlier(inliers_ratio=ratio, max_local_points_per_layer=max_local)
+    tm = _to_port(jm)
+    assert tm.search_radius() == jm.search_radius() == 2.0
+    assert tm.out_blocks(layers[3]) == {"pt2pt": N}
+    (bj, _, _), (bt, _, _), pt = _run(jm, tm, layers, xyz_ypr, 0)
+    wj = np.asarray(bj["pt2pt"].weight)
+    local = se3.apply(pt, layers[3]["raw"].xyz).numpy()[:N]
+    glob = layers[2]["raw"].xyz.numpy()
+    cut = true_dist_sq(local, glob, np.asarray(bj["pt2pt"].global_idx)[:, None])[wj > 0].max()
+    assert_blocks_match(bj["pt2pt"], bt["pt2pt"], local, glob, cut)
+    n_valid = (700 if max_local else N)
+    assert abs(int((bt["pt2pt"].weight > 0).sum()) - np.ceil(ratio * n_valid)) <= 0.01 * N
+
+
+@pytest.fixture(scope="module")
+def planar_layers():
+    """Two 361-ray planar scans of the street scene 0.3 m and 2° apart
+    (layer "2d_lidar"), in both packages."""
+    from mp2p_icp_tpu_torch.eval.lidar_sim import make_street_scene, render_planar_scan
+
+    scene = make_street_scene(np.random.RandomState(0))
+    g = render_planar_scan(scene, 45.0, 0.0, 0.0, np.random.RandomState(1), n_rays=361)
+    loc = render_planar_scan(scene, 45.3, 0.05, np.deg2rad(2.0), np.random.RandomState(2),
+                             n_rays=361)
+    gj = {"2d_lidar": JPointCloud.from_numpy(g)}
+    lj = {"2d_lidar": JPointCloud.from_numpy(loc)}
+    return (gj, lj, {"2d_lidar": convert.pointcloud_from_jax(gj["2d_lidar"])},
+            {"2d_lidar": convert.pointcloud_from_jax(lj["2d_lidar"])})
+
+
+@pytest.mark.parametrize("knn", [4, 5])
+@pytest.mark.parametrize("xyz_ypr", [(0.0,) * 6, (0.3, 0.05, 0.0, np.deg2rad(2.0), 0.0, 0.0)])
+def test_point2line_matches_jax(planar_layers, knn, xyz_ypr):
+    """K1 at k = knn within the distance threshold, a line fit per
+    neighbourhood: weights and local indices row for row, the lines
+    (point, direction up to sign) to 1e-4, except ties (<= 1%)."""
+    from mp2p_icp_tpu.matchers.point2line import MatcherPoint2Line as JPoint2Line
+    from mp2p_icp_tpu_torch.matchers import MatcherPoint2Line
+
+    lm = {"global_layer": "2d_lidar", "local_layer": "2d_lidar"}
+    from mp2p_icp_tpu.matchers import LayerMatch as JLayerMatch
+
+    jm = JPoint2Line(distance_threshold=0.25, knn=knn, min_points_to_fit=4,
+                     line_eigen_threshold=1e-2, layer_matches=(JLayerMatch(**lm),))
+    tm = _to_port(jm)
+    assert tm.search_radius() == 0.25
+    (bj, sj, _), (bt, st, _), _ = _run(jm, tm, planar_layers, xyz_ypr, 0)
+    wt = _rows_match(bj["pt2ln"], bt["pt2ln"], ("line_point", "line_dir"))
+    assert (wt > 0).sum() > 30
+    with pytest.raises(ValueError, match="knn=9"):
+        MatcherPoint2Line(knn=9)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("xyz_ypr", [(0.0,) * 6, (0.3, 0.1, 0.0, 0.01, 0.0, 0.0)])
+def test_adaptive_planes_match_jax(layers, xyz_ypr, with_state):
+    """The plane stage: K1 at k = 8, a plane per neighbourhood, pt2pl pairs
+    for plane-like ones near the moved point, pt2pt for the rest. Both
+    blocks row for row except ties (<= 1%), planes to 1e-4; with a
+    MatchState the paired and claimed masks too."""
+    jm = JAdaptive(enable_detect_planes=True, plane_search_points=8, confidence_interval=0.75,
+                   first_to_second_distance_max=1.2, absolute_max_search_distance=2.0)
+    tm = _to_port(jm)
+    gj, lj, gt, lt = layers
+    pj, pt = _poses(xyz_ypr)
+    sj = JMatchState.create(lj, gj) if with_state else None
+    st = MatchState.create(lt, gt) if with_state else None
+    bj, sj, potj = jm.match({}, gj, lj, pj, sj, JMatchContext(icp_iteration=jnp.asarray(6)))
+    bt, st, pott = tm.match(gt, lt, pt, st, MatchContext(icp_iteration=6))
+    assert int(potj) == int(pott)
+    wpl = _rows_match(bj["pt2pl"], bt["pt2pl"], ("plane_centroid", "plane_normal"))
+    assert (wpl > 0).sum() > 20
+    wpt = _rows_match(bj["pt2pt"], bt["pt2pt"])
+    assert (wpt > 0).sum() > 0 and not ((wpt > 0) & (wpl > 0)).any()
+    if with_state:
+        for name in ("local_paired", "global_paired"):
+            a, b = np.asarray(getattr(sj, name)["raw"]), getattr(st, name)["raw"].numpy()
+            assert (a != b).sum() <= 0.01 * max(a.sum(), 1)

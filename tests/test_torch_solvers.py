@@ -10,6 +10,7 @@ entry (the inverse of a well-conditioned 6x6 normal matrix).
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from mp2p_icp_tpu import covariance as jcov
 from mp2p_icp_tpu.core import pairings as jp
 from mp2p_icp_tpu.core import se3 as jse3
 from mp2p_icp_tpu.solvers import gauss_newton as jgn
+from mp2p_icp_tpu.solvers import olae as jolae
 from mp2p_icp_tpu.solvers import solver as jsolver
 from mp2p_icp_tpu.solvers.common import WeightParameters as JWeightParameters
 from mp2p_icp_tpu.solvers.robust import RobustKernel as JRobustKernel
@@ -26,7 +28,10 @@ import mp2p_icp_tpu_torch
 from mp2p_icp_tpu_torch import convert
 from mp2p_icp_tpu_torch import covariance as tcov
 from mp2p_icp_tpu_torch.core import pairings as tp
+from mp2p_icp_tpu_torch.core import se3
+from mp2p_icp_tpu_torch.solvers import common as tcommon
 from mp2p_icp_tpu_torch.solvers import gauss_newton as tgn
+from mp2p_icp_tpu_torch.solvers import olae as tolae
 from mp2p_icp_tpu_torch.solvers import solver as tsolver
 from mp2p_icp_tpu_torch.solvers.common import WeightParameters
 from mp2p_icp_tpu_torch.solvers.robust import RobustKernel
@@ -201,10 +206,13 @@ def test_solver_gates_and_unported_options():
     s = tsolver.SolverHorn(run_from_iteration=2, run_up_to_iteration=4)
     assert [s.gate(i) for i in range(6)] == [False, False, True, True, True, False]
     assert not dataclasses.replace(s, enabled=False).gate(3)
+    # scale estimation and OLAE are ported (test_torch_engine_options.py,
+    # test_olae_matches_jax); an unknown solver still raises
+    assert tsolver.SolverHorn(estimate_scale=True).estimate_scale
+    olae = convert.solver_from_config("SolverOLAE", dataclasses.asdict(tsolver.SolverOLAE()))
+    assert isinstance(olae, tsolver.SolverOLAE)
     with pytest.raises(NotImplementedError):
-        tsolver.SolverHorn(estimate_scale=True)
-    with pytest.raises(NotImplementedError):
-        convert.solver_from_config("SolverOLAE", {})
+        convert.solver_from_config("SolverLevenbergMarquardt", {})
 
 
 @pytest.mark.parametrize("name,block", [
@@ -227,3 +235,54 @@ def test_error_terms_match_jax(name, block):
     rt, Jt = getattr(tet, name)(gt, *(torch.from_numpy(np.array(a)) for a in args))
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), atol=1e-4, rtol=0)
     np.testing.assert_allclose(Jt.numpy(), np.asarray(Jj), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("seed,wp", [
+    (0, {}),
+    (1, {}),
+    (2, dict(robust_kernel="GemanMcClure", robust_kernel_param=0.5)),
+])
+def test_olae_matches_jax(seed, wp):
+    """SolverOLAE on all five blocks (pt2pl / pt2ln converted), against
+    the JAX package's at 1e-5."""
+    fields = _pairings_np(seed)
+    pj, pt = _both(fields)
+    gj, gt = _guess(seed)
+    jw, tw = dict(wp), dict(wp)
+    if "robust_kernel" in wp:
+        jw["robust_kernel"] = JRobustKernel.from_string(wp["robust_kernel"])
+        tw["robust_kernel"] = RobustKernel.from_string(wp["robust_kernel"])
+    out_j = jsolver.SolverOLAE(weight_params=JWeightParameters(**jw)).solve(pj, gj)
+    name, cfg = convert.config_of(jsolver.SolverOLAE(weight_params=JWeightParameters(**jw)))
+    st = convert.solver_from_config(name, cfg)
+    assert st == tsolver.SolverOLAE(weight_params=WeightParameters(**tw))
+    _close_pose(st.solve(pt, gt), out_j)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_olae_large_rotation_near_pi(seed):
+    """tests/test_optimal_tf.py::TestOLAE::test_large_rotation_near_pi: at
+    a rotation of π - 0.01 the Gibbs vector of the plain system is
+    singular and a sequential-rotation alternate must win, in both
+    packages alike (1e-5), both within 2e-3 of the truth."""
+    axis = np.asarray(jax.random.normal(jax.random.key(seed + 500), (3,)))
+    axis = axis / np.linalg.norm(axis)
+    gt = jse3.Pose(jse3.so3_exp(jnp.asarray(axis * (np.pi - 0.01))), jnp.array([1.0, -2.0, 0.5]))
+    rng = np.random.RandomState(seed)
+    n, cap = 60, 128
+    local = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    globl = np.asarray(jse3.apply(gt, jnp.asarray(local)))
+    pad = np.zeros((cap - n, 3), np.float32)
+    fields = dict(_pairings_np(seed), pt2pt=dict(
+        local=np.concatenate([local, pad]), globl=np.concatenate([globl, pad]),
+        weight=np.r_[np.ones(n), np.zeros(cap - n)].astype(np.float32),
+        local_idx=np.arange(cap, dtype=np.int32), global_idx=np.arange(cap, dtype=np.int32)))
+    pj, pt = _both(fields, keep=("pt2pt",))
+    out_j = jolae.optimal_tf_olae(pj)
+    out_t = tsolver.solve_in_f64(lambda p, g, pr: tolae.optimal_tf_olae(p), pt, se3.identity())
+    _close_pose(out_t, out_j)
+    gt_t = convert.pose_from_numpy(np.asarray(gt.R), np.asarray(gt.t))
+    assert float(se3.error_log_norm(gt_t, out_t)) < 2e-3
+    Ms, _ = tolae.olae_systems(tcommon.build_vector_pairs(
+        tsolver.f64(pt), WeightParameters(), normalize_point_vectors=True))
+    assert int(torch.argmax(torch.abs(torch.linalg.det(Ms)))) != 0  # an alternate won
