@@ -24,12 +24,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    (C = 3001), the odometry shapes 6144x16384 (k=1), 2048x22528 and
    6144x6144 (k=8: the normals fit of a frame and of the seed), and K2 at
    the fleet step's shapes on street scans: 8x6144x16384 (k=1) and
-   8x2048x22528 (k=8).
+   8x2048x22528 (k=8); and the YAML phase's K1 shapes: the 2D demo's
+   generated layers (1024x1024, k=1 and 5) and the normals filter's
+   65536x65536 k=8 on a decimated street frame.
    Times: each kernel at every shape its path (or the odometry step)
    gives it, as device time per launch of a CUDA graph of 20 wrapper
    calls and as the time of one call between CUDA events (which includes
    the host's part of the call), taken in turns, beside its bound, its
-   plain version and, at 8192x8192, torch.cdist + topk for information;
+   plain version and the library call (torch.cdist + topk);
 4. the scan-to-scan path: ICP.align with the KITTI configuration on the
    bench street pair at 8192 points, then 8 further pairs served one after
    another; each SE(3) error must be < 0.1 and K1's launch count must equal
@@ -85,7 +87,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    calls; the passive hook equals no hook to the bit, the stopping hook ends
    with HOOK_REQUEST after 5 iterations, the 40 records end in the final
    pose, the debug file loads; launches and ms per align printed;
-10. with --profile only: where the time goes, by torch.profiler over 2
+10. map building from keyframes: demos/sm2mm_voxelmap_static_dynamic.yaml,
+   loaded by the port's loader, on the first 24 frames of the street drive
+   as a SimpleMap (true poses, noisy twists, a moving box in each
+   keyframe) through simplemap_to_metricmap: pass 1 as the file stands
+   (constant-twist deskew), pass 2 with the precise deskew (IMU samples and
+   a comment's velocity buffer in each keyframe). Map points, voxel count
+   and key sums, sampled voxels, static / dynamic counts, map sums and the
+   last keyframe's deskewed rows held to the JAX CPU reference
+   (scripts/torch_sm2mm_reference.json); ms, launches and host syncs per
+   keyframe (torch.profiler over one warm pass), ms of the final filters;
+11. the YAML demos: icp-settings-kitti.yaml (equal to kitti_icp() module for
+   module, up to its layer names; its FirstPoint section on the bench
+   pair), icp-settings-example1.yaml (two ClosestToAverage sections, a
+   bunny-sized pair) and the 2D demo (its generators decode the planar
+   pairs' range scans; equal to point2line_icp()), each align held to the
+   JAX CPU reference and K1's launches to the matcher calls; one street
+   frame through a YAML pipeline of every ported filter (K1 65536² k=8 for
+   the normals), each output layer held to the reference;
+12. with --profile only: where the time goes, by torch.profiler over 2
    warm calls (device busy share, launches, the kNN kernels' time) of a
    scan-to-scan align, a scan to the 2M map and the batched call, then
    per-section host times of a scan-to-scan align with a sync around each
@@ -95,8 +115,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    each stage; the same for one warm fleet run; then 2 warm aligns of each
    engine cell and the sections of a 3D engine align with a sync around
    each; the profiler's tables go to chiprun_out/profile_tables.txt;
-11. one JSON line with the kernels' numbers, then the last line
-   {"ok": true, "device": {...}}.
+13. one JSON line with the kernels' numbers (each shape's time, bound,
+   plain version and library call, torch.cdist + topk in a CUDA graph),
+   then the last line {"ok": true, "device": {...}}.
 
 The port's constructors put their tensors on the card by default; this
 script passes ``device=`` only where it asks for the CPU (to prepare the
@@ -108,10 +129,12 @@ just after it. Imports torch, numpy and the port; nothing of the JAX side.
 The JAX CPU reference values are constants here;
 scripts/torch_odometry_reference.py produces the odometry run's and, with
 --fleet, the fleet's; scripts/torch_engine_reference.py the engine
-phase's.
+phase's; scripts/torch_sm2mm_reference.py writes the sm2mm and YAML
+phases' to scripts/torch_sm2mm_reference.json, which this script reads.
 """
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import re
@@ -122,6 +145,7 @@ import time
 
 import numpy as np
 import torch
+import yaml
 
 from mp2p_icp_tpu_torch import default_device
 from mp2p_icp_tpu_torch.core import se3
@@ -133,7 +157,8 @@ from mp2p_icp_tpu_torch.eval.lidar_sim import (
     make_scene,
     make_street_scene,
     make_street_sequence,
-    render_planar_scan,
+    planar_points,
+    render_planar_ranges,
     sample_scan,
     scan_to_pointcloud,
 )
@@ -276,6 +301,84 @@ PLANAR_JAX = (
 # scripts/torch_engine_reference.py: pair 4 stalls at 18 in the port, 23 in
 # JAX, 9e-4 apart). Its iterations are held to ±25% of JAX's (at least ±1).
 PLANAR_ITERATION_BAND = 0.25
+# the map-building phase: the first SM2MM_KEYFRAMES frames of the street
+# drive as a simple map (true poses, noisy twists) through the repo's demo
+# YAML, each keyframe with a moving box of SM2MM_BOX points, 5 m further
+# along the street per keyframe and 4 m beside the track; pass 2 turns on
+# the precise deskew and adds IMU samples at IMU_RATE and a comment with a
+# local velocity buffer to every keyframe
+REPO = pathlib.Path(__file__).resolve().parent
+DEMOS = REPO / "demos"
+SM2MM_KEYFRAMES = 24
+SM2MM_BOX = 600
+IMU_RATE = 200.0
+SM2MM_SAMPLES = 16  # voxels and deskewed rows compared one by one
+# the YAML phase's pipeline of every filter of the library that the port
+# has, on one street frame ("raw", 48 rings x 768 azimuths)
+ALL_FILTERS_YAML = """
+filters:
+  - class_name: mp2p_icp_filters::FilterByRange
+    params: {input_pointcloud_layer: raw, output_layer_between: near,
+             output_layer_outside: far, range_min: 3.0, range_max: 30.0}
+  - class_name: mp2p_icp_filters::FilterBoundingBox
+    params: {input_pointcloud_layer: raw, inside_pointcloud_layer: box_inside,
+             outside_pointcloud_layer: box_outside,
+             bounding_box_min: [-20.0, -6.0, -2.0], bounding_box_max: [20.0, 6.0, 1.0]}
+  - class_name: mp2p_icp_filters::FilterByRing
+    params: {input_pointcloud_layer: raw, output_layer_selected: rings_low,
+             output_layer_non_selected: rings_other, selected_ring_ids: [0, 1, 2, 3, 4, 5, 6, 7]}
+  - class_name: mp2p_icp_filters::FilterByIntensity
+    params: {input_pointcloud_layer: raw, output_layer_low_intensity: dim,
+             output_layer_mid_intensity: mid, output_layer_high_intensity: bright,
+             low_threshold: 0.2, high_threshold: 0.5}
+  - class_name: mp2p_icp_filters::FilterNormalizeIntensity
+    params: {pointcloud_layer: mid}
+  - class_name: mp2p_icp_filters::FilterAdjustTimestamps
+    params: {pointcloud_layer: rings_low, method: TimestampAdjustMethod::Normalize,
+             time_offset: 0.5}
+  - class_name: mp2p_icp_filters::FilterDecimateVoxels
+    params: {input_pointcloud_layer: near, output_pointcloud_layer: dec_first,
+             voxel_filter_resolution: 0.5, decimate_method: DecimateMethod::FirstPoint}
+  - class_name: mp2p_icp_filters::FilterDecimateVoxels
+    params: {input_pointcloud_layer: near, output_pointcloud_layer: dec_random,
+             voxel_filter_resolution: 0.5, decimate_method: DecimateMethod::RandomPoint}
+  - class_name: mp2p_icp_filters::FilterDecimateVoxels
+    params: {input_pointcloud_layer: near, output_pointcloud_layer: dec_average,
+             voxel_filter_resolution: 0.5, decimate_method: DecimateMethod::VoxelAverage}
+  - class_name: mp2p_icp_filters::FilterDecimateVoxels
+    params: {input_pointcloud_layer: near, output_pointcloud_layer: dec_closest,
+             voxel_filter_resolution: 0.5, decimate_method: DecimateMethod::ClosestToAverage}
+  - class_name: mp2p_icp_filters::FilterDecimateVoxelsQuadratic
+    params: {input_pointcloud_layer: raw, output_pointcloud_layer: dec_quadratic,
+             voxel_filter_resolution: 0.1, quadratic_reference_radius: 10.0}
+  - class_name: mp2p_icp_filters::FilterDecimateAdaptive
+    params: {input_pointcloud_layer: raw, output_pointcloud_layer: dec_adaptive,
+             desired_output_point_count: 4000}
+  - class_name: mp2p_icp_filters::FilterEstimateNormals
+    params: {input_pointcloud_layer: dec_first, knn: 8, max_radius: 2.0}
+  - class_name: mp2p_icp_filters::GeneratorVoxelMap
+    params: {input_pointcloud_layer: raw, output_voxel_layer: voxelmap, resolution: 0.5,
+             capacity: 65536}
+  - class_name: mp2p_icp_filters::FilterVoxelSlice
+    params: {input_layer: voxelmap, output_layer: gridmap, slice_z_min: 0.0, slice_z_max: 2.0}
+  - class_name: mp2p_icp_filters::FilterDeleteLayer
+    params: {pointcloud_layer_to_remove: [far, rings_other]}
+"""
+# the example1 demo is tuned for the bunny, one 15 cm scan under two poses
+# (0.01 m voxels and threshold). Its pair here: the bench pair's global scan
+# shrunk EXAMPLE1_SCALE times (to +-1.2 m) and the same scan moved by
+# EXAMPLE1_GT, from the identity. (At the bench pair's +-60 m the JAX
+# package's kNN distances are off by up to 2.4e-3 m^2, 24 times the
+# demo's 1e-4 m^2 threshold; ROADMAP C.)
+EXAMPLE1_SCALE = 50.0
+EXAMPLE1_GT = (0.004, -0.003, 0.001, 0.005, -0.002, 0.003)
+# the JAX package's results on the CPU for the same inputs: the file that
+# `JAX_PLATFORMS=cpu python3 scripts/torch_sm2mm_reference.py --write
+# scripts/torch_sm2mm_reference.json` writes (564 s on a CPU); main() reads
+# it into SM2MM_JAX ("sm2mm") and YAML_JAX ("yaml")
+SM2MM_REFERENCE = REPO / "scripts" / "torch_sm2mm_reference.json"
+SM2MM_JAX = None
+YAML_JAX = None
 
 
 def check(ok, what):
@@ -438,21 +541,9 @@ def planar_pairs(n_rays=PLANAR_RAYS, n_pairs=PLANAR_PAIRS):
     global sensor's frame)] of planar scans of the street scene at 1 m
     height, numpy [M, 3]: the pair at x = 45 m, then pairs along the drive;
     in each pair the local sensor is 0.3 m ahead and turned by 2°."""
-    scene = make_street_scene(np.random.RandomState(0))
-    rng = np.random.RandomState(40)
-    out = []
-    for i in range(n_pairs):
-        x, y, yaw = (45.0, 0.0, 0.0) if i == 0 else (
-            20.0 + 20.0 * (i - 1), rng.uniform(-0.5, 0.5), rng.uniform(-0.1, 0.1))
-        g = render_planar_scan(scene, x, y, yaw, np.random.RandomState(100 + 2 * i),
-                               n_rays=n_rays)
-        x2, y2, yaw2 = x + 0.3 * np.cos(yaw), y + 0.3 * np.sin(yaw), yaw + np.deg2rad(2.0)
-        loc = render_planar_scan(scene, x2, y2, yaw2, np.random.RandomState(101 + 2 * i),
-                                 n_rays=n_rays)
-        c, s_ = np.cos(yaw), np.sin(yaw)
-        rel = (c * (x2 - x) + s_ * (y2 - y), -s_ * (x2 - x) + c * (y2 - y), yaw2 - yaw)
-        out.append((g, loc, rel))
-    return out
+    bearings = np.deg2rad(np.linspace(-135.0, 135.0, n_rays))
+    return [(planar_points(g, bearings), planar_points(loc, bearings), rel)
+            for g, loc, rel in planar_range_pairs(n_rays, n_pairs)]
 
 
 def iterations_agree(port, ref, planar=False):
@@ -486,6 +577,189 @@ def states_equal(a, b):
     pairs += [(getattr(a.pc, f), getattr(b.pc, f))
               for f in ("xyz", "count", "intensity", "ring", "time", "normals")]
     return all((x is None and y is None) or torch.equal(x, y) for x, y in pairs)
+
+
+def sm2mm_inputs(gt, twists, scans, precise=False, n_keyframes=SM2MM_KEYFRAMES, dt=ODO_DT,
+                 box_points=SM2MM_BOX):
+    """The simple map of the map-building phase, numpy only (either package
+    builds its Keyframes and Observations from it): [(pose [4, 4], twist
+    (6 floats), [Observation keyword dicts])]. A keyframe holds its scan's
+    returns plus the moving box, in the sensor frame, as a point cloud
+    observation at t = dt * i; with ``precise``, first a comment carrying a
+    local velocity buffer (the twist's linear velocity at three times) and
+    IMU samples of the twist's angular rate over the sweep."""
+    rng = np.random.RandomState(21)
+    size = np.array([2.0, 2.0, 1.5])
+    out = []
+    for i in range(n_keyframes):
+        T, tw, sc, ts = gt[i], np.asarray(twists[i], np.float64), scans[i], dt * i
+        v = sc["valid"]
+        # a point on the box's faces, in the world, then in the sensor frame
+        u = rng.uniform(-0.5, 0.5, (box_points, 3)) * size
+        face = rng.randint(0, 3, box_points)
+        u[np.arange(box_points), face] = rng.choice([-0.5, 0.5], box_points) * size[face]
+        world = u + (T[0, 3] + 8.0 + 5.0 * i, T[1, 3] + 4.0, 0.75)
+        box = ((world - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
+        obs = [dict(
+            class_name="CObservationPointCloud", sensor_label="lidar", timestamp=ts,
+            xyz=np.concatenate([sc["xyz"][v], box]),
+            intensity=np.concatenate([sc["intensity"][v], np.full(box_points, 0.5, np.float32)]),
+            ring=np.concatenate([sc["ring"][v], np.zeros(box_points, np.float32)]),
+            time=np.concatenate([sc["time"][v], rng.uniform(
+                -0.5 * dt, 0.5 * dt, box_points).astype(np.float32)]))]
+        if precise:
+            buffer = {"max_time_window": 1.0, "angular": {},
+                      "linear": {str(ts + k * 0.5 * dt): tw[:3].tolist() for k in (-1, 0, 1)}}
+            half = int(round(0.5 * dt * IMU_RATE))
+            obs = ([dict(class_name="CObservationComment", timestamp=ts,
+                         text=yaml.safe_dump({"local_velocity_buffer": buffer}))]
+                   + [dict(class_name="CObservationIMU", sensor_label="imu",
+                           timestamp=ts + k / IMU_RATE, angular_velocity=tuple(tw[3:].tolist()))
+                      for k in range(-half, half + 1)]
+                   + obs)
+        out.append((T, tuple(tw.tolist()), obs))
+    return out
+
+
+def sm2mm_config(precise):
+    """The demo YAML as a dict; ``precise`` turns on the precise deskew in
+    memory (the file is not touched)."""
+    cfg = yaml.safe_load((DEMOS / "sm2mm_voxelmap_static_dynamic.yaml").read_text())
+    if precise:
+        for f in cfg["filters"]:
+            if f["class_name"].endswith("FilterDeskew"):
+                f["params"]["use_precise_local_velocities"] = True
+    return cfg
+
+
+def sm2mm_summary(mm_np):
+    """The numbers that the map-building phase compares, from numpy arrays
+    of either package's result: ``mm_np`` holds "map_points" (valid rows
+    [n, 3]), "static_points" and "dynamic_points" counts, "keys" [C, 3],
+    "occupancy" [C], "valid" [C] of the voxel layer, "deskewed" (the last
+    keyframe's valid rows)."""
+    pts, keys, occ, valid, desk = (mm_np[k] for k in ("map_points", "keys", "occupancy", "valid",
+                                                       "deskewed"))
+    n_vox = int(valid.sum())
+    vi = np.linspace(0, n_vox - 1, SM2MM_SAMPLES).astype(int)
+    di = np.linspace(0, len(desk) - 1, SM2MM_SAMPLES).astype(int)
+    return {
+        "map_points": len(pts), "static": int(mm_np["static_points"]),
+        "dynamic": int(mm_np["dynamic_points"]),
+        "map_sum": pts.astype(np.float64).sum(0).tolist(),
+        "map_abs_sum": np.abs(pts.astype(np.float64)).sum(0).tolist(),
+        "voxels": n_vox, "voxel_capacity": len(valid),
+        "voxel_key_sum": keys[:n_vox].astype(np.int64).sum(0).tolist(),
+        "voxel_occupancy_sum": float(occ[:n_vox].astype(np.float64).sum()),
+        "voxel_samples": [[int(i), keys[i].tolist(), float(occ[i])] for i in vi],
+        "deskewed_rows": len(desk), "deskewed_mean": desk.astype(np.float64).mean(0).tolist(),
+        "deskewed_samples": [[int(i), desk[i].tolist()] for i in di],
+    }
+
+
+def layer_summary(layer):
+    """The numbers the YAML phase compares for one output layer, from a
+    dict of numpy arrays of either package's layer: a point layer's count,
+    float64 coordinate sums and sums of |x| (its scale), its channel sums
+    and its rows with a nonzero normal; a 2-D grid's occupancy sum and the
+    cells away from 0.5."""
+    if "occupancy" in layer:
+        g = layer["occupancy"].astype(np.float64)
+        return {"cells": int(g.size), "occupancy_sum": float(g.sum()),
+                "known": int((g != 0.5).sum())}
+    n = int(layer["count"])
+    xyz = layer["xyz"][:n].astype(np.float64)
+    out = {"count": n, "sum": xyz.sum(0).tolist(), "abs_sum": np.abs(xyz).sum(0).tolist()}
+    for ch in ("intensity", "ring", "time"):
+        if layer.get(ch) is not None:
+            out[f"{ch}_sum"] = float(layer[ch][:n].astype(np.float64).sum())
+    if layer.get("normals") is not None:
+        out["with_normal"] = int((np.abs(layer["normals"][:n]).sum(1) > 0).sum())
+    return out
+
+
+def example1_pair(scene, n=N_POINTS):
+    """(local scan, global scan) numpy [n, 3] of the example1 demo."""
+    g = sample_scan(scene, np.random.RandomState(2), n=n) / EXAMPLE1_SCALE
+    gt = se3.from_xyz_ypr(*EXAMPLE1_GT, device="cpu")
+    return se3.apply(se3.inverse(gt), torch.from_numpy(g)).numpy(), g
+
+
+def sentinel_padded(pc, far):
+    """A layer's rows as the kNN front end gives them to a sweep: valid rows,
+    then ``far`` (queries +1e8, points -1e8)."""
+    return torch.where(pc.valid_mask()[:, None], pc.xyz, far).contiguous()
+
+
+def generated_2d_layer(ranges):
+    """The 2D demo generator's "2d_lidar" layer of a planar range scan."""
+    from mp2p_icp_tpu_torch.core.metric_map import MetricMap
+    from mp2p_icp_tpu_torch.filters.generator import Observation
+    from mp2p_icp_tpu_torch.pipeline import load_icp_config_file
+
+    mm = MetricMap()
+    gens = load_icp_config_file(DEMOS / "icp-settings-2d-lidar-point2line.yaml")[2]["generators"]
+    for g in gens:
+        g.process(Observation(**planar_observation(ranges)), mm)
+    return mm.layers["2d_lidar"]
+
+
+def yaml_pipeline_input_layer(scan):
+    """The layer whose normals ALL_FILTERS_YAML fits, "dec_first" (one
+    street frame's returns within 3-30 m, FirstPoint-decimated at 0.5 m,
+    capacity 2^16), as the pipeline makes it."""
+    from mp2p_icp_tpu_torch.filters import apply_filter_pipeline
+    from mp2p_icp_tpu_torch.pipeline import filter_pipeline_from_yaml
+
+    filters = filter_pipeline_from_yaml(yaml.safe_load(ALL_FILTERS_YAML)["filters"])
+    return apply_filter_pipeline(
+        filters, {"raw": scan_to_pointcloud(scan, capacity=1 << 16)})["dec_first"]
+
+
+def same_modules(a, b, layers=None):
+    """Two ICPs equal config for config (``convert.config_of``): matchers,
+    solvers, quality evaluators and weights; ``layers`` renames the layers
+    of a's matchers first ({a's name: b's name})."""
+    from mp2p_icp_tpu_torch import convert
+
+    def renamed(m):
+        if not layers or not hasattr(m, "layer_matches"):
+            return m
+        return dataclasses.replace(m, layer_matches=tuple(dataclasses.replace(
+            lm, global_layer=layers.get(lm.global_layer, lm.global_layer),
+            local_layer=layers.get(lm.local_layer, lm.local_layer)) for lm in m.layer_matches))
+
+    return ([convert.config_of(renamed(m)) for m in (*a.matchers, *a.solvers,
+                                                     *a.quality_evaluators)]
+            == [convert.config_of(m) for m in (*b.matchers, *b.solvers, *b.quality_evaluators)]
+            and list(a.quality_weights) == list(b.quality_weights))
+
+
+def planar_observation(ranges):
+    """A planar scan's ranges as CObservation2DRangeScan keywords (270°)."""
+    return dict(class_name="CObservation2DRangeScan", sensor_label="hokuyo",
+                scan_ranges=np.asarray(ranges, np.float32), aperture=float(np.deg2rad(270.0)),
+                max_range=30.0)
+
+
+def planar_range_pairs(n_rays=PLANAR_RAYS, n_pairs=PLANAR_PAIRS):
+    """The planar pairs as ranges (0: no return): [(global ranges, local
+    ranges, rel)] (``planar_pairs`` gives their points)."""
+    scene = make_street_scene(np.random.RandomState(0))
+    rng = np.random.RandomState(40)
+    out = []
+    for i in range(n_pairs):
+        x, y, yaw = (45.0, 0.0, 0.0) if i == 0 else (
+            20.0 + 20.0 * (i - 1), rng.uniform(-0.5, 0.5), rng.uniform(-0.1, 0.1))
+        g, _ = render_planar_ranges(scene, x, y, yaw, np.random.RandomState(100 + 2 * i),
+                                    n_rays=n_rays)
+        x2, y2, yaw2 = x + 0.3 * np.cos(yaw), y + 0.3 * np.sin(yaw), yaw + np.deg2rad(2.0)
+        loc, _ = render_planar_ranges(scene, x2, y2, yaw2, np.random.RandomState(101 + 2 * i),
+                                      n_rays=n_rays)
+        c, s_ = np.cos(yaw), np.sin(yaw)
+        out.append((g, loc, (c * (x2 - x) + s_ * (y2 - y), -s_ * (x2 - x) + c * (y2 - y),
+                             yaw2 - yaw)))
+    return out
 
 
 def sensor_scan(corridor, cx, seed, err_ypr):
@@ -537,15 +811,15 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def graph_ms(fn, replays=7):
-    """Device milliseconds per call of fn(): a CUDA graph of GRAPH_LAUNCHES
-    calls (so no host gaps between the launches), the times of `replays`
-    replays by CUDA events, each divided by the calls."""
+def graph_ms(fn, replays=7, calls=GRAPH_LAUNCHES):
+    """Device milliseconds per call of fn(): a CUDA graph of ``calls`` calls
+    (so no host gaps between the launches), the times of `replays` replays
+    by CUDA events, each divided by the calls."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(GRAPH_LAUNCHES):
+        for _ in range(calls):
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -557,16 +831,50 @@ def graph_ms(fn, replays=7):
         graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / GRAPH_LAUNCHES)
+        times.append(start.elapsed_time(end) / calls)
     return times
 
 
-def bound_ms(B, Q, C, k):
-    """(ms, "operations" or "bytes"): the least time the card can take for
-    B problems of Q queries against C points."""
-    ops = B * Q * C * 9 / FP32_INSTRUCTIONS_PER_S * 1e3
-    moved = (12 * B * (Q + C) + 8 * B * Q * k) / BYTES_PER_S * 1e3
+def library_ms(q, p, k):
+    """Device ms of the one PyTorch call that computes the kNN, up to ties
+    (it keeps no index order): torch.cdist + topk(k, largest=False) at the
+    row's shape, a shared map broadcast over the batch, in a CUDA graph (2
+    calls where the Q x C distance matrix passes 2^30 entries)."""
+    if q.ndim == 3 and p.ndim == 2:
+        p = p.expand(q.shape[0], -1, -1)
+
+    def call():
+        return torch.cdist(q, p).topk(k, dim=-1, largest=False)
+
+    big = q.numel() // 3 * p.shape[-2] > 1 << 30
+    ms = statistics.median(graph_ms(call, replays=3 if big else 7,
+                                    calls=2 if big else GRAPH_LAUNCHES))
+    torch.cuda.empty_cache()
+    return ms
+
+
+def work_bound_ms(pairs, queries, points, k):
+    """(ms, "operations" or "bytes"): the least time the card can take to
+    compare ``pairs`` query-point pairs, reading ``queries`` + ``points``
+    rows once and writing k results per query."""
+    ops = pairs * 9 / FP32_INSTRUCTIONS_PER_S * 1e3
+    moved = (12 * (queries + points) + 8 * queries * k) / BYTES_PER_S * 1e3
     return (ops, "operations") if ops >= moved else (moved, "bytes")
+
+
+def bound_ms(B, Q, C, k):
+    """work_bound_ms of B problems of Q queries against C points, every
+    row counted (the sweep's own work: it passes over padding rows too)."""
+    return work_bound_ms(B * Q * C, B * Q, B * C, k)
+
+
+def data_bound_ms(q, p, k):
+    """work_bound_ms of the work this run's data needs: the valid rows of
+    q [(B,) Q, 3] against those of p [(B,) C, 3] (a shared map [C, 3] read
+    once); the sentinel rows (|x| = 1e8) are padding that no query needs."""
+    nq = (q.abs() < 1e7).all(-1).sum(-1)
+    npt = (p.abs() < 1e7).all(-1).sum(-1)
+    return work_bound_ms(int((nq * npt).sum()), int(nq.sum()), int(npt.sum()), k)
 
 
 def grid_points(rng, *shape):
@@ -949,6 +1257,38 @@ def profile_fleet(bm, streams, kw, smi, tables):
         print(f"[profile]   {label:28s} {secs / steps * 1e3:8.2f} ms per fleet frame")
 
 
+def held_align(icp, loc, glob, guess, params, label, ref, kind, launches, planar=False,
+               tag="engine"):
+    """One align on the card held to a JAX CPU reference ``ref``
+    (termination, iterations within iterations_agree, pose gap < 5e-3) and
+    K1's launches to the matcher calls; adds them to ``launches``. Returns
+    (result, K1 launches, host seconds)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = icp.align(loc, glob, guess, params)
+    float(res.optimal_tf.t[0])  # syncs
+    wall = time.perf_counter() - t0
+    n = counts()
+    calls = matcher_calls(icp, res.n_iterations)
+    check(n["knn_sweep"] == calls and calls > 0,
+          f"{label}: K1 launches {n['knn_sweep']} != matcher calls {calls}")
+    check(n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0, f"{label}: K2/K3 ran: {n}")
+    launches["knn_sweep"] += n["knn_sweep"]
+    gap = float(se3.error_log_norm(pose_of_log(ref["log"], res.optimal_tf.t.device),
+                                   res.optimal_tf))
+    print(f"[{tag}] {label} on {kind}: {res.n_iterations} iterations, "
+          f"{res.termination_reason.name}, quality {float(res.quality):.6f}, pose gap to "
+          f"JAX {gap:.3g} [JAX CPU reference: {ref['iterations']}, {ref['termination']}, "
+          f"{ref['quality']:.6f}]; {n['knn_sweep']} K1 launches, {wall * 1e3:.1f} ms")
+    check(res.termination_reason.name == ref["termination"],
+          f"{label}: {res.termination_reason.name}, JAX {ref['termination']}")
+    check(iterations_agree(res.n_iterations, ref["iterations"], planar),
+          f"{label}: {res.n_iterations} iterations, JAX {ref['iterations']}")
+    check(gap < 5e-3, f"{label}: pose {gap} from the JAX reference's")
+    return res, n["knn_sweep"], wall
+
+
 def engine_phase(smi, kind, launches, by_path):
     """Phase 9: the rest of the ICP engine on the card. (a) the bench pair
     through engine_icp() three times: with a hook that never stops, with
@@ -956,38 +1296,13 @@ def engine_phase(smi, kind, launches, by_path):
     on the planar pairs. Each align is held to the JAX CPU reference and
     K1's launches to the matcher calls; adds K1's launches to ``launches``
     and ``by_path``. Returns ({label: (K1 launches per align, ms per
-    align)}, {label: a warm align of the cell, for the profile phase})."""
+    align)}, {label: a warm align of the cell, for the profile phase}, the
+    2D results pair by pair)."""
     out_dir = pathlib.Path(__file__).resolve().parent / "chiprun_out" / "engine"
     out_dir.mkdir(parents=True, exist_ok=True)
     for old in out_dir.glob("engine-*.icplog.npz"):
         old.unlink()
     per_align = {}
-
-    def run_align(icp, loc, glob, guess, params, label, ref, planar=False):
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        res = icp.align(loc, glob, guess, params)
-        float(res.optimal_tf.t[0])  # syncs
-        wall = time.perf_counter() - t0
-        n = counts()
-        calls = matcher_calls(icp, res.n_iterations)
-        check(n["knn_sweep"] == calls and calls > 0,
-              f"{label}: K1 launches {n['knn_sweep']} != matcher calls {calls}")
-        check(n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0, f"{label}: K2/K3 ran: {n}")
-        launches["knn_sweep"] += n["knn_sweep"]
-        gap = float(se3.error_log_norm(pose_of_log(ref["log"], res.optimal_tf.t.device),
-                                       res.optimal_tf))
-        print(f"[engine] {label} on {kind}: {res.n_iterations} iterations, "
-              f"{res.termination_reason.name}, quality {float(res.quality):.6f}, pose gap to "
-              f"JAX {gap:.3g} [JAX CPU reference: {ref['iterations']}, {ref['termination']}, "
-              f"{ref['quality']:.6f}]; {n['knn_sweep']} K1 launches, {wall * 1e3:.1f} ms")
-        check(res.termination_reason.name == ref["termination"],
-              f"{label}: {res.termination_reason.name}, JAX {ref['termination']}")
-        check(iterations_agree(res.n_iterations, ref["iterations"], planar),
-              f"{label}: {res.n_iterations} iterations, JAX {ref['iterations']}")
-        check(gap < 5e-3, f"{label}: pose {gap} from the JAX reference's")
-        return res, n["knn_sweep"], wall
 
     # (a) 3D: the bench pair with voxel grids, three runs
     loc, glob = street_pair(make_scene(np.random.RandomState(0)), 1, 2)
@@ -1001,8 +1316,8 @@ def engine_phase(smi, kind, launches, by_path):
     runs, walls, k1 = {}, [], 0
     for label in ENGINE_RUNS:
         ref = ENGINE_JAX["no hook" if label == "passive hook" else label]
-        res, n_k1, wall = run_align(icp, loc, glob, se3.identity(), engine_params(
-            out_dir, hooks[label]), f"3D, {label}", ref)
+        res, n_k1, wall = held_align(icp, loc, glob, se3.identity(), engine_params(
+            out_dir, hooks[label]), f"3D, {label}", ref, kind, launches)
         err = float(se3.error_log_norm(gt, res.optimal_tf))
         scale = float(res.optimal_scale)
         print(f"[engine] 3D, {label}: SE(3) error {err:.6f}, optimal scale {scale:.7f} "
@@ -1045,14 +1360,16 @@ def engine_phase(smi, kind, launches, by_path):
 
     # (b) 2D: the demo on the planar pairs
     icp2, params2 = point2line_icp(), point2line_params()
-    walls, k1 = [], 0
+    walls, k1, planar = [], 0, []
     for i, ((g, l, rel), ref) in enumerate(zip(planar_pairs(), PLANAR_JAX)):
-        res, n_k1, wall = run_align(icp2, planar_layers(l), planar_layers(g),
-                                    se3.from_xyz_ypr(*planar_guess(rel)), params2,
-                                    f"2D pair {i} ({len(l)} x {len(g)} returns)", ref, planar=True)
+        res, n_k1, wall = held_align(icp2, planar_layers(l), planar_layers(g),
+                                     se3.from_xyz_ypr(*planar_guess(rel)), params2,
+                                     f"2D pair {i} ({len(l)} x {len(g)} returns)", ref, kind,
+                                     launches, planar=True)
         err = float(se3.error_log_norm(se3.from_xyz_ypr(rel[0], rel[1], 0.0, rel[2], 0.0, 0.0),
                                        res.optimal_tf))
         print(f"[engine] 2D pair {i}: SE(3) error {err:.6f}")
+        planar.append(res)
         check(err < ERR_LIMIT, f"2D pair {i}: SE(3) error {err} >= {ERR_LIMIT}")
         walls.append(wall)
         k1 += n_k1
@@ -1069,7 +1386,7 @@ def engine_phase(smi, kind, launches, by_path):
             planar_layers(l0), planar_layers(g0), se3.from_xyz_ypr(*planar_guess(rel0)),
             params2).optimal_tf.t[0]),
     }
-    return per_align, warm
+    return per_align, warm, planar
 
 
 def profile_engine(run, smi):
@@ -1101,6 +1418,291 @@ def profile_engine(run, smi):
           f"(a sync around each section) on {smi}")
     for label, secs in sorted(sections.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {label:30s} {secs / 3 * 1e3:8.2f} ms per align")
+
+
+def sm2mm_build(inputs, precise):
+    """The port's SimpleMap of ``sm2mm_inputs`` on the default device and
+    its YAML config."""
+    from mp2p_icp_tpu_torch.filters.generator import Observation
+    from mp2p_icp_tpu_torch.filters.sm2mm import Keyframe, SimpleMap
+
+    sm = SimpleMap([Keyframe(pose=pose_of(T), twist=tw,
+                             observations=[Observation(**o) for o in obs])
+                    for T, tw, obs in inputs])
+    return sm, sm2mm_config(precise)
+
+
+def layers_numpy(layers):
+    """{name: dict of numpy arrays} of either package's layers (a point
+    layer's fields, a voxel layer's keys / occupancy / valid, a 2-D grid's
+    occupancy)."""
+    def arr(x):
+        return None if x is None else (x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x))
+
+    out = {}
+    for name, layer in layers.items():
+        if hasattr(layer, "keys") and hasattr(layer, "valid"):  # a voxel layer
+            out[name] = {"keys": arr(layer.keys), "occupancy": arr(layer.occupancy),
+                         "valid": arr(layer.valid)}
+        elif hasattr(layer, "origin_xy"):  # a 2-D grid
+            out[name] = {"occupancy": arr(layer.occupancy)}
+        else:
+            out[name] = {f: arr(getattr(layer, f)) for f in
+                         ("xyz", "count", "intensity", "ring", "time", "normals")}
+    return out
+
+
+def sm2mm_numpy(layers):
+    """The arrays of either package's built map that ``sm2mm_summary`` reads."""
+    ly = layers_numpy(layers)
+
+    def rows(name):
+        return ly[name]["xyz"][: int(ly[name]["count"])]
+
+    return {"map_points": rows("map_points"), "deskewed": rows("deskewed"),
+            "static_points": int(ly["static_points"]["count"]),
+            "dynamic_points": int(ly["dynamic_points"]["count"]), **ly["voxelmap"]}
+
+
+def sm2mm_phase(smi, kind, launches, by_path, gt, twists, scans, tables):
+    """Phase 10: the demo sm2mm YAML on the first SM2MM_KEYFRAMES frames of
+    the street drive, pass 1 (constant twist from vx..wz) and pass 2 (the
+    precise deskew from IMU samples and a comment's velocity buffer), each
+    held to SM2MM_JAX. Returns the seconds of a warm pass 1."""
+    from mp2p_icp_tpu_torch.filters import apply_filter_pipeline
+    from mp2p_icp_tpu_torch.filters.sm2mm import simplemap_to_metricmap
+    from mp2p_icp_tpu_torch.ops.voxel_occupancy import lookup_occupancy
+    from mp2p_icp_tpu_torch.pipeline import filter_pipeline_from_yaml
+
+    last = {}
+    for label, precise in (("pass 1", False), ("pass 2", True)):
+        ref = SM2MM_JAX[label]
+        inputs = sm2mm_inputs(gt, twists, scans, precise=precise)
+        sm, cfg = sm2mm_build(inputs, precise)
+        n_raw = sum(len(o["xyz"]) for _, _, obs in inputs for o in obs if "xyz" in o)
+        capacity = next(f["params"]["target_capacity"] for f in cfg["filters"]
+                        if f["class_name"].endswith("FilterMerge"))
+        check(n_raw <= capacity, f"sm2mm: {n_raw} raw rows > the merge capacity {capacity}")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        mm = simplemap_to_metricmap(sm, cfg)  # cold
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        check(sum(counts().values()) == 0, f"sm2mm {label}: a kNN kernel ran: {counts()}")
+        # warm: the keyframes, then the final filters, each timed with a sync
+        per_kf = dict(cfg, final_filters=None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mm_w = simplemap_to_metricmap(sm, per_kf)
+        torch.cuda.synchronize()
+        kf_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        apply_filter_pipeline(filter_pipeline_from_yaml(cfg["final_filters"]), mm_w)
+        torch.cuda.synchronize()
+        final_s = time.perf_counter() - t0
+        prof = profile_window(f"sm2mm {label}, {SM2MM_KEYFRAMES} keyframes",
+                              lambda: simplemap_to_metricmap(sm, per_kf), 1, smi, tables,
+                              warmups=0)
+        syncs = prof["host"].get("cudaStreamSynchronize", 0) + prof["host"].get(
+            "cudaDeviceSynchronize", 0)
+        got = sm2mm_summary(sm2mm_numpy(mm.layers))
+        vg = mm.layers["voxelmap"]
+        map_pc = mm.layers["map_points"]
+        rows = map_pc.xyz[: int(map_pc.count)]
+        occ = lookup_occupancy(vg, rows)
+        # occupancy is held to JAX's within 1e-6: a row that close to the
+        # threshold may fall on the other side of it
+        near = int(((occ - 0.4).abs() <= 1e-6).sum())
+        print(f"[sm2mm] {label} on {kind}: {n_raw} raw rows in {SM2MM_KEYFRAMES} keyframes "
+              f"(<= {capacity}), map_points {got['map_points']}, voxelmap {got['voxels']} of "
+              f"{got['voxel_capacity']} cells used (capacity hit: "
+              f"{got['voxels'] == got['voxel_capacity']}), static {got['static']}, dynamic "
+              f"{got['dynamic']} ({near} rows within 1e-6 of the 0.4 threshold) [JAX CPU "
+              f"reference: {ref['map_points']}, {ref['voxels']}, {ref['static']}, "
+              f"{ref['dynamic']}]")
+        print(f"[sm2mm] {label}: cold {cold_s:.2f} s; warm {kf_s / SM2MM_KEYFRAMES * 1e3:.1f} ms "
+              f"per keyframe on the host clock, {prof['kernels'] / SM2MM_KEYFRAMES:.0f} "
+              f"launches and {syncs / SM2MM_KEYFRAMES:.2f} host syncs per keyframe; final "
+              f"filters {final_s * 1e3:.1f} ms, on {smi}")
+        check(got["map_points"] == ref["map_points"],
+              f"sm2mm {label}: {got['map_points']} map points, JAX {ref['map_points']}")
+        sum_gap = max(abs(a - b) / max(c, 1.0) for a, b, c in
+                      zip(got["map_sum"], ref["map_sum"], ref["map_abs_sum"]))
+        check(got["voxels"] == ref["voxels"] and got["voxel_key_sum"] == ref["voxel_key_sum"],
+              f"sm2mm {label}: voxels {got['voxels']} key sums {got['voxel_key_sum']}, JAX "
+              f"{ref['voxels']} {ref['voxel_key_sum']}")
+        occ_gap = max(abs(a[2] - b[2]) for a, b in zip(got["voxel_samples"],
+                                                       ref["voxel_samples"]))
+        check(all(a[:2] == b[:2] for a, b in zip(got["voxel_samples"], ref["voxel_samples"]))
+              and occ_gap <= 1e-6, f"sm2mm {label}: sampled voxels differ (occupancy gap "
+              f"{occ_gap})")
+        occ_sum_gap = abs(got["voxel_occupancy_sum"] - ref["voxel_occupancy_sum"])
+        check(occ_sum_gap <= 1e-6 * got["voxels"],
+              f"sm2mm {label}: occupancy sums {got['voxel_occupancy_sum']}, JAX "
+              f"{ref['voxel_occupancy_sum']}")
+        check(abs(got["static"] - ref["static"]) <= near
+              and abs(got["dynamic"] - ref["dynamic"]) <= near,
+              f"sm2mm {label}: static / dynamic {got['static']} / {got['dynamic']}, JAX "
+              f"{ref['static']} / {ref['dynamic']}, {near} rows near the threshold")
+        check(sum_gap <= 1e-6, f"sm2mm {label}: map coordinate sums {sum_gap} apart (relative)")
+        desk_gap = max(max(abs(a - b) for a, b in zip(x[1], y[1]))
+                       for x, y in zip(got["deskewed_samples"], ref["deskewed_samples"]))
+        mean_gap = max(abs(a - b) for a, b in zip(got["deskewed_mean"], ref["deskewed_mean"]))
+        print(f"[sm2mm] {label} against JAX: map coordinate sums {sum_gap:.3g} apart (relative), "
+              f"voxel keys: count and key sums equal, {SM2MM_SAMPLES} sampled voxels equal with "
+              f"occupancy within {occ_gap:.3g}, occupancy sums {occ_sum_gap:.3g} apart; the last "
+              f"keyframe's deskewed layer ({got['deskewed_rows']} rows): {SM2MM_SAMPLES} sampled "
+              f"rows within {desk_gap:.3g} m, mean within {mean_gap:.3g} m")
+        # the precise deskew is held to 1e-5 m; the constant twist's
+        # translation divides a float32 1 - cos(phi) by phi, and an ulp of
+        # cos there moves a row by up to ~3e-5 m at 10 m/s in either package
+        band = 1e-5 if precise else 1e-4
+        check(got["deskewed_rows"] == ref["deskewed_rows"] and desk_gap <= band
+              and mean_gap <= band, f"sm2mm {label}: deskewed rows {desk_gap} / {mean_gap} m "
+              f"from JAX's (band {band})")
+        last[label] = mm.layers["deskewed"]
+        by_path["knn_sweep"][f"sm2mm {label}"] = 0
+        if label == "pass 1":
+            warm_s = kf_s + final_s
+    d = (last["pass 1"].xyz - last["pass 2"].xyz)[: int(last["pass 1"].count)].abs().max()
+    print(f"[sm2mm] the last keyframe deskewed by the constant twist and by the trajectory: "
+          f"rows {float(d):.3g} m apart at most (the IMU's rate is the twist's)")
+    return warm_s
+
+
+def yaml_phase(smi, kind, launches, by_path, scene, scans, engine_planar):
+    """Phase 11: the repo's three ICP demo YAMLs loaded by the port's
+    loader and aligned on the card, and a YAML pipeline of every filter on
+    one street frame, each held to YAML_JAX. ``engine_planar``: the engine
+    phase's 2D results per pair."""
+    from mp2p_icp_tpu_torch.filters import apply_filter_pipeline
+    from mp2p_icp_tpu_torch.filters.generator import Observation, apply_generators
+    from mp2p_icp_tpu_torch.core.metric_map import MetricMap
+    from mp2p_icp_tpu_torch.pipeline import filter_pipeline_from_yaml, load_icp_config_file
+
+    # kitti: the config equals kitti_icp(); the bench pair after its filters
+    icp, params, sections = load_icp_config_file(DEMOS / "icp-settings-kitti.yaml")
+    check(same_modules(icp, kitti_icp(), {"decimated": "raw"}),
+          "icp-settings-kitti.yaml != chip_smoke.kitti_icp()")
+    loc, glob = street_pair(scene, 1, 2)
+    fl = apply_filter_pipeline(sections["filters"], loc)
+    fg = apply_filter_pipeline(sections["filters"], glob)
+    res, n_k1, _ = held_align(icp, fl, fg, se3.identity(), params, "kitti YAML",
+                              YAML_JAX["kitti"], kind, launches, tag="yaml")
+    err = float(se3.error_log_norm(se3.from_xyz_ypr(*GT), res.optimal_tf))
+    print(f"[yaml] icp-settings-kitti.yaml equals kitti_icp() module for module (its matchers "
+          f"pair the 'decimated' layers its filter section makes, kitti_icp()'s 'raw'); FirstPoint "
+          f"2 m kept {int(fl['decimated'].count)} + {int(fg['decimated'].count)} points; SE(3) "
+          f"error {err:.6f}")
+    check(err < ERR_LIMIT, f"kitti YAML: SE(3) error {err}")
+    by_path["knn_sweep"]["yaml kitti align"] = n_k1
+
+    # example1: two ClosestToAverage sections on a bunny-sized pair
+    icp, params, sections = load_icp_config_file(DEMOS / "icp-settings-example1.yaml")
+    l1, g1 = example1_pair(scene)
+    fl = apply_filter_pipeline(sections["filters_local_map"], {"raw": PointCloud.from_numpy(l1)})
+    fg = apply_filter_pipeline(sections["filters_global_map"], {"raw": PointCloud.from_numpy(g1)})
+    res, n_k1, _ = held_align(icp, fl, fg, se3.identity(), params, "example1 YAML",
+                              YAML_JAX["example1"], kind, launches, tag="yaml")
+    err = float(se3.error_log_norm(se3.from_xyz_ypr(*EXAMPLE1_GT), res.optimal_tf))
+    check(err < ERR_LIMIT, f"example1 YAML: SE(3) error {err}")
+    for side, f in (("local", fl), ("global", fg)):
+        got = layer_summary(layers_numpy(f)["decimated"])
+        check(got["count"] == YAML_JAX["example1"][f"{side}_decimated"],
+              f"example1 {side}: {got['count']} ClosestToAverage rows, JAX "
+              f"{YAML_JAX['example1'][side + '_decimated']}")
+    print(f"[yaml] example1: ClosestToAverage 0.01 m kept {int(fl['decimated'].count)} + "
+          f"{int(fg['decimated'].count)} rows (as JAX); SE(3) error {err:.6f}")
+    by_path["knn_sweep"]["yaml example1 align"] = n_k1
+
+    # 2D: the demo's generators decode the planar pairs' range scans
+    icp, params, sections = load_icp_config_file(DEMOS / "icp-settings-2d-lidar-point2line.yaml")
+    check(same_modules(icp, point2line_icp()),
+          "icp-settings-2d-lidar-point2line.yaml != chip_smoke.point2line_icp()")
+    k1 = 0
+    for i, ((g, l, rel), (gp, lp, _), ref) in enumerate(zip(
+            planar_range_pairs(), planar_pairs(), YAML_JAX["planar"])):
+        maps = []
+        for ranges in (l, g):
+            mm = MetricMap()
+            check(apply_generators(sections["generators"], Observation(**planar_observation(
+                ranges)), mm), "the 2D generator did not take the scan")
+            maps.append(mm)
+        gap = max(float((m.layers["2d_lidar"].xyz[: len(pts)].cpu()
+                         - torch.from_numpy(pts)).abs().max())
+                  for m, pts in zip(maps, (lp, gp)))
+        check(all(int(m.layers["2d_lidar"].count) == len(pts) for m, pts in zip(maps, (lp, gp))),
+              f"2D pair {i}: decoded rows != the rendered returns")
+        res, n_k1, _ = held_align(icp, maps[0], maps[1], se3.from_xyz_ypr(*planar_guess(rel)),
+                                  params, f"2D YAML pair {i}", ref, kind, launches,
+                                  planar=True, tag="yaml")
+        k1 += n_k1
+        same = gap == 0.0 and torch.equal(res.optimal_tf.t, engine_planar[i].optimal_tf.t)
+        print(f"[yaml] 2D pair {i}: the Generator's layers are {gap:.3g} m from the engine "
+              f"phase's planar_layers (the float32 polar decode); "
+              + ("the align equals the engine phase's to the bit" if gap == 0.0 else
+                 "held to the align band of YAML_JAX instead of the engine phase's bits"))
+        check(gap > 0.0 or same, f"2D pair {i}: equal layers, aligns differ")
+    by_path["knn_sweep"][f"yaml 2D, {PLANAR_PAIRS} aligns"] = k1
+
+    # one street frame through a YAML pipeline of every filter
+    frame = {"raw": scan_to_pointcloud(scans[0], capacity=1 << 16)}
+    filters = filter_pipeline_from_yaml(yaml.safe_load(ALL_FILTERS_YAML)["filters"])
+    apply_filter_pipeline(filters, frame)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = apply_filter_pipeline(filters, frame)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = counts()
+    check(n["knn_sweep"] == 1 and n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0,
+          f"filter pipeline: one K1 launch (the normals fit) expected, got {n}")
+    launches["knn_sweep"] += n["knn_sweep"]
+    by_path["knn_sweep"]["yaml filter pipeline (normals k=8)"] = n["knn_sweep"]
+    ref = YAML_JAX["filters"]
+    check(sorted(out) == sorted(ref), f"filter pipeline layers {sorted(out)}, JAX {sorted(ref)}")
+    for name in sorted(ref):
+        layer = out[name]
+        if name == "voxelmap":
+            continue  # the keys and occupancy of a voxel layer: the sm2mm phase
+        got = layer_summary(layers_numpy({name: layer})[name])
+        r = ref[name]
+        if name == "gridmap":
+            ok = (got["cells"] == r["cells"] and got["known"] == r["known"]
+                  and abs(got["occupancy_sum"] - r["occupancy_sum"]) <= 1e-6 * r["known"])
+            print(f"[yaml] filter pipeline {name}: {got['known']} cells away from 0.5 of "
+                  f"{got['cells']}, occupancy sum {got['occupancy_sum']:.6f} [JAX "
+                  f"{r['known']}, {r['occupancy_sum']:.6f}]")
+        else:
+            gap = max(abs(a - b) / max(c, 1.0) for a, b, c in zip(got["sum"], r["sum"],
+                                                                  r["abs_sum"]))
+            ch_gap = max([abs(got[k] - r[k]) / max(abs(r[k]), 1.0) for k in r
+                          if k.endswith("_sum") and k not in ("abs_sum",) and k in got
+                          and not isinstance(r[k], list)] or [0.0])
+            ok = (got["count"] == r["count"] and gap <= 1e-6 and ch_gap <= 1e-6
+                  and got.get("with_normal") == r.get("with_normal"))
+            print(f"[yaml] filter pipeline {name}: {got['count']} rows [JAX {r['count']}], "
+                  f"coordinate sums {gap:.3g} apart (relative), channel sums {ch_gap:.3g}"
+                  + (f", {got['with_normal']} rows with a normal [JAX {r['with_normal']}]"
+                     if "with_normal" in r else ""))
+        check(ok, f"filter pipeline: layer {name} differs from the JAX package's")
+    # a voxel's rows are summed one by one in sorted order
+    # (segment_sums_in_order), so the card's means equal the CPU's bit for bit
+    avg = next(f for f in filters if getattr(f, "output_pointcloud_layer", None)
+               == "dec_average")
+    near_cpu = PointCloud(**{f.name: None if getattr(out["near"], f.name) is None
+                             else getattr(out["near"], f.name).cpu()
+                             for f in dataclasses.fields(PointCloud)})
+    avg_cpu = avg({"near": near_cpu})["dec_average"]
+    check(torch.equal(out["dec_average"].xyz.cpu(), avg_cpu.xyz),
+          "filter pipeline: the card's VoxelAverage means differ from the CPU's")
+    print(f"[yaml] filter pipeline dec_average: the card's {int(avg_cpu.count)} voxel means "
+          f"equal the same filter's on the CPU bit for bit")
+    print(f"[yaml] filter pipeline of {len(filters)} filters on one street frame "
+          f"({int(frame['raw'].count)} returns): {wall * 1e3:.1f} ms warm, 1 K1 launch "
+          f"(k=8, {out['dec_first'].capacity} queries), on {smi}")
 
 
 def main():
@@ -1192,6 +1794,19 @@ def main():
     for k in (4, 5):
         errs["knn_sweep"].append(compare(f"K1 {PLANAR_RAYS}x{PLANAR_RAYS} k={k} (2D demo)",
                                          nnb.knn_sweep, nnb.knn_plain, q2d, p2d, k))
+    # the YAML phase's new shapes: the 2D demo's generator layers (capacity
+    # 1024), and the filter pipeline's normals fit (a decimated layer of
+    # capacity 2^16 against itself)
+    q1k, p1k = (sentinel_padded(generated_2d_layer(r), far)
+                for r, far in zip(planar_range_pairs(n_pairs=1)[0][1::-1], (1.0e8, -1.0e8)))
+    for k in (1, 5):
+        errs["knn_sweep"].append(compare(f"K1 {q1k.shape[0]}x{p1k.shape[0]} k={k} (2D YAML)",
+                                         nnb.knn_sweep, nnb.knn_plain, q1k, p1k, k))
+    dec = yaml_pipeline_input_layer(scans_o[0])
+    q64k, p64k = sentinel_padded(dec, 1.0e8), sentinel_padded(dec, -1.0e8)
+    errs["knn_sweep"].append(compare(f"K1 {q64k.shape[0]}x{p64k.shape[0]} k=8 (YAML pipeline "
+                                     f"normals, {int(dec.count)} valid)", nnb.knn_sweep,
+                                     nnb.knn_plain, q64k, p64k, 8))
     res_gpu = nnb.knn_bruteforce(qr.to(dev), qv.to(dev), pr.to(dev), pv.to(dev), k=4,
                                  max_radius_sq=rad.to(dev))
     res_cpu = nnb.knn_bruteforce(qr, qv, pr, pv, k=4, max_radius_sq=rad)
@@ -1348,31 +1963,42 @@ def main():
         ("knn_sweep_batched", "fleet normals fit", BATCH, 2048, 22528, 8,
          lambda: nnb.knn_sweep_batched(fleet_fq, fleet_fp, 8),
          lambda: nnb.knn_plain_batched(fleet_fq, fleet_fp, 8)),
+        ("knn_sweep", "2D YAML, Point2Line (a generator's layer)", 1, 1024, 1024, 5,
+         lambda: nnb.knn_sweep(q1k, p1k, 5), lambda: nnb.knn_plain(q1k, p1k, 5)),
+        ("knn_sweep", "2D YAML, DistanceThreshold", 1, 1024, 1024, 1,
+         lambda: nnb.knn_sweep(q1k, p1k, 1), lambda: nnb.knn_plain(q1k, p1k, 1)),
+        ("knn_sweep", "YAML filter pipeline, normals", 1, 1 << 16, 1 << 16, 8,
+         lambda: nnb.knn_sweep(q64k, p64k, 8), lambda: nnb.knn_plain(q64k, p64k, 8)),
     ]
+    # the operands of each row, for its library call
+    operands = [(q, p), (q, p), (q2d, p2d), (q2d, p2d), (q2d, p2d), (odo_q, odo_p),
+                (fit_q, fit_p), (odo_q, odo_q), (scan_q, map_64k), (scan_q, map_p),
+                (scan_q, map_p), (scan_q, map_p), (scans_b, maps_b), (scans_b, map_64k),
+                (scans_b[:2], maps_b[:2]), (fleet_q, fleet_p), (fleet_fq, fleet_fp), (q1k, p1k),
+                (q1k, p1k), (q64k, p64k)]
+    check(len(operands) == len(timed), "a timed row without its operands")
     graph_times = [[] for _ in timed]
     for _ in range(2):  # two turns over all shapes
         for at, case in enumerate(timed):
             graph_times[at] += graph_ms(case[6])
     shapes = {name: [] for name in KERNELS}
-    for (name, label, B, Q, C, k, run, plain), g_times in zip(timed, graph_times):
-        bnd, by = bound_ms(B, Q, C, k)
+    for (name, label, B, Q, C, k, run, plain), g_times, (lq, lp) in zip(timed, graph_times,
+                                                                         operands):
+        bnd, by = data_bound_ms(lq, lp, k)
+        swept, _ = bound_ms(B, Q, C, k)
         ms = statistics.median(g_times)
         row = {"shape": f"{B}x{Q}x{C}", "k": k, "what": label, "ms": ms,
                "call_ms": cuda_ms(run), "bound_ms": bnd, "bound_by": by,
-               "share_of_bound": bnd / ms,
+               "share_of_bound": bnd / ms, "swept_bound_ms": swept,
                "plain_ms": cuda_ms(plain, reps=3, warmup=1) if plain else None,
-               "library_ms": None}
-        if label == "scan to scan":
-            # for information: two PyTorch calls, a Q x C temporary, another tie order
-            row["library_ms"] = cuda_ms(
-                lambda: torch.cdist(q, p).topk(1, dim=1, largest=False), reps=10)
+               "library_ms": library_ms(lq, lp, k)}
         shapes[name].append(row)
         print(f"[time] {name} {label} {B}x{Q}x{C} k={k}: {ms:.4f} ms per launch in a CUDA "
               f"graph, {row['call_ms']:.4f} ms for one call between events; bound {bnd:.4f} ms "
-              f"({by}), share {bnd / ms:.1%}; plain "
-              f"{'%.4f ms' % row['plain_ms'] if plain else 'not timed'}; library "
-              f"{'cdist + topk %.4f ms' % row['library_ms'] if row['library_ms'] else 'none'} "
-              f"on {smi}")
+              f"({by}, the valid rows), share {bnd / ms:.1%}; over every row swept "
+              f"{swept:.4f} ms, share {swept / ms:.1%}; plain "
+              f"{'%.4f ms' % row['plain_ms'] if plain else 'not timed'}; library cdist + topk "
+              f"{row['library_ms']:.4f} ms in a CUDA graph on {smi}")
 
     def eight_k1():
         for b in range(BATCH):
@@ -1602,12 +2228,23 @@ def main():
 
     phase_done("fleet")
     # ---- 9. the rest of the engine
-    _, engine_runs = engine_phase(smi, kind, launches, by_path)
+    _, engine_runs, engine_planar = engine_phase(smi, kind, launches, by_path)
 
     phase_done("engine")
-    # ---- 10. profile (optional)
+    # ---- 10. map building from keyframes, the sm2mm demo
+    global SM2MM_JAX, YAML_JAX
+    reference = json.loads(SM2MM_REFERENCE.read_text())
+    SM2MM_JAX, YAML_JAX = reference["sm2mm"], reference["yaml"]
+    tables = []
+    sm2mm_phase(smi, kind, launches, by_path, gt_o, twists_o, scans_o, tables)
+
+    phase_done("sm2mm")
+    # ---- 11. the YAML pipelines
+    yaml_phase(smi, kind, launches, by_path, scene, scans_o, engine_planar)
+
+    phase_done("yaml")
+    # ---- 12. profile (optional)
     if args.profile:
-        tables = []
         profile_align(icp, loc, glob, params, smi, tables)
         gmap_2m, params_2m = maps["2M"]
         profile_window("scan to the 2M map (K3)", lambda: float(micp.align(
@@ -1624,7 +2261,7 @@ def main():
         (out / "profile_tables.txt").write_text("\n\n".join(tables))
 
     phase_done("profile")
-    # ---- 11. results
+    # ---- 13. results
     # a kernel's own line is its first shape (the one its path gives it)
     print(json.dumps({"kernels": [{
         "name": name,

@@ -9,6 +9,7 @@ import jax, and both packages can be fed the same problem.
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import numpy as np
 import torch
@@ -25,6 +26,26 @@ from mp2p_icp_tpu_torch.core.params import Expression
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.core.se3 import Pose
 from mp2p_icp_tpu_torch.device import resolve
+from mp2p_icp_tpu_torch.filters.adjust_timestamps import FilterAdjustTimestamps
+from mp2p_icp_tpu_torch.filters.bounding_box import FilterBoundingBox
+from mp2p_icp_tpu_torch.filters.by_intensity import FilterByIntensity, FilterNormalizeIntensity
+from mp2p_icp_tpu_torch.filters.by_range import FilterByRange
+from mp2p_icp_tpu_torch.filters.by_ring import FilterByRing
+from mp2p_icp_tpu_torch.filters.decimate_variants import (
+    FilterDecimateAdaptive,
+    FilterDecimateVoxelsQuadratic,
+)
+from mp2p_icp_tpu_torch.filters.decimate_voxels import FilterDecimateVoxels
+from mp2p_icp_tpu_torch.filters.delete_layer import FilterDeleteLayer
+from mp2p_icp_tpu_torch.filters.deskew import FilterDeskew
+from mp2p_icp_tpu_torch.filters.estimate_normals import FilterEstimateNormals
+from mp2p_icp_tpu_torch.filters.generator import Generator
+from mp2p_icp_tpu_torch.filters.merge import FilterMerge
+from mp2p_icp_tpu_torch.filters.voxel_filters import (
+    FilterRemoveByVoxelOccupancy,
+    FilterVoxelSlice,
+    GeneratorVoxelMap,
+)
 from mp2p_icp_tpu_torch.icp import ICP, ICPParameters
 from mp2p_icp_tpu_torch.matchers import (
     LayerMatch,
@@ -278,6 +299,40 @@ def quality_from_config(name: str, cfg: dict):
             "MatcherPointsDistanceThreshold", cfg["matcher"]
         )
     return QualityPairedRatio(**cfg)
+
+
+# the filters of the port by class name, and their enum fields
+_FILTERS = {cls.__name__: cls for cls in (
+    FilterAdjustTimestamps, FilterBoundingBox, FilterByIntensity, FilterByRange, FilterByRing,
+    FilterDecimateAdaptive, FilterDecimateVoxels, FilterDecimateVoxelsQuadratic,
+    FilterDeleteLayer, FilterDeskew, FilterEstimateNormals, FilterMerge,
+    FilterNormalizeIntensity, FilterRemoveByVoxelOccupancy, FilterVoxelSlice, Generator,
+    GeneratorVoxelMap)}
+# modules of the JAX package's filter library that the port has not yet
+# (ROADMAP A.5b)
+UNPORTED_FILTERS = ("FilterCurvature", "FilterEdgesPlanes", "FilterPoleDetector",
+                    "GeneratorEdgesFromCurvature", "GeneratorEdgesFromRangeImage")
+
+
+def filter_from_config(name: str, cfg: dict):
+    """A port filter (or Generator) from a filter's class name and its
+    fields, e.g. ``dataclasses.asdict`` of the JAX package's: enum members
+    by their value (or name string), lists as tuples."""
+    if name in UNPORTED_FILTERS:
+        raise NotImplementedError(
+            f"filter {name} is not ported yet (ROADMAP A.5b: curvature, edge generators, "
+            "edges and planes, pole detector)")
+    if name not in _FILTERS:
+        raise ValueError(f"unknown filter class {name}")
+    cls = _FILTERS[name]
+    out = {}
+    for k, v in cfg.items():
+        default = cls.__dataclass_fields__[k].default
+        if isinstance(default, enum.Enum):  # a member of the JAX enum, its value or its name
+            v = next((m for m in type(default) if m.value == getattr(v, "value", v)), None) \
+                or type(default).from_string(v)
+        out[k] = tuple(v) if isinstance(v, list) else v
+    return cls(**out)
 
 
 def params_from_config(cfg: dict) -> ICPParameters:

@@ -278,7 +278,7 @@ def render_spinning_scan(
     }
 
 
-def render_planar_scan(
+def render_planar_ranges(
     scene: Scene,
     x: float,
     y: float,
@@ -289,12 +289,13 @@ def render_planar_scan(
     max_range: float = 30.0,
     range_noise: float = 0.01,
     height: float = 1.0,
-) -> np.ndarray:
+):
     """One sweep of a planar scanner at (x, y, ``height``) heading ``yaw``
     (rad): ``n_rays`` rays evenly over ``fov_deg`` centred on the heading
     (the Hokuyo UTM-30LX layout by default: 1081 rays over 270°, 0.25°
-    apart, 30 m), Gaussian range noise. Returns the [M, 3] float32 returns
-    within range in the sensor frame (z = 0), in firing order."""
+    apart, 30 m), Gaussian range noise. Returns (ranges [n_rays] float64
+    with 0 where a ray has no return within range, bearings [n_rays] rad),
+    the fields of a 2D range scan."""
     a = np.deg2rad(np.linspace(-fov_deg / 2.0, fov_deg / 2.0, n_rays))
     dirs = np.stack([np.cos(yaw + a), np.sin(yaw + a), np.zeros_like(a)], axis=-1)
     origins = np.broadcast_to(np.array([x, y, height], np.float64), dirs.shape)
@@ -302,8 +303,21 @@ def render_planar_scan(
         r, sid = scene.ray_cast(origins, dirs)
     r = r + range_noise * rng.randn(n_rays)
     hit = (sid >= 0) & (r > 0.1) & (r < max_range)
-    return np.stack([r * np.cos(a), r * np.sin(a), np.zeros_like(r)], axis=-1)[hit].astype(
+    return np.where(hit, r, 0.0), a
+
+
+def planar_points(ranges: np.ndarray, bearings: np.ndarray) -> np.ndarray:
+    """The returns (range > 0) of a planar scan as [M, 3] float32 points in
+    the sensor frame (z = 0), in firing order."""
+    r, a = ranges, bearings
+    return np.stack([r * np.cos(a), r * np.sin(a), np.zeros_like(r)], axis=-1)[r > 0].astype(
         np.float32)
+
+
+def render_planar_scan(scene: Scene, x: float, y: float, yaw: float,
+                       rng: np.random.RandomState, **kwargs) -> np.ndarray:
+    """``render_planar_ranges`` (same arguments) as ``planar_points``."""
+    return planar_points(*render_planar_ranges(scene, x, y, yaw, rng, **kwargs))
 
 
 def scan_to_pointcloud(scan: dict, capacity=None, device=None):

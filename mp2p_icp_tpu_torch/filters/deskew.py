@@ -5,10 +5,18 @@ Port of ``mp2p_icp_tpu/filters/deskew.py`` (reference: FilterDeskew.cpp:
 A point at relative time t moves by exp(t * [vx vy vz wx wy wz]); the
 correction brings every point to the reference timestamp (t = 0).
 
-Ported: the constant-twist model, as the closed-form fixed-axis Rodrigues
-rotation (the axis is the same for all points; only the angle t*|w| varies).
-The precise mode (a trajectory of the local velocity buffer) raises
-``NotImplementedError``.
+The constant-twist model is the closed-form fixed-axis Rodrigues rotation
+(the axis is the same for all points; only the angle t*|w| varies). The
+precise mode (reference: use_precise_local_velocities,
+FilterDeskew.cpp:162-240) takes the rotation from the trajectory that the
+local velocity buffer reconstructs, interpolated at each point's time, and
+the translation from the constant velocity, v*t, as the JAX package does
+(its comment states the deviation from the reference). The trajectory
+arrives in the variables ``trajectory_times`` [T] (seconds relative to
+the scan's reference time) and ``trajectory_tangents`` [T, 6] (pose(t) =
+exp(tangent)); it goes to the layer's device once per call. Without it
+the precise mode falls back to the constant twist (reference:
+FilterDeskew.cpp:178-184).
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.filters.base import FilterBase
 
@@ -35,8 +44,7 @@ class FilterDeskew(FilterBase):
     # skip deskew entirely (reference: silently_ignore_no_timestamps)
     silently_ignore_no_timestamps: bool = False
     # precise mode (reference: use_precise_local_velocities); its legacy
-    # alias is method == "trajectory". Not ported: raises when its
-    # trajectory variables are given.
+    # alias is method == "trajectory"
     use_precise_local_velocities: bool = False
     method: str = "constant_twist"  # or "trajectory"
 
@@ -51,15 +59,8 @@ class FilterDeskew(FilterBase):
                 f"FilterDeskew: layer '{self.input_pointcloud_layer}' has no "
                 "per-point timestamps"
             )
-        if (
-            (self.use_precise_local_velocities or self.method == "trajectory")
-            and variables is not None
-            and "trajectory_times" in variables
-        ):
-            raise NotImplementedError(
-                "FilterDeskew: the precise (trajectory) mode is not ported yet"
-            )
-
+        use_traj = ((self.use_precise_local_velocities or self.method == "trajectory")
+                    and variables is not None and "trajectory_times" in variables)
         tw = list(self.twist)
         if variables:
             tw = [variables.get(n, d) for n, d in zip(_TWIST_NAMES, tw)]
@@ -68,6 +69,11 @@ class FilterDeskew(FilterBase):
         twist = torch.stack(torch.broadcast_tensors(*[
             torch.as_tensor(x, dtype=torch.float32, device=pc.device) for x in tw
         ]), dim=-1)
+        if use_traj:
+            new_xyz = self._along_trajectory(pc, twist, variables)
+            out = dict(layers)
+            out[self.output_pointcloud_layer] = dataclasses.replace(pc, xyz=new_xyz)
+            return out
         v, w = twist[..., :3], twist[..., 3:]
         theta = torch.sqrt(torch.sum(w * w, dim=-1) + 1e-30)[..., None]  # [..., 1]
         n = w / theta
@@ -98,3 +104,23 @@ class FilterDeskew(FilterBase):
         out = dict(layers)
         out[self.output_pointcloud_layer] = dataclasses.replace(pc, xyz=new_xyz)
         return out
+
+    @staticmethod
+    def _along_trajectory(pc: PointCloud, twist: torch.Tensor, variables) -> torch.Tensor:
+        """The precise mode on one cloud: the tangents interpolated linearly
+        at each point's time, their rotation, and v*t."""
+        if pc.xyz.ndim != 2:
+            raise NotImplementedError("FilterDeskew: the precise mode of a batch of clouds")
+        times = torch.as_tensor(variables["trajectory_times"], dtype=torch.float32,
+                                device=pc.device)
+        tang = torch.as_tensor(variables["trajectory_tangents"], dtype=torch.float32,
+                               device=pc.device)
+        T = times.shape[0]
+        i1 = torch.clamp(torch.searchsorted(times, pc.time), 1, T - 1)
+        i0 = i1 - 1
+        t0, t1 = times[i0], times[i1]
+        a = torch.clamp((pc.time - t0) / torch.clamp(t1 - t0, min=1e-9), 0.0, 1.0)
+        tangents = tang[i0] * (1 - a)[:, None] + tang[i1] * a[:, None]
+        R = se3.exp(tangents).R
+        new_xyz = se3.matmul3(R, pc.xyz[:, :, None])[:, :, 0] + pc.time[:, None] * twist[None, :3]
+        return torch.where(pc.valid_mask()[:, None], new_xyz, pc.xyz)

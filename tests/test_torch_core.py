@@ -254,7 +254,15 @@ def test_package_does_not_import_jax():
         "mp2p_icp_tpu_torch.io.icplog, mp2p_icp_tpu_torch.io.debug_dump, "
         "mp2p_icp_tpu_torch.solvers.olae, mp2p_icp_tpu_torch.matchers.inlier_ratio, "
         "mp2p_icp_tpu_torch.matchers.point2line, mp2p_icp_tpu_torch.ops.voxel_occupancy, "
-        "mp2p_icp_tpu_torch.quality.voxels, mp2p_icp_tpu_torch.quality.range_image; "
+        "mp2p_icp_tpu_torch.quality.voxels, mp2p_icp_tpu_torch.quality.range_image, "
+        "mp2p_icp_tpu_torch.pipeline, mp2p_icp_tpu_torch.pipeline.yaml_loader, "
+        "mp2p_icp_tpu_torch.pipeline.plugins, mp2p_icp_tpu_torch.core.velocity_buffer, "
+        "mp2p_icp_tpu_torch.filters.common, mp2p_icp_tpu_torch.filters.by_range, "
+        "mp2p_icp_tpu_torch.filters.bounding_box, mp2p_icp_tpu_torch.filters.by_ring, "
+        "mp2p_icp_tpu_torch.filters.by_intensity, mp2p_icp_tpu_torch.filters.adjust_timestamps, "
+        "mp2p_icp_tpu_torch.filters.delete_layer, mp2p_icp_tpu_torch.filters.decimate_variants, "
+        "mp2p_icp_tpu_torch.filters.estimate_normals, mp2p_icp_tpu_torch.filters.voxel_filters, "
+        "mp2p_icp_tpu_torch.filters.generator, mp2p_icp_tpu_torch.filters.sm2mm; "
         "assert 'jax' not in sys.modules, 'jax was imported'; "
         "assert 'mp2p_icp_tpu' not in sys.modules, 'the JAX package was imported'"
     )
