@@ -105,7 +105,27 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    JAX CPU reference and K1's launches to the matcher calls; one street
    frame through a YAML pipeline of every ported filter (K1 65536² k=8 for
    the normals), each output layer held to the reference;
-12. with --profile only: where the time goes, by torch.profiler over 2
+12. the command-line entry points (mp2p_icp_tpu_torch/apps) on a KITTI-format
+   sequence: 40 frames of the street drive at HDL-64E geometry (64 rings x
+   2048 azimuths, 131072 rays a scan) written as 16-byte .bin rows and
+   gt.txt under chiprun_out/apps/; kitti_odometry.main sequentially
+   (demos/icp-settings-kitti.yaml, constant-velocity guess; K1), with
+   -B 8 (make_batched_align; K2) and with --mapping --map-capacity 2^18
+   --out-map (OdometryMapper against the map cropped to 131072 rows; K1):
+   ATE, RPE, iterations and ms per frame beside the JAX CPU reference
+   (scripts/torch_apps_reference.json), ATE within max(1.5x, +0.01 m) of
+   it, the mode's kernel launched once per matcher call and no other;
+   the new K1 and K2 shapes (the decimated layer keeps the raw capacity)
+   held to their plain versions and timed; icp_run.main on frames 1 and 0
+   from .xyz.gz and from MRPT binary .mm files (pose within 5e-3 of the
+   JAX CPU reference, same termination, iterations +-1, the --out-log
+   file loads); mm_filter.main with the five structured filters and a
+   ClosestToAverage decimation on frame 0 (.mm.npz with its ring and time
+   channels), each output layer's count and sums held to the reference,
+   FilterEdgesPlanes' rows on threshold voxels counted and allowed to
+   differ; sm2mm_app.main on phase 10's pass-1 simple map saved to disk
+   (map counts equal phase 10's) and sm_cli info and cut on that file;
+13. with --profile only: where the time goes, by torch.profiler over 2
    warm calls (device busy share, launches, the kNN kernels' time) of a
    scan-to-scan align, a scan to the 2M map and the batched call, then
    per-section host times of a scan-to-scan align with a sync around each
@@ -115,7 +135,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    each stage; the same for one warm fleet run; then 2 warm aligns of each
    engine cell and the sections of a 3D engine align with a sync around
    each; the profiler's tables go to chiprun_out/profile_tables.txt;
-13. one JSON line with the kernels' numbers (each shape's time, bound,
+14. one JSON line with the kernels' numbers (each shape's time, bound,
    plain version and library call, torch.cdist + topk in a CUDA graph),
    then the last line {"ok": true, "device": {...}}.
 
@@ -130,14 +150,20 @@ The JAX CPU reference values are constants here;
 scripts/torch_odometry_reference.py produces the odometry run's and, with
 --fleet, the fleet's; scripts/torch_engine_reference.py the engine
 phase's; scripts/torch_sm2mm_reference.py writes the sm2mm and YAML
-phases' to scripts/torch_sm2mm_reference.json, which this script reads.
+phases' to scripts/torch_sm2mm_reference.json and
+scripts/torch_apps_reference.py the apps phase's to
+scripts/torch_apps_reference.json, which this script reads.
 """
 
 import argparse
+import base64
+import contextlib
 import dataclasses
+import io
 import json
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -379,6 +405,59 @@ EXAMPLE1_GT = (0.004, -0.003, 0.001, 0.005, -0.002, 0.003)
 SM2MM_REFERENCE = REPO / "scripts" / "torch_sm2mm_reference.json"
 SM2MM_JAX = None
 YAML_JAX = None
+# the apps phase: a KITTI-format sequence of APPS_FRAMES frames of the street
+# drive at HDL-64E geometry (64 rings x 2048 azimuths, 131072 rays a scan,
+# 16-byte .bin rows) through the port's command-line entry points
+APPS_FRAMES = 40
+APPS_RINGS, APPS_AZIMUTHS = 64, 2048
+APPS_BATCH = 8  # kitti-odometry -B
+APPS_MAP_CAPACITY = 1 << 18  # kitti-odometry --mapping --map-capacity
+APPS_DIR = REPO / "chiprun_out" / "apps"
+KITTI_YAML = DEMOS / "icp-settings-kitti.yaml"
+# FilterEdgesPlanes classifies by ratios of eigenvalues, and the closed-form
+# eigh3x3 of the two packages (and of the card and the CPU) differ by up to
+# ~7e-5 of the largest eigenvalue where two eigenvalues nearly coincide
+# (tests/test_torch_structured_filters.py): a voxel within EIGEN_BAND * l2 of
+# a threshold may fall on either side, and only those voxels may differ
+EIGEN_BAND = 1e-4
+# mm-filter's pipeline: the five structured filters and a ClosestToAverage
+# decimation, on frame 0 of the sequence ("raw" with intensity, ring, time)
+STRUCTURED_YAML = """
+filters:
+  - class_name: mp2p_icp_filters::FilterCurvature
+    params: {input_pointcloud_layer: raw, output_layer_larger_curvature: curv_larger,
+             output_layer_smaller_curvature: curv_smaller, output_layer_other: curv_other}
+  - class_name: mp2p_icp_filters::GeneratorEdgesFromCurvature
+    params: {input_pointcloud_layer: raw, target_layer: edges_curvature}
+  - class_name: mp2p_icp_filters::GeneratorEdgesFromRangeImage
+    params: {input_pointcloud_layer: raw, target_layer: edges_range}
+  - class_name: mp2p_icp_filters::FilterPoleDetector
+    params: {input_pointcloud_layer: raw, output_layer_poles: poles,
+             output_layer_no_poles: no_poles, grid_size: 1.0, minimum_relative_height: 1.0}
+  - class_name: mp2p_icp_filters::FilterEdgesPlanes
+    params: {input_pointcloud_layer: raw, voxel_filter_resolution: 0.5}
+  - class_name: mp2p_icp_filters::FilterDecimateVoxels
+    params: {input_pointcloud_layer: raw, output_pointcloud_layer: dec_closest,
+             voxel_filter_resolution: 0.5, decimate_method: DecimateMethod::ClosestToAverage}
+"""
+# kitti-odometry's second configuration: icp-settings-kitti.yaml with the
+# ground cropped away ahead of its decimation (the returns above
+# GROUND_CROP_Z in the sensor frame, FirstPoint at CROPPED_RESOLUTION). The
+# demo YAML does not track the street drive (ROADMAP C); this one does, so
+# its runs hold the scan-to-scan and scan-to-map paths to the JAX package's
+# poses pair by pair
+GROUND_CROP_Z = -1.2
+CROPPED_RESOLUTION = 1.0
+# the frames the constant-velocity guess of a run from rest takes to catch
+# up with the drive's 1 m a frame: tracking is judged on the frames after
+WARM_FRAMES = 4
+# the layers FilterEdgesPlanes writes (their rows may differ on threshold voxels)
+EDGES_PLANES_LAYERS = ("edge_points", "plane_points", "plane_centroids")
+# the JAX package's results on the CPU for the apps phase: the file that
+# `JAX_PLATFORMS=cpu python3 scripts/torch_apps_reference.py --write
+# scripts/torch_apps_reference.json` writes; main() reads it into APPS_JAX
+APPS_REFERENCE = REPO / "scripts" / "torch_apps_reference.json"
+APPS_JAX = None
 
 
 def check(ok, what):
@@ -678,6 +757,282 @@ def layer_summary(layer):
     return out
 
 
+def mm_filter_summary(mm):
+    """``layer_summary`` of each point layer of a map (either package's),
+    and its planes' count with float64 sums of the centroids and |normal|."""
+    out = {name: layer_summary(arrays) for name, arrays in layers_numpy(mm.layers).items()}
+    n = int(mm.planes.count)
+    cent, normal = (np.asarray(x.cpu() if hasattr(x, "cpu") else x)[:n].astype(np.float64)
+                    for x in (mm.planes.centroid, mm.planes.normal))
+    out["planes"] = {"count": n, "centroid_sum": cent.sum(0).tolist(),
+                     "centroid_abs_sum": np.abs(cent).sum(0).tolist(),
+                     "normal_abs_sum": np.abs(normal).sum(0).tolist()}
+    return out
+
+
+def input_rows(raw_xyz, layer_xyz):
+    """[N] bool over the rows of ``raw_xyz`` [N, 3]: the rows of
+    ``layer_xyz`` [M, 3], which a compacting filter took from them in input
+    order (float32 copies)."""
+    def as_bytes(a):
+        a = np.ascontiguousarray(a, np.float32)
+        return a.view(np.dtype((np.void, 12))).ravel()
+
+    raw, sub = as_bytes(raw_xyz), as_bytes(layer_xyz)
+    mask = np.zeros(len(raw), bool)
+    j = 0
+    for i in range(len(raw)):
+        if j < len(sub) and raw[i] == sub[j]:
+            mask[i] = True
+            j += 1
+    check(j == len(sub), f"{len(sub) - j} of {len(sub)} layer rows are not input rows in order")
+    return mask
+
+
+def edges_planes_record(mm, raw_xyz):
+    """FilterEdgesPlanes' output in a map (either package's), row for row,
+    as base64 text: the input rows of "edge_points" and "plane_points" as
+    bit masks over ``raw_xyz`` [N, 3], and the planes' centroids and normals
+    as float32 bytes. ``unpack_record`` reads it back."""
+    ly = layers_numpy(mm.layers)
+    out = {}
+    for name in ("edge_points", "plane_points"):
+        n = int(ly[name]["count"])
+        out[name] = base64.b64encode(np.packbits(input_rows(raw_xyz, ly[name]["xyz"][:n]))
+                                     ).decode()
+    n = int(mm.planes.count)
+    for key in ("centroid", "normal"):
+        x = getattr(mm.planes, key)
+        x = np.asarray(x.cpu() if hasattr(x, "cpu") else x)[:n]
+        out[f"plane_{key}"] = base64.b64encode(x.astype(np.float32).tobytes()).decode()
+    return out
+
+
+def unpack_record(rec, n_raw):
+    """``edges_planes_record``'s text as arrays: [n_raw] bool masks and
+    [P, 3] float32 rows."""
+    def raw_bytes(k):
+        return np.frombuffer(base64.b64decode(rec[k]), np.uint8)
+
+    out = {k: np.unpackbits(raw_bytes(k))[:n_raw].astype(bool)
+           for k in ("edge_points", "plane_points")}
+    out.update({k: raw_bytes(k).view(np.float32).reshape(-1, 3)
+                for k in ("plane_centroid", "plane_normal")})
+    return out
+
+
+def write_apps_sequence(out_dir, n_frames=APPS_FRAMES, n_rings=APPS_RINGS,
+                        n_azimuth=APPS_AZIMUTHS):
+    """The apps phase's KITTI-format sequence, numpy only: the street drive
+    (``make_street_sequence``) as ``out_dir/velodyne/%06d.bin`` (the returns
+    of each scan, float32 x y z intensity) and ``out_dir/gt.txt`` (the true
+    poses relative to frame 0, KITTI format). Returns (velodyne dir, gt
+    path, scans)."""
+    from mp2p_icp_tpu_torch.eval.trajectory import save_kitti_poses
+
+    gt, _, scans = make_street_sequence(n_frames, n_rings=n_rings, n_azimuth=n_azimuth)
+    out_dir = pathlib.Path(out_dir)
+    bin_dir = out_dir / "velodyne"
+    bin_dir.mkdir(parents=True, exist_ok=True)
+    for i, sc in enumerate(scans):
+        v = sc["valid"]
+        rows = np.concatenate([sc["xyz"][v], sc["intensity"][v][:, None]], axis=1)
+        rows.astype(np.float32).tofile(bin_dir / f"{i:06d}.bin")
+    save_kitti_poses(out_dir / "gt.txt", np.linalg.inv(gt[0]) @ gt)
+    return bin_dir, out_dir / "gt.txt", scans
+
+
+def ground_cropped_yaml():
+    """icp-settings-kitti.yaml with a FilterBoundingBox ahead of its
+    decimation that keeps the returns above GROUND_CROP_Z (sensor frame),
+    decimated at CROPPED_RESOLUTION: YAML text."""
+    cfg = yaml.safe_load(KITTI_YAML.read_text())
+    cfg["filters"][0]["params"].update(input_pointcloud_layer="above",
+                                       voxel_filter_resolution=CROPPED_RESOLUTION)
+    cfg["filters"].insert(0, {"class_name": "mp2p_icp_filters::FilterBoundingBox", "params": {
+        "input_pointcloud_layer": "raw", "inside_pointcloud_layer": "above",
+        "bounding_box_min": [-1.0e3, -1.0e3, GROUND_CROP_Z],
+        "bounding_box_max": [1.0e3, 1.0e3, 1.0e3]}})
+    return yaml.safe_dump(cfg, sort_keys=False)
+
+
+def write_app_inputs(out_dir, scans):
+    """The files icp-run and mm-filter read, written by the port's writers
+    on the CPU: frames 0 and 1 as .xyz.gz and as MRPT binary .mm (their
+    returns with intensity, ring and time: CPointsMapXYZIRT), frame 0 as
+    .mm.npz, mm-filter's YAML and ``ground_cropped_yaml``. Returns {name:
+    path}."""
+    from mp2p_icp_tpu_torch.core.metric_map import MetricMap
+    from mp2p_icp_tpu_torch.io.mm import save_mm_file
+    from mp2p_icp_tpu_torch.io.mrpt_mm import save_mrpt_mm
+    from mp2p_icp_tpu_torch.io.xyz import save_xyz_file
+
+    out_dir = pathlib.Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for i in (0, 1):
+        pc = scan_to_pointcloud(scans[i], device="cpu")
+        paths[f"xyz{i}"] = out_dir / f"frame{i}.xyz.gz"
+        paths[f"mm{i}"] = out_dir / f"frame{i}.mm"
+        save_xyz_file(paths[f"xyz{i}"], pc)
+        save_mrpt_mm(MetricMap(layers={"raw": pc}), paths[f"mm{i}"])
+        if i == 0:
+            paths["npz0"] = out_dir / "frame0.mm.npz"
+            save_mm_file(paths["npz0"], MetricMap(layers={"raw": pc}))
+    paths["filters"] = out_dir / "structured.yaml"
+    paths["filters"].write_text(STRUCTURED_YAML)
+    paths["cropped"] = out_dir / "icp-settings-kitti-cropped.yaml"
+    paths["cropped"].write_text(ground_cropped_yaml())
+    return {k: str(v) for k, v in paths.items()}
+
+
+def icp_run_printed(text):
+    """{"t", "quat" (wxyz), "iterations", "termination", "quality",
+    "pairings"} from icp-run's printed results (either package's)."""
+    def grab(key):
+        return re.search(rf"{key}\s*: (.*)", text).group(1).strip()
+
+    return {"t": json.loads(grab("translation")), "quat": json.loads(grab(r"quat \(wxyz\)")),
+            "iterations": int(grab("iterations")), "termination": grab("termination"),
+            "quality": float(grab("quality")), "pairings": int(grab("pairings"))}
+
+
+def kitti_odometry_printed(text):
+    """{"scans_per_s", "iterations" (total), "batch_iterations"} from
+    kitti-odometry's printed lines."""
+    out = {"scans_per_s": float(re.search(r"scans/s=([0-9.]+)", text).group(1)),
+           "iterations": int(re.search(r"ICP iterations: (\d+)", text).group(1))}
+    batches = re.search(r"the slowest pair of each batch: (\[.*\])", text)
+    out["batch_iterations"] = json.loads(batches.group(1)) if batches else []
+    return out
+
+
+def trajectory_errors(poses, gt):
+    """(ATE RMSE, RPE translation, RPE rotation) of [N, 4, 4] poses."""
+    from mp2p_icp_tpu_torch.eval.trajectory import rpe
+
+    rt, rr = rpe(poses, gt[: len(poses)])
+    return ate_rmse(poses, gt[: len(poses)]), float(rt), float(rr)
+
+
+def pair_gaps(a, b):
+    """[N-1] gaps between the relative poses of two [N, 4, 4] trajectories,
+    frame to frame: sqrt(|dt|^2 + angle^2) of inv(rel_b) rel_a."""
+    out = []
+    for i in range(1, len(a)):
+        d = np.linalg.inv(np.linalg.inv(b[i - 1]) @ b[i]) @ (np.linalg.inv(a[i - 1]) @ a[i])
+        angle = np.arccos(np.clip((np.trace(d[:3, :3]) - 1.0) / 2.0, -1.0, 1.0))
+        out.append(float(np.hypot(np.linalg.norm(d[:3, 3]), angle)))
+    return np.asarray(out)
+
+
+def kitti_rows_to_poses(rows):
+    """[N, 4, 4] of KITTI pose rows [N, 12]."""
+    poses = np.tile(np.eye(4), (len(rows), 1, 1))
+    poses[:, :3, :] = np.asarray(rows, np.float64).reshape(-1, 3, 4)
+    return poses
+
+
+def edges_planes_threshold_voxels(f, pc, band=EIGEN_BAND):
+    """The voxels of FilterEdgesPlanes ``f`` on cloud ``pc`` whose class
+    could flip under an eigenvalue error of ``band`` * l2 (a ratio test
+    e_a > c * e0 within (1 + c) * band * l2 of its threshold, e1 within
+    band * l2 of min_e1, or |n_z| within the normal's first-order error of
+    the 0.9 of the horizontal test). Returns (near [C] bool over the voxel
+    segments, well [C] bool: a voxel whose normal moves by < 1e-3 under
+    that error and does not face the sensor edge-on, count [C], the voxel
+    segments)."""
+    segs, cnt, mean, evals, n, _, _ = f.classify(pc)
+    e0, e1, e2 = evals[:, 0], evals[:, 1], evals[:, 2]
+    d = band * torch.abs(e2)
+    near = torch.abs(e1 - f.voxel_filter_min_e1) <= d
+    for ea, c in ((e2, f.voxel_filter_max_e2_e0), (e1, f.voxel_filter_max_e1_e0),
+                  (e2, f.voxel_filter_min_e2_e0), (e1, f.voxel_filter_min_e1_e0)):
+        near |= torch.abs(ea - c * e0) <= (1.0 + c) * d
+    sens = d / torch.clamp(e1 - e0, min=1e-30)
+    u = mean / torch.clamp(torch.linalg.vector_norm(mean, dim=1, keepdim=True), min=1e-9)
+    facing = torch.abs(torch.sum(u * n, dim=1))
+    near |= torch.abs(torch.abs(n[:, 2]) - 0.9) <= sens + 1e-6
+    well = (sens < 1e-3) & (facing > 1e-2)
+    return near & (cnt >= f.min_points_per_voxel), well, cnt, segs
+
+
+def voxel_rows(segs, voxels):
+    """[C] bool in input order: the rows of the voxel segments ``voxels``."""
+    rows = segs.valid & voxels[segs.segment_id]
+    return torch.zeros_like(rows).scatter(0, segs.order, rows)
+
+
+def held_edges_planes(f, raw, mm, want, where):
+    """Holds FilterEdgesPlanes ``f``'s output in the port's map ``mm`` (made
+    from the cloud ``raw``) to the JAX package's ``edges_planes_record``
+    ``want``, row for row: a row of "edge_points" or "plane_points", and a
+    plane, may differ only in a threshold voxel
+    (``edges_planes_threshold_voxels``); a plane both call a plane has its
+    centroid within 1e-5 of JAX's and its normal within 1e-4 where well
+    conditioned, else within its conditioning bound. Prints what differs.
+    Returns (threshold voxels, their rows)."""
+    near, well, cnt, segs = edges_planes_threshold_voxels(f, raw)
+    _, _, mean, evals, _, _, is_plane = f.classify(raw)
+    n_raw = int(raw.count)
+    xyz = raw.xyz[:n_raw].cpu().numpy()
+    near_rows = voxel_rows(segs, near)[:n_raw].cpu().numpy()
+    got, ref = (unpack_record(r, n_raw) for r in (edges_planes_record(mm, xyz), want))
+    for name in ("edge_points", "plane_points"):
+        differ = got[name] ^ ref[name]
+        print(f"[apps] mm-filter {name}: {int(got[name].sum())} rows "
+              f"[JAX {int(ref[name].sum())}], {int(differ.sum())} differ, all in threshold "
+              f"voxels: {not (differ & ~near_rows).any()}")
+        check(not (differ & ~near_rows).any(), f"{where}: {int((differ & ~near_rows).sum())} "
+              f"{name} rows off the threshold voxels differ from the JAX package's")
+    # the planes, in the order of the voxel segments the filter calls planes
+    dev = mean.device
+    plane_vox = torch.nonzero(is_plane).flatten()
+    tc, tn, jc, jn = (torch.from_numpy(np.array(a)).to(dev) for a in (
+        got["plane_centroid"], got["plane_normal"], ref["plane_centroid"], ref["plane_normal"]))
+    check(torch.equal(tc, mean[plane_vox]), f"{where}: the planes are not the classified voxels")
+    check(np.array_equal(layers_numpy(mm.layers)["plane_centroids"]["xyz"][: len(tc)],
+                         got["plane_centroid"]),
+          f"{where}: plane_centroids is not the planes' centroids")
+    d = torch.cdist(tc[None].double(), jc[None].double(), p=float("inf"))[0]
+    t_gap, t_to = d.min(dim=1)
+    j_gap = d.min(dim=0).values
+    t_off = t_gap > 1e-5
+    check(bool(near[plane_vox[t_off]].all()), f"{where}: a plane that JAX lacks is off the "
+          f"threshold voxels")
+    # a JAX plane the port lacks: the voxel whose mean it is must be a threshold voxel
+    enough = torch.nonzero(cnt >= f.min_points_per_voxel).flatten()
+    j_off = torch.nonzero(j_gap > 1e-5).flatten()
+    if len(j_off):
+        dv = torch.cdist(jc[j_off][None].double(), mean[enough][None].double(),
+                         p=float("inf"))[0]
+        gap_v, v = dv.min(dim=1)
+        check(bool((gap_v <= 1e-5).all()) and bool(near[enough[v]].all()),
+              f"{where}: a JAX plane that the port lacks is off the threshold voxels")
+    # normals: within 1e-4 where well conditioned; elsewhere, up to the
+    # sign, within the first-order error an eigenvalue error of
+    # EIGEN_BAND * l2 makes (EIGEN_BAND * l2 / (l1 - l0))
+    matched = torch.nonzero(~t_off).flatten()
+    v = plane_vox[matched]
+    a, b = tn[matched], jn[t_to[matched]]
+    gap = (a - b).abs().amax(dim=1)
+    gap_any_sign = torch.minimum(gap, (a + b).abs().amax(dim=1))
+    sens = EIGEN_BAND * evals[v, 2].abs() / torch.clamp(evals[v, 1] - evals[v, 0], min=1e-30)
+    well_m = well[v]
+    well_gap = float(gap[well_m].max()) if bool(well_m.any()) else 0.0
+    excess = float((gap_any_sign - 2.0 * sens).max()) if len(v) else 0.0
+    print(f"[apps] mm-filter planes: {len(tc)} [JAX {len(jc)}], {len(matched)} matched "
+          f"(centroids within {float(t_gap[matched].max()) if len(matched) else 0.0:.3g}), "
+          f"{int(t_off.sum())} only the port's and {len(j_off)} only JAX's, all in threshold "
+          f"voxels; normals: {int(well_m.sum())} well conditioned within {well_gap:.3g}, the "
+          f"other {int((~well_m).sum())} up to the sign within 1e-4 of twice their "
+          f"conditioning bound (largest excess {excess:.3g})")
+    check(well_gap <= 1e-4 and excess <= 1e-4,
+          f"{where}: plane normals {well_gap} (well conditioned) and {excess} beyond the "
+          f"conditioning bound from JAX's")
+    return int(near.sum()), int(cnt[near].sum())
+
+
 def example1_pair(scene, n=N_POINTS):
     """(local scan, global scan) numpy [n, 3] of the example1 demo."""
     g = sample_scan(scene, np.random.RandomState(2), n=n) / EXAMPLE1_SCALE
@@ -851,6 +1206,48 @@ def library_ms(q, p, k):
                                     calls=2 if big else GRAPH_LAUNCHES))
     torch.cuda.empty_cache()
     return ms
+
+
+def library_slabs_ms(q, p, k, slab=8192):
+    """Device ms of cdist + topk over query slabs of ``slab`` rows, one
+    slab after another between CUDA events (median of 3): the library
+    call where the whole [Q, C] distance matrix would not fit on the card."""
+    qs = q if q.ndim == 3 else q[None]
+    ps = p if p.ndim == 3 else p[None].expand(qs.shape[0], -1, -1)
+
+    def call():
+        for b in range(qs.shape[0]):
+            for s in range(0, qs.shape[1], slab):
+                torch.cdist(qs[b, s:s + slab], ps[b]).topk(k, dim=-1, largest=False)
+
+    ms = cuda_ms(call, reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    return ms
+
+
+def kernel_row(name, label, B, Q, C, k, run, plain, lq, lp, g_times, smi):
+    """A kernel's line of the results: its device time per launch in a
+    CUDA graph (the median of ``g_times``), one call between events, its
+    bound from the valid rows and over every row swept, its plain
+    version's time (None: not timed) and the library call's (in query
+    slabs where the [Q, C] matrix passes 2^32 entries); printed."""
+    bnd, by = data_bound_ms(lq, lp, k)
+    swept, _ = bound_ms(B, Q, C, k)
+    ms = statistics.median(g_times)
+    slabs = B * Q * C > 1 << 32
+    row = {"shape": f"{B}x{Q}x{C}", "k": k, "what": label, "ms": ms,
+           "call_ms": cuda_ms(run, reps=5 if slabs else 20), "bound_ms": bnd, "bound_by": by,
+           "share_of_bound": bnd / ms, "swept_bound_ms": swept,
+           "plain_ms": cuda_ms(plain, reps=3, warmup=1) if plain else None,
+           "library_ms": library_slabs_ms(lq, lp, k) if slabs else library_ms(lq, lp, k)}
+    print(f"[time] {name} {label} {B}x{Q}x{C} k={k}: {ms:.4f} ms per launch in a CUDA "
+          f"graph, {row['call_ms']:.4f} ms for one call between events; bound {bnd:.4f} ms "
+          f"({by}, the valid rows), share {bnd / ms:.1%}; over every row swept "
+          f"{swept:.4f} ms, share {swept / ms:.1%}; plain "
+          f"{'%.4f ms' % row['plain_ms'] if plain else 'not timed'}; library cdist + topk "
+          f"{row['library_ms']:.4f} ms "
+          f"{'over query slabs of 8192 rows' if slabs else 'in a CUDA graph'} on {smi}")
+    return row
 
 
 def work_bound_ms(pairs, queries, points, k):
@@ -1468,7 +1865,8 @@ def sm2mm_phase(smi, kind, launches, by_path, gt, twists, scans, tables):
     """Phase 10: the demo sm2mm YAML on the first SM2MM_KEYFRAMES frames of
     the street drive, pass 1 (constant twist from vx..wz) and pass 2 (the
     precise deskew from IMU samples and a comment's velocity buffer), each
-    held to SM2MM_JAX. Returns the seconds of a warm pass 1."""
+    held to SM2MM_JAX. Returns pass 1's {"simple_map", "summary" (of its
+    map), "raw_rows"} for the apps phase."""
     from mp2p_icp_tpu_torch.filters import apply_filter_pipeline
     from mp2p_icp_tpu_torch.filters.sm2mm import simplemap_to_metricmap
     from mp2p_icp_tpu_torch.ops.voxel_occupancy import lookup_occupancy
@@ -1564,11 +1962,11 @@ def sm2mm_phase(smi, kind, launches, by_path, gt, twists, scans, tables):
         last[label] = mm.layers["deskewed"]
         by_path["knn_sweep"][f"sm2mm {label}"] = 0
         if label == "pass 1":
-            warm_s = kf_s + final_s
+            pass1 = {"simple_map": sm, "summary": got, "raw_rows": n_raw}
     d = (last["pass 1"].xyz - last["pass 2"].xyz)[: int(last["pass 1"].count)].abs().max()
     print(f"[sm2mm] the last keyframe deskewed by the constant twist and by the trajectory: "
           f"rows {float(d):.3g} m apart at most (the IMU's rate is the twist's)")
-    return warm_s
+    return pass1
 
 
 def yaml_phase(smi, kind, launches, by_path, scene, scans, engine_planar):
@@ -1705,10 +2103,313 @@ def yaml_phase(smi, kind, launches, by_path, scene, scans, engine_planar):
           f"(k=8, {out['dec_first'].capacity} queries), on {smi}")
 
 
+def printed(fn, argv):
+    """(what ``fn(argv)`` prints, its host seconds); echoes the text."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fn([str(a) for a in argv])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"{fn.__module__}.main{tuple(argv)} returned {rc}")
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"    | {line}")
+    return text, seconds
+
+
+def pose_of_printed(r, device):
+    """The pose icp-run printed (translation, quaternion wxyz)."""
+    R = se3.quat_to_rot(torch.tensor(r["quat"], dtype=torch.float32, device=device))
+    return se3.Pose(R, torch.tensor(r["t"], dtype=torch.float32, device=device))
+
+
+def decimated_kitti(pc):
+    """The kitti YAML's "decimated" layer of a raw cloud (FirstPoint 2 m,
+    the raw capacity kept), as kitti-odometry and icp-run make it."""
+    from mp2p_icp_tpu_torch.filters import apply_filter_pipeline
+    from mp2p_icp_tpu_torch.pipeline import load_icp_config_file
+
+    filters = load_icp_config_file(KITTI_YAML)[2]["filters"]
+    return apply_filter_pipeline(filters, {"raw": pc})["decimated"]
+
+
+def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
+    """Phase 12: the port's command-line entry points on a KITTI-format
+    sequence at HDL-64E geometry, each held to APPS_JAX; their new kernel
+    shapes compared with the plain versions and timed into ``shapes``.
+    ``pass1``: the sm2mm phase's pass 1 (its simple map and map summary)."""
+    from mp2p_icp_tpu_torch.apps import icp_run, kitti_odometry, mm_filter, sm2mm_app, sm_cli
+    from mp2p_icp_tpu_torch.eval.trajectory import load_kitti_poses
+    from mp2p_icp_tpu_torch.filters import FilterEdgesPlanes
+    from mp2p_icp_tpu_torch.filters.sm2mm import SimpleMap
+    from mp2p_icp_tpu_torch.io.icplog import load_log
+    from mp2p_icp_tpu_torch.io.kitti import load_kitti_bin
+    from mp2p_icp_tpu_torch.io.mm import load_mm_file
+    from mp2p_icp_tpu_torch.pipeline import load_icp_config_file
+
+    ref = APPS_JAX
+    size = {"frames": APPS_FRAMES, "rings": APPS_RINGS, "azimuths": APPS_AZIMUTHS,
+            "map_capacity": APPS_MAP_CAPACITY}
+    check(all(ref["size"][k] == v for k, v in size.items()),
+          f"{APPS_REFERENCE.name} is of another size: {ref['size']}, here {size}")
+    # (a) the sequence and the apps' input files
+    t0 = time.perf_counter()
+    bin_dir, gt_path, scans = write_apps_sequence(APPS_DIR / "sequence", APPS_FRAMES,
+                                                  APPS_RINGS, APPS_AZIMUTHS)
+    files = write_app_inputs(APPS_DIR / "inputs", scans)
+    gt = load_kitti_poses(str(gt_path))
+    raw_cap = ref["size"]["raw_capacity"]
+    print(f"[apps] {APPS_FRAMES} frames of {APPS_RINGS} rings x {APPS_AZIMUTHS} azimuths "
+          f"({APPS_RINGS * APPS_AZIMUTHS} rays a scan, {int(scans[0]['valid'].sum())} returns "
+          f"in frame 0, raw capacity {raw_cap}) written as .bin + gt.txt, frames 0-1 as "
+          f".xyz.gz, MRPT .mm and .mm.npz, in {time.perf_counter() - t0:.1f} s; the kitti "
+          f"YAML's 2 m FirstPoint layer keeps the raw capacity for at most "
+          f"{ref['size']['most_2m_voxels']} voxels")
+    icp = load_icp_config_file(KITTI_YAML)[0]
+    # every iteration of the kitti YAML runs one matcher on one layer pair
+    check(all(matcher_calls(icp, i) == i for i in (1, 6, 7, 40, 200)),
+          "icp-settings-kitti.yaml: not one matcher call per iteration")
+
+    # (b)-(d) kitti-odometry, its three modes with the demo YAML, and the
+    # scan-to-scan and scan-to-map modes with the ground-cropped YAML
+    map_path = APPS_DIR / "map.mm.npz"
+    mapping = ["--mapping", "--map-capacity", APPS_MAP_CAPACITY, "--out-map"]
+    runs = (("sequential", KITTI_YAML, "knn_sweep", []),
+            ("batched", KITTI_YAML, "knn_sweep_batched", ["-B", APPS_BATCH]),
+            ("mapping", KITTI_YAML, "knn_sweep", mapping + [map_path]),
+            ("cropped_sequential", files["cropped"], "knn_sweep", []),
+            ("cropped_mapping", files["cropped"], "knn_sweep",
+             mapping + [APPS_DIR / "map_cropped.mm.npz"]))
+    true_step = np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1)
+    motion = {}
+    for mode, config, kernel, extra in runs:
+        r = ref[mode]
+        poses_path = APPS_DIR / f"poses_{mode}.txt"
+        torch.cuda.synchronize()
+        reset_counts()
+        text, seconds = printed(kitti_odometry.main, [
+            "--bin-dir", bin_dir, "-c", config, "--gt-poses", gt_path,
+            "--out-poses", poses_path] + extra)
+        n = counts()
+        got = kitti_odometry_printed(text)
+        poses = load_kitti_poses(str(poses_path))
+        ate, rt, rr = trajectory_errors(poses, gt)
+        calls = sum(got["batch_iterations"]) if mode == "batched" else got["iterations"]
+        others = {k: v for k, v in n.items() if k != kernel}
+        check(n[kernel] == calls and calls > 0 and not any(others.values()),
+              f"kitti-odometry {mode}: launches {n}, matcher calls {calls} of {kernel}")
+        launches[kernel] += n[kernel]
+        by_path[kernel][f"kitti-odometry {mode}, {APPS_FRAMES} frames"] = n[kernel]
+        check(poses.shape == (APPS_FRAMES, 4, 4) and np.isfinite(poses).all(),
+              f"kitti-odometry {mode}: poses {poses.shape} not finite")
+        ms = 1e3 / got["scans_per_s"]
+        ref_its = (f"{sum(r['iterations'])} iterations" if "iterations" in r
+                   else "iterations not recorded")
+        print(f"[apps] kitti-odometry {mode} ({pathlib.Path(config).name}) on {kind}: ATE "
+              f"{ate:.4f} m, RPE {rt:.4f} m / {rr:.5f} rad, {got['iterations']} ICP iterations "
+              f"over {APPS_FRAMES - 1} frames ({got['iterations'] / (APPS_FRAMES - 1):.2f} a "
+              f"frame), {ms:.1f} ms per frame (host clock, the app's own timer; {seconds:.1f} s "
+              f"for the whole call); {n[kernel]} {kernel} launches == matcher calls, no other "
+              f"kNN kernel [JAX CPU reference: ATE {r['ate_m']:.4f} m, RPE "
+              f"{r['rpe_trans']:.4f} m / {r['rpe_rot']:.5f} rad, {ref_its}, "
+              f"{1e3 / r['scans_per_s']:.1f} ms per frame on a CPU] on {smi}")
+        check(ate <= max(1.5 * r["ate_m"], r["ate_m"] + 0.01)
+              and rt <= max(1.5 * r["rpe_trans"], r["rpe_trans"] + 0.01),
+              f"kitti-odometry {mode}: ATE {ate} m / RPE {rt} m outside max(1.5x, +0.01 m) "
+              f"of JAX's {r['ate_m']} / {r['rpe_trans']}")
+        # each pair's relative pose against the JAX package's: the align
+        # band. A scan-to-map run amplifies the pairings that the JAX
+        # package's approximate kNN distances turn (ROADMAP C), so its pairs
+        # are held to the port's own run on the CPU (the plain kNN) and its
+        # trajectory to JAX's by the bands above
+        gaps = pair_gaps(poses, kitti_rows_to_poses(r["poses"]))
+        step = np.linalg.norm(np.diff(poses[:, :3, 3], axis=0), axis=1)
+        motion[mode] = step[WARM_FRAMES:].mean()
+        print(f"[apps] kitti-odometry {mode}: frame-to-frame poses within {gaps.max():.3g} of "
+              f"JAX's (median {np.median(gaps):.3g}); estimated motion {step.mean():.3f} m a "
+              f"frame against the true {true_step.mean():.3f} m")
+        if "--mapping" in extra:
+            cpu = ref["port_cpu"][mode]
+            gaps = pair_gaps(poses, kitti_rows_to_poses(cpu["poses"]))
+            print(f"[apps] kitti-odometry {mode}: frame-to-frame poses within {gaps.max():.3g} of "
+                  f"the port's on the CPU (median {np.median(gaps):.3g}; its map "
+                  f"{cpu['map_points']} points, {sum(cpu['iterations'])} iterations)")
+        check(gaps.max() < 5e-3, f"kitti-odometry {mode}: a pair's pose is {gaps.max()} from "
+              f"its reference's (frame {int(gaps.argmax()) + 1})")
+        if mode == "batched":
+            print(f"[apps] kitti-odometry -B {APPS_BATCH}: the slowest pair of each batch "
+                  f"{got['batch_iterations']} [JAX CPU reference: {r['batch_iterations']}]")
+        if "--out-map" in extra:
+            out_map = extra[-1]
+            saved = load_mm_file(out_map).layers["map"]
+            n_map = int(saved.count)
+            print(f"[apps] --out-map {out_map.name}: {n_map} map points of capacity "
+                  f"{saved.capacity} [JAX CPU reference: {r['map_points']}]")
+            check(saved.capacity == APPS_MAP_CAPACITY
+                  and abs(n_map - r["map_points"]) <= 0.02 * r["map_points"],
+                  f"kitti-odometry {mode}: {n_map} map points, JAX {r['map_points']}")
+    # the demo YAML's stall is the ground's: cropped away, the drive is
+    # tracked once the constant-velocity guess has caught up
+    true_mean = true_step[WARM_FRAMES:].mean()
+    print(f"[apps] kitti-odometry, frames {WARM_FRAMES + 1} on: the demo YAML estimates "
+          f"{motion['sequential']:.3f} m a frame (scan to scan) and {motion['mapping']:.3f} m "
+          f"(scan to map), the ground-cropped YAML {motion['cropped_sequential']:.3f} m and "
+          f"{motion['cropped_mapping']:.3f} m, against the true {true_mean:.3f} m")
+    check(all(abs(motion[m] - true_mean) < 0.05 * true_mean
+              for m in ("cropped_sequential", "cropped_mapping")),
+          f"kitti-odometry: the ground-cropped YAML does not track the drive: {motion}")
+
+    # the kitti paths' kernel shapes: the decimated layer (its capacity is
+    # the raw one) against the previous frame's (K1) and 8 such pairs (K2);
+    # the mapping mode's against the crop of the final map at the last pose
+    dec = [decimated_kitti(load_kitti_bin(str(bin_dir / f"{i:06d}.bin"), capacity=raw_cap))
+           for i in range(APPS_BATCH + 1)]
+    q1, p1 = sentinel_padded(dec[1], 1.0e8), sentinel_padded(dec[0], -1.0e8)
+    qb = torch.stack([sentinel_padded(d, 1.0e8) for d in dec[1:]])
+    pb = torch.stack([sentinel_padded(d, -1.0e8) for d in dec[:-1]])
+    micp, mparams, _ = load_icp_config_file(KITTI_YAML)
+    micp.matchers = [dataclasses.replace(m, layer_matches=tuple(
+        dataclasses.replace(lm, global_layer="map") for lm in m.layer_matches))
+        for m in micp.matchers]
+    last = APPS_FRAMES - 1
+    dec_last = decimated_kitti(load_kitti_bin(str(bin_dir / f"{last:06d}.bin"), capacity=raw_cap))
+    pose_last = pose_of(load_kitti_poses(str(APPS_DIR / "poses_mapping.txt"))[last])
+    crop = micp._crop_globals(mparams, {"map": load_mm_file(map_path).layers["map"]},
+                              {"decimated": dec_last}, pose_last)[0]["map"]
+    qm, pm = sentinel_padded(dec_last, 1.0e8), sentinel_padded(crop, -1.0e8)
+    new_rows = (
+        ("knn_sweep", "kitti-odometry / icp-run: the decimated KITTI layer", 1, q1, p1, True),
+        ("knn_sweep", "kitti-odometry --mapping: against the map's crop", 1, qm, pm, True),
+        ("knn_sweep_batched", f"kitti-odometry -B {APPS_BATCH}", APPS_BATCH, qb, pb, False),
+    )
+    for name, label, B, q, p, time_plain in new_rows:
+        kernel, plain = getattr(nnb, name), getattr(nnb, name.replace("sweep", "plain"))
+        Q, C = q.shape[-2], p.shape[-2]
+        errs[name].append(compare(f"{name} {B}x{Q}x{C} k=1 ({label}, "
+                                  f"{int((q[..., 0].abs() < 1e7).sum())} valid queries, "
+                                  f"{int((p[..., 0].abs() < 1e7).sum())} valid points)",
+                                  kernel, plain, q, p, 1))
+        g_times = graph_ms(lambda: kernel(q, p, 1), replays=3 if B > 1 else 7)
+        shapes[name].append(kernel_row(
+            name, label, B, Q, C, 1, lambda: kernel(q, p, 1),
+            (lambda: plain(q, p, 1)) if time_plain else None, q, p, g_times, smi))
+    del qb, pb
+    torch.cuda.empty_cache()
+
+    # (e) icp-run on frames 1 (local) and 0 (global), from both formats
+    results = {}
+    for fmt, what in (("xyz", ".xyz.gz"), ("mm", "MRPT binary .mm")):
+        r = ref["icp_run"][fmt]
+        log_path = APPS_DIR / f"icp_run_{fmt}.icplog.npz"
+        torch.cuda.synchronize()
+        reset_counts()
+        text, seconds = printed(icp_run.main, [
+            "--input-local", files[f"{fmt}1"], "--input-global", files[f"{fmt}0"],
+            "-c", KITTI_YAML, "--out-log", log_path, "--profiler"])
+        n = counts()
+        got = icp_run_printed(text)
+        calls = matcher_calls(icp, got["iterations"])
+        check(n["knn_sweep"] == calls and n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0,
+              f"icp-run {fmt}: launches {n}, matcher calls {calls}")
+        launches["knn_sweep"] += n["knn_sweep"]
+        by_path["knn_sweep"][f"icp-run, {what}"] = n["knn_sweep"]
+        dev = default_device()
+        pose = pose_of_printed(got, dev)
+        gap = float(se3.error_log_norm(pose_of_printed(r, dev), pose))
+        log = load_log(log_path)
+        log_gap = float((log["result"].t - pose.t).abs().max())
+        print(f"[apps] icp-run from {what} on {kind}: {got['iterations']} iterations, "
+              f"{got['termination']}, quality {got['quality']}, {got['pairings']} pairings, "
+              f"pose gap to JAX {gap:.3g}, {n['knn_sweep']} K1 launches, {seconds:.2f} s for "
+              f"the call [JAX CPU reference: {r['iterations']}, {r['termination']}, "
+              f"{r['quality']}]; --out-log loads, its pose within {log_gap:.2g} m of the printed")
+        check(got["termination"] == r["termination"]
+              and iterations_agree(got["iterations"], r["iterations"]),
+              f"icp-run {fmt}: {got['iterations']} {got['termination']}, JAX {r}")
+        check(gap < 5e-3, f"icp-run {fmt}: pose {gap} from the JAX reference's")
+        check(log["meta"]["n_iterations"] == got["iterations"] and log_gap < 1e-5,
+              f"icp-run {fmt}: the log disagrees with the printed result")
+        results[fmt] = pose
+    gap = float(se3.error_log_norm(results["xyz"], results["mm"]))
+    print(f"[apps] icp-run: the .xyz.gz (6 decimals) and .mm (float32) inputs give poses "
+          f"{gap:.3g} apart")
+
+    # (f) mm-filter: the structured filters on frame 0
+    out_path = APPS_DIR / "filtered.mm.npz"
+    torch.cuda.synchronize()
+    reset_counts()
+    _, seconds = printed(mm_filter.main, ["-i", files["npz0"], "-o", out_path,
+                                          "-p", files["filters"]])
+    check(sum(counts().values()) == 0, f"mm-filter: a kNN kernel ran: {counts()}")
+    out_mm = load_mm_file(out_path)
+    got = mm_filter_summary(out_mm)
+    raw = load_mm_file(files["npz0"]).layers["raw"]
+    r = ref["mm_filter"]
+    check(sorted(got) == sorted(r), f"mm-filter layers {sorted(got)}, JAX {sorted(r)}")
+    print(f"[apps] mm-filter on {kind}: {len(got) - 1} layers of frame 0 in {seconds:.2f} s "
+          f"(load, 6 filters, save)")
+    # the layers no class threshold decides: count and sums as JAX's
+    for name in sorted(r):
+        if name in EDGES_PLANES_LAYERS or name == "planes":
+            continue
+        a, b = got[name], r[name]
+        gap = max(abs(x - y) for x, y in zip(a["sum"], b["sum"]))
+        rel = gap / max(max(b["abs_sum"]), 1.0)
+        ch = max([abs(a[k] - b[k]) / max(abs(b[k]), 1.0) for k in b
+                  if k.endswith("_sum") and k != "abs_sum" and k in a] or [0.0])
+        print(f"[apps] mm-filter {name}: {a['count']} rows [JAX {b['count']}], coordinate "
+              f"sums {rel:.3g} apart (relative), channel sums {ch:.3g}")
+        check(a["count"] == b["count"] and rel <= 1e-6 and ch <= 1e-6,
+              f"mm-filter: layer {name} differs from the JAX package's")
+    # FilterEdgesPlanes' layers and planes, row for row
+    near_voxels, near_rows = held_edges_planes(
+        FilterEdgesPlanes(voxel_filter_resolution=0.5), raw, out_mm, ref["mm_filter_rows"],
+        "mm-filter")
+    print(f"[apps] mm-filter FilterEdgesPlanes: {near_voxels} threshold voxels ({near_rows} "
+          f"rows) within {EIGEN_BAND} * l2 of a class threshold; only their rows may differ")
+
+    # (g) sm2mm and sm-cli on the sm2mm phase's pass 1, saved to disk
+    sm_path, mm_path, cut_path = (APPS_DIR / n for n in ("street.sm.npz", "street.mm.npz",
+                                                           "street_cut.sm.npz"))
+    pass1["simple_map"].save(sm_path)
+    torch.cuda.synchronize()
+    reset_counts()
+    _, seconds = printed(sm2mm_app.main, ["-i", sm_path, "-o", mm_path, "-p",
+                                          DEMOS / "sm2mm_voxelmap_static_dynamic.yaml"])
+    check(sum(counts().values()) == 0, f"sm2mm: a kNN kernel ran: {counts()}")
+    got = sm2mm_summary(sm2mm_numpy(load_mm_file(mm_path).layers))
+    want = pass1["summary"]
+    keys = ("map_points", "voxels", "voxel_key_sum", "static", "dynamic")
+    print(f"[apps] sm2mm on the file of the sm2mm phase's pass 1 on {kind}: map_points "
+          f"{got['map_points']}, voxels {got['voxels']}, static {got['static']}, dynamic "
+          f"{got['dynamic']} [the phase: {[want[k] for k in keys]}], {seconds:.1f} s")
+    check(all(got[k] == want[k] for k in keys), "sm2mm: the map differs from the sm2mm phase's")
+    text, _ = printed(sm_cli.main, ["info", sm_path])
+    info = dict(re.findall(r"^(keyframes|observations|total points): (\d+)$", text, re.M))
+    n_kf = len(pass1["simple_map"].keyframes)
+    check(int(info["keyframes"]) == n_kf and int(info["total points"]) == pass1["raw_rows"],
+          f"sm-cli info: {info}, want {n_kf} keyframes and {pass1['raw_rows']} points")
+    lo, hi = n_kf // 4, n_kf // 2
+    printed(sm_cli.main, ["cut", sm_path, "--from-index", lo, "--to-index", hi, "-o", cut_path])
+    cut = SimpleMap.load(cut_path).keyframes
+    check(len(cut) == hi - lo and all(torch.equal(a.pose.t, b.pose.t) for a, b in zip(
+        cut, pass1["simple_map"].keyframes[lo:hi])), f"sm-cli cut: not keyframes {lo}-{hi - 1}")
+    print(f"[apps] sm-cli info: {n_kf} keyframes, {info['total points']} points (as the "
+          f"phase's map); cut {lo}:{hi} -> {hi - lo} keyframes with the same poses")
+    # the inputs go (they are made again from the seed); the outputs stay
+    for path in (APPS_DIR / "sequence", APPS_DIR / "inputs", sm_path, cut_path, mm_path):
+        shutil.rmtree(path) if path.is_dir() else path.unlink()
+    kept = sorted(APPS_DIR.iterdir())
+    print(f"[apps] kept under {APPS_DIR.relative_to(REPO)}: "
+          f"{sum(f.stat().st_size for f in kept) / 2**20:.1f} MiB in {len(kept)} files "
+          f"({', '.join(f.name for f in kept)}); the sequence and the input files deleted")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile each path (phase 10)")
+                    help="also profile each path (phase 13)")
     args = ap.parse_args()
 
     clock = [time.perf_counter()]
@@ -1984,21 +2685,8 @@ def main():
     shapes = {name: [] for name in KERNELS}
     for (name, label, B, Q, C, k, run, plain), g_times, (lq, lp) in zip(timed, graph_times,
                                                                          operands):
-        bnd, by = data_bound_ms(lq, lp, k)
-        swept, _ = bound_ms(B, Q, C, k)
-        ms = statistics.median(g_times)
-        row = {"shape": f"{B}x{Q}x{C}", "k": k, "what": label, "ms": ms,
-               "call_ms": cuda_ms(run), "bound_ms": bnd, "bound_by": by,
-               "share_of_bound": bnd / ms, "swept_bound_ms": swept,
-               "plain_ms": cuda_ms(plain, reps=3, warmup=1) if plain else None,
-               "library_ms": library_ms(lq, lp, k)}
-        shapes[name].append(row)
-        print(f"[time] {name} {label} {B}x{Q}x{C} k={k}: {ms:.4f} ms per launch in a CUDA "
-              f"graph, {row['call_ms']:.4f} ms for one call between events; bound {bnd:.4f} ms "
-              f"({by}, the valid rows), share {bnd / ms:.1%}; over every row swept "
-              f"{swept:.4f} ms, share {swept / ms:.1%}; plain "
-              f"{'%.4f ms' % row['plain_ms'] if plain else 'not timed'}; library cdist + topk "
-              f"{row['library_ms']:.4f} ms in a CUDA graph on {smi}")
+        shapes[name].append(kernel_row(name, label, B, Q, C, k, run, plain, lq, lp, g_times,
+                                       smi))
 
     def eight_k1():
         for b in range(BATCH):
@@ -2236,14 +2924,20 @@ def main():
     reference = json.loads(SM2MM_REFERENCE.read_text())
     SM2MM_JAX, YAML_JAX = reference["sm2mm"], reference["yaml"]
     tables = []
-    sm2mm_phase(smi, kind, launches, by_path, gt_o, twists_o, scans_o, tables)
+    pass1 = sm2mm_phase(smi, kind, launches, by_path, gt_o, twists_o, scans_o, tables)
 
     phase_done("sm2mm")
     # ---- 11. the YAML pipelines
     yaml_phase(smi, kind, launches, by_path, scene, scans_o, engine_planar)
 
     phase_done("yaml")
-    # ---- 12. profile (optional)
+    # ---- 12. the command-line entry points
+    global APPS_JAX
+    APPS_JAX = json.loads(APPS_REFERENCE.read_text())
+    apps_phase(smi, kind, launches, by_path, errs, shapes, pass1)
+
+    phase_done("apps")
+    # ---- 13. profile (optional)
     if args.profile:
         profile_align(icp, loc, glob, params, smi, tables)
         gmap_2m, params_2m = maps["2M"]
@@ -2261,7 +2955,7 @@ def main():
         (out / "profile_tables.txt").write_text("\n\n".join(tables))
 
     phase_done("profile")
-    # ---- 13. results
+    # ---- 14. results
     # a kernel's own line is its first shape (the one its path gives it)
     print(json.dumps({"kernels": [{
         "name": name,

@@ -31,6 +31,7 @@ from mp2p_icp_tpu_torch.filters.bounding_box import FilterBoundingBox
 from mp2p_icp_tpu_torch.filters.by_intensity import FilterByIntensity, FilterNormalizeIntensity
 from mp2p_icp_tpu_torch.filters.by_range import FilterByRange
 from mp2p_icp_tpu_torch.filters.by_ring import FilterByRing
+from mp2p_icp_tpu_torch.filters.curvature import FilterCurvature
 from mp2p_icp_tpu_torch.filters.decimate_variants import (
     FilterDecimateAdaptive,
     FilterDecimateVoxelsQuadratic,
@@ -38,9 +39,15 @@ from mp2p_icp_tpu_torch.filters.decimate_variants import (
 from mp2p_icp_tpu_torch.filters.decimate_voxels import FilterDecimateVoxels
 from mp2p_icp_tpu_torch.filters.delete_layer import FilterDeleteLayer
 from mp2p_icp_tpu_torch.filters.deskew import FilterDeskew
+from mp2p_icp_tpu_torch.filters.edge_generators import (
+    GeneratorEdgesFromCurvature,
+    GeneratorEdgesFromRangeImage,
+)
+from mp2p_icp_tpu_torch.filters.edges_planes import FilterEdgesPlanes
 from mp2p_icp_tpu_torch.filters.estimate_normals import FilterEstimateNormals
 from mp2p_icp_tpu_torch.filters.generator import Generator
 from mp2p_icp_tpu_torch.filters.merge import FilterMerge
+from mp2p_icp_tpu_torch.filters.pole_detector import FilterPoleDetector
 from mp2p_icp_tpu_torch.filters.voxel_filters import (
     FilterRemoveByVoxelOccupancy,
     FilterVoxelSlice,
@@ -304,24 +311,16 @@ def quality_from_config(name: str, cfg: dict):
 # the filters of the port by class name, and their enum fields
 _FILTERS = {cls.__name__: cls for cls in (
     FilterAdjustTimestamps, FilterBoundingBox, FilterByIntensity, FilterByRange, FilterByRing,
-    FilterDecimateAdaptive, FilterDecimateVoxels, FilterDecimateVoxelsQuadratic,
-    FilterDeleteLayer, FilterDeskew, FilterEstimateNormals, FilterMerge,
-    FilterNormalizeIntensity, FilterRemoveByVoxelOccupancy, FilterVoxelSlice, Generator,
-    GeneratorVoxelMap)}
-# modules of the JAX package's filter library that the port has not yet
-# (ROADMAP A.5b)
-UNPORTED_FILTERS = ("FilterCurvature", "FilterEdgesPlanes", "FilterPoleDetector",
-                    "GeneratorEdgesFromCurvature", "GeneratorEdgesFromRangeImage")
+    FilterCurvature, FilterDecimateAdaptive, FilterDecimateVoxels, FilterDecimateVoxelsQuadratic,
+    FilterDeleteLayer, FilterDeskew, FilterEdgesPlanes, FilterEstimateNormals, FilterMerge,
+    FilterNormalizeIntensity, FilterPoleDetector, FilterRemoveByVoxelOccupancy, FilterVoxelSlice,
+    Generator, GeneratorEdgesFromCurvature, GeneratorEdgesFromRangeImage, GeneratorVoxelMap)}
 
 
 def filter_from_config(name: str, cfg: dict):
     """A port filter (or Generator) from a filter's class name and its
     fields, e.g. ``dataclasses.asdict`` of the JAX package's: enum members
     by their value (or name string), lists as tuples."""
-    if name in UNPORTED_FILTERS:
-        raise NotImplementedError(
-            f"filter {name} is not ported yet (ROADMAP A.5b: curvature, edge generators, "
-            "edges and planes, pole detector)")
     if name not in _FILTERS:
         raise ValueError(f"unknown filter class {name}")
     cls = _FILTERS[name]

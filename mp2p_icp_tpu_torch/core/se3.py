@@ -48,6 +48,12 @@ def matmul3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
             + A[..., :, 2, None] * B[..., 2, None, :])
 
 
+def sum3(v: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis of size 3, added left to right (the JAX
+    package's three-term reductions on its CPU backend)."""
+    return v[..., 0] + v[..., 1] + v[..., 2]
+
+
 def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return matmul3(M, v[..., :, None])[..., 0]
 

@@ -18,3 +18,10 @@ from mp2p_icp_tpu_torch.filters.adjust_timestamps import (  # noqa: F401
 from mp2p_icp_tpu_torch.filters.merge import FilterMerge  # noqa: F401
 from mp2p_icp_tpu_torch.filters.estimate_normals import FilterEstimateNormals  # noqa: F401
 from mp2p_icp_tpu_torch.filters.delete_layer import FilterDeleteLayer  # noqa: F401
+from mp2p_icp_tpu_torch.filters.curvature import FilterCurvature  # noqa: F401
+from mp2p_icp_tpu_torch.filters.edge_generators import (  # noqa: F401
+    GeneratorEdgesFromCurvature,
+    GeneratorEdgesFromRangeImage,
+)
+from mp2p_icp_tpu_torch.filters.edges_planes import FilterEdgesPlanes  # noqa: F401
+from mp2p_icp_tpu_torch.filters.pole_detector import FilterPoleDetector  # noqa: F401

@@ -21,7 +21,6 @@ from typing import Callable, Dict, Optional, Tuple
 import yaml as _yaml
 
 from mp2p_icp_tpu_torch.convert import (
-    UNPORTED_FILTERS,
     filter_from_config,
     matcher_from_config,
     quality_from_config,
@@ -338,9 +337,43 @@ _FILTERS: Dict[str, Callable] = {
         method=str(p.get("method", "TimestampAdjustMethod::MiddleIsZero")),
         time_offset=float(_num(p.get("time_offset", 0.0))),
         silently_ignore_no_timestamps=bool(p.get("silently_ignore_no_timestamps", False)))),
-    # registered, so that a YAML naming one says what is missing: the
-    # factory raises NotImplementedError
-    **{name: _filter(name, lambda p, v: {}) for name in UNPORTED_FILTERS},
+    "FilterEdgesPlanes": _filter("FilterEdgesPlanes", lambda p, v: dict(
+        input_pointcloud_layer=p.get("input_pointcloud_layer", "raw"),
+        voxel_filter_resolution=float(_num(p.get("voxel_filter_resolution", 0.5), v)),
+        full_pointcloud_decimation=int(_num(p.get("full_pointcloud_decimation", 20))),
+        voxel_filter_decimation=int(_num(p.get("voxel_filter_decimation", 1))),
+        voxel_filter_max_e2_e0=float(_num(p.get("voxel_filter_max_e2_e0", 30.0))),
+        voxel_filter_max_e1_e0=float(_num(p.get("voxel_filter_max_e1_e0", 30.0))),
+        voxel_filter_min_e2_e0=float(_num(p.get("voxel_filter_min_e2_e0", 100.0))),
+        voxel_filter_min_e1_e0=float(_num(p.get("voxel_filter_min_e1_e0", 100.0))),
+        voxel_filter_min_e1=float(_num(p.get("voxel_filter_min_e1", 0.0))))),
+    "FilterCurvature": _filter("FilterCurvature", lambda p, v: dict(
+        input_pointcloud_layer=p.get("input_pointcloud_layer", "raw"),
+        output_layer_larger_curvature=p.get("output_layer_larger_curvature"),
+        output_layer_smaller_curvature=p.get("output_layer_smaller_curvature"),
+        output_layer_other=p.get("output_layer_other"),
+        max_cosine=float(_num(p.get("max_cosine", 0.5))),
+        min_clearance=float(_num(p.get("min_clearance", 0.02))),
+        max_gap=float(_num(p.get("max_gap", 1.0))))),
+    "FilterPoleDetector": _filter("FilterPoleDetector", lambda p, v: dict(
+        input_pointcloud_layer=p.get("input_pointcloud_layer", "raw"),
+        output_layer_poles=p.get("output_layer_poles"),
+        output_layer_no_poles=p.get("output_layer_no_poles"),
+        grid_size=float(_num(p.get("grid_size", 2.0), v)),
+        minimum_relative_height=float(_num(p.get("minimum_relative_height", 2.5), v)),
+        maximum_relative_height=float(_num(p.get("maximum_relative_height", 25.0), v)),
+        minimum_pole_points=int(_num(p.get("minimum_pole_points", 5))),
+        minimum_neighbors_checks_to_pass=int(
+            _num(p.get("minimum_neighbors_checks_to_pass", 3))))),
+    "GeneratorEdgesFromCurvature": _filter("GeneratorEdgesFromCurvature", lambda p, v: dict(
+        input_pointcloud_layer=p.get("input_pointcloud_layer", "raw"),
+        target_layer=p.get("target_layer", "edges"),
+        max_cosine=float(_num(p.get("max_cosine", 0.5))),
+        min_point_clearance=float(_num(p.get("min_point_clearance", 0.10))))),
+    "GeneratorEdgesFromRangeImage": _filter("GeneratorEdgesFromRangeImage", lambda p, v: dict(
+        input_pointcloud_layer=p.get("input_pointcloud_layer", "raw"),
+        target_layer=p.get("target_layer", "edges"),
+        score_threshold=int(_num(p.get("score_threshold", 10))))),
 }
 
 

@@ -243,26 +243,15 @@ def test_constructors_default_to_the_card():
 
 
 def test_package_does_not_import_jax():
+    """Every module of the package, found by walking it (so that io/ and
+    apps/ are covered), imports in a fresh process without jax or the JAX
+    package."""
     code = (
-        "import sys, mp2p_icp_tpu_torch, mp2p_icp_tpu_torch.icp, "
-        "mp2p_icp_tpu_torch.convert, mp2p_icp_tpu_torch.parity, "
-        "mp2p_icp_tpu_torch.parallel, mp2p_icp_tpu_torch.odometry, "
-        "mp2p_icp_tpu_torch.filters, mp2p_icp_tpu_torch.eval.lidar_sim, "
-        "mp2p_icp_tpu_torch.eval.trajectory, mp2p_icp_tpu_torch.ops.voxel_hash_map, "
-        "mp2p_icp_tpu_torch.ops.normals, mp2p_icp_tpu_torch.matchers.point2plane, "
-        "mp2p_icp_tpu_torch.core.params, mp2p_icp_tpu_torch.core.metric_map, "
-        "mp2p_icp_tpu_torch.io.icplog, mp2p_icp_tpu_torch.io.debug_dump, "
-        "mp2p_icp_tpu_torch.solvers.olae, mp2p_icp_tpu_torch.matchers.inlier_ratio, "
-        "mp2p_icp_tpu_torch.matchers.point2line, mp2p_icp_tpu_torch.ops.voxel_occupancy, "
-        "mp2p_icp_tpu_torch.quality.voxels, mp2p_icp_tpu_torch.quality.range_image, "
-        "mp2p_icp_tpu_torch.pipeline, mp2p_icp_tpu_torch.pipeline.yaml_loader, "
-        "mp2p_icp_tpu_torch.pipeline.plugins, mp2p_icp_tpu_torch.core.velocity_buffer, "
-        "mp2p_icp_tpu_torch.filters.common, mp2p_icp_tpu_torch.filters.by_range, "
-        "mp2p_icp_tpu_torch.filters.bounding_box, mp2p_icp_tpu_torch.filters.by_ring, "
-        "mp2p_icp_tpu_torch.filters.by_intensity, mp2p_icp_tpu_torch.filters.adjust_timestamps, "
-        "mp2p_icp_tpu_torch.filters.delete_layer, mp2p_icp_tpu_torch.filters.decimate_variants, "
-        "mp2p_icp_tpu_torch.filters.estimate_normals, mp2p_icp_tpu_torch.filters.voxel_filters, "
-        "mp2p_icp_tpu_torch.filters.generator, mp2p_icp_tpu_torch.filters.sm2mm; "
+        "import importlib, pkgutil, sys, mp2p_icp_tpu_torch as pkg; "
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]; "
+        "[importlib.import_module(n) for n in names]; "
+        "assert {'mp2p_icp_tpu_torch.io.mrpt_mm', 'mp2p_icp_tpu_torch.apps.kitti_odometry', "
+        "'mp2p_icp_tpu_torch.apps.sm_cli', 'mp2p_icp_tpu_torch.io.native'} <= set(names), names; "
         "assert 'jax' not in sys.modules, 'jax was imported'; "
         "assert 'mp2p_icp_tpu' not in sys.modules, 'the JAX package was imported'"
     )

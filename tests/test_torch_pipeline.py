@@ -176,12 +176,16 @@ def test_2d_align_from_yaml_generators_matches_jax():
 
 # --------------------------------------------------------------- refusals
 def test_unported_filter_names_raise():
-    for name in convert.UNPORTED_FILTERS:
-        assert name in yl._FILTERS and name in jyl._FILTERS
-        with pytest.raises(NotImplementedError, match="A.5b"):
-            yl.filter_pipeline_from_yaml([{"class_name": f"mp2p_icp_filters::{name}",
-                                           "params": {}}])
-    assert len(convert.UNPORTED_FILTERS) == 5
+    """No filter name is left unported: every name of the JAX loader
+    builds the port's class of that name with its defaults, and an
+    unknown name still raises."""
+    assert sorted(yl._FILTERS) == sorted(jyl._FILTERS)
+    for name in jyl._FILTERS:
+        (f,) = yl.filter_pipeline_from_yaml([{"class_name": f"mp2p_icp_filters::{name}",
+                                              "params": {}}])
+        assert type(f).__name__ == name and name in convert._FILTERS
+    with pytest.raises(ValueError, match="unknown filter class"):
+        convert.filter_from_config("FilterNope", {})
 
 
 def test_refused_configs():
