@@ -125,7 +125,39 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    FilterEdgesPlanes' rows on threshold voxels counted and allowed to
    differ; sm2mm_app.main on phase 10's pass-1 simple map saved to disk
    (map counts equal phase 10's) and sm_cli info and cut on that file;
-13. with --profile only: where the time goes, by torch.profiler over 2
+13. the pose graph, loop closure and the sharded paths, each held to the
+   JAX CPU reference constants of scripts/torch_parallel_reference.json
+   (written by scripts/torch_parallel_reference.py): (a) a pose graph at
+   KITTI 00's length (4,541 nodes lapping a 75 m circuit 8 times, 4,540
+   odometry and 398 loop edges, ``lap_graph``) through optimize_pose_graph
+   (dense Cholesky of the [6N, 6N] system in float64) and
+   optimize_pose_graph_cg (2,000 CG steps per Gauss-Newton iteration), each
+   twice (equal to the bit), CG's chi2 within 1e-4 relative of dense's and
+   its poses within PG_CG_BAND of JAX's CG, the dense solve of a 1,000-node
+   graph within PG_DENSE_BAND of JAX's; ms per Gauss-Newton iteration, chi2
+   before and after; (b) kitti-odometry --mapping --loop-closure on a
+   48-frame out-and-back drive at HDL-64E geometry (``write_loop_sequence``,
+   under chiprun_out/loop/, deleted after) with the ground-cropped YAML:
+   JAX's candidates, accepted loops and printed line, ATE after the closure
+   within max(1.5x, +0.01 m) of JAX's and no worse than before, K1 launches
+   == the mapping's and the closure aligns' matcher calls; (c) several
+   ranks on the one card over gloo (parallel/launch.spawn_ranks; NCCL
+   refuses two ranks on one GPU): 4 ranks for the sharded kNN of an
+   8192-point scan over the 1M corridor map in 4 shards of 262144 rows (K3
+   on each rank; equal to one sweep of the whole map to the bit, k = 1 and
+   8), make_spatial_align against the 1M and 2M maps (each rank crops its
+   shard: K1 / K3; the one-process align to the bit where no crop
+   overflows; a third case, the 1M map with a crop of 2^19, overflows
+   nowhere) and the sharded pose graph (dense on 1,000 nodes, CG with 200
+   steps on 4,541; within 1e-3 m of one rank); 2 ranks started by init_from_env from
+   the MP2P_* variables for SpatialOdometryMapper on phase 7's drive
+   (incremental map; no voxel on two shards, ATE within max(1.5x, +0.01 m)
+   of JAX's over 2 devices, the union's voxels Jaccard >= 0.97 against
+   phase 7's map) and phase 6's batch split over the data axis (K2 on each
+   rank; equal to the one-process batch to the bit). Each rank's launches
+   are counted in its process and printed, with ms beside the one-process
+   path's;
+14. with --profile only: where the time goes, by torch.profiler over 2
    warm calls (device busy share, launches, the kNN kernels' time) of a
    scan-to-scan align, a scan to the 2M map and the batched call, then
    per-section host times of a scan-to-scan align with a sync around each
@@ -135,7 +167,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    each stage; the same for one warm fleet run; then 2 warm aligns of each
    engine cell and the sections of a 3D engine align with a sync around
    each; the profiler's tables go to chiprun_out/profile_tables.txt;
-14. one JSON line with the kernels' numbers (each shape's time, bound,
+15. one JSON line with the kernels' numbers (each shape's time, bound,
    plain version and library call, torch.cdist + topk in a CUDA graph),
    then the last line {"ok": true, "device": {...}}.
 
@@ -150,9 +182,13 @@ The JAX CPU reference values are constants here;
 scripts/torch_odometry_reference.py produces the odometry run's and, with
 --fleet, the fleet's; scripts/torch_engine_reference.py the engine
 phase's; scripts/torch_sm2mm_reference.py writes the sm2mm and YAML
-phases' to scripts/torch_sm2mm_reference.json and
+phases' to scripts/torch_sm2mm_reference.json,
 scripts/torch_apps_reference.py the apps phase's to
-scripts/torch_apps_reference.json, which this script reads.
+scripts/torch_apps_reference.json and scripts/torch_parallel_reference.py
+phase 13's to scripts/torch_parallel_reference.json, which this script
+reads. The ranks of phase 13 run functions of
+mp2p_icp_tpu_torch/parallel/ranks.py in processes of their own; each
+loads the kernels phase 2 built.
 """
 
 import argparse
@@ -185,6 +221,7 @@ from mp2p_icp_tpu_torch.eval.lidar_sim import (
     make_street_sequence,
     planar_points,
     render_planar_ranges,
+    render_spinning_scan,
     sample_scan,
     scan_to_pointcloud,
 )
@@ -458,6 +495,22 @@ EDGES_PLANES_LAYERS = ("edge_points", "plane_points", "plane_centroids")
 # scripts/torch_apps_reference.json` writes; main() reads it into APPS_JAX
 APPS_REFERENCE = REPO / "scripts" / "torch_apps_reference.json"
 APPS_JAX = None
+PARALLEL_REFERENCE = REPO / "scripts" / "torch_parallel_reference.json"
+PARALLEL_JAX = None
+LOOP_DIR = REPO / "chiprun_out" / "loop"
+# the loop-closure phase: an out-and-back drive at HDL-64E geometry through
+# kitti-odometry --mapping --loop-closure with the ground-cropped YAML
+LOOP_FRAMES = 48
+LOOP_MIN_GAP, LOOP_MAX_DISTANCE = 20, 5.0  # kitti-odometry's defaults
+# the pose-graph phase: KITTI 00's length (4,541 scans) lapping a circuit
+POSE_GRAPH_NODES = 4541
+POSE_GRAPH_LAPS = 8
+POSE_GRAPH_SMALL = 1000  # the dense solve held against JAX's on the CPU
+# CG iterations enough for the dense solve's chi^2 within 1e-4 relative
+POSE_GRAPH_CG = {"max_iterations": 10, "cg_iterations": 2000}
+# the sharded CG against one rank: fewer CG steps (each is one all-reduce)
+POSE_GRAPH_CG_SHARDED = {"max_iterations": 10, "cg_iterations": 200}
+SPATIAL_RANKS = 2  # the sharded mapper's and the data-parallel batch's ranks
 
 
 def check(ok, what):
@@ -549,6 +602,12 @@ def odometry_frames(scans):
     """The rendered scans as raw layers of capacity 2^16 on the port's
     default device."""
     return [{"raw": scan_to_pointcloud(scan, capacity=1 << 16)} for scan in scans]
+
+
+def pose_of_cpu(mat):
+    """A [4, 4] numpy pose on the CPU."""
+    return se3.Pose(torch.from_numpy(mat[:3, :3].astype(np.float32)),
+                    torch.from_numpy(mat[:3, 3].astype(np.float32)))
 
 
 def pose_of(mat):
@@ -840,6 +899,111 @@ def write_apps_sequence(out_dir, n_frames=APPS_FRAMES, n_rings=APPS_RINGS,
         rows.astype(np.float32).tofile(bin_dir / f"{i:06d}.bin")
     save_kitti_poses(out_dir / "gt.txt", np.linalg.inv(gt[0]) @ gt)
     return bin_dir, out_dir / "gt.txt", scans
+
+
+def loop_drive(n_frames=LOOP_FRAMES, dt=ODO_DT, speed=10.0):
+    """The street drive out and back along one line: x(i) = 12 + D sin(pi
+    i / (n - 1)), out at ``speed`` to a stop at the middle frame and back
+    to the start at ``speed`` (D = speed dt (n - 1) / pi), the lateral
+    weave and the yaw of ``make_street_sequence`` as functions of x, so
+    that frame n - 1 - i stands where frame i stood. Returns (gt [N, 4, 4]
+    float64 poses, twists: N float32 [6] true body twists), numpy, made
+    with the port's se3 on the CPU."""
+    D = speed * dt * (n_frames - 1) / np.pi
+    xs = 12.0 + D * np.sin(np.pi * np.arange(n_frames) / (n_frames - 1))
+    poses = [se3.from_xyz_ypr(x, 0.5 * np.sin(0.15 * (x - 12.0)), 1.7,
+                              0.05 * np.sin(0.2 * (x - 12.0)), 0.0, 0.0, device="cpu")
+             for x in xs]
+    twists = [np.asarray(se3.log(se3.compose(se3.inverse(a), b)).numpy() / dt, np.float32)
+              for a, b in zip(poses[:-1], poses[1:])]
+    twists.append(twists[-1])
+    gt = np.tile(np.eye(4), (n_frames, 1, 1))
+    gt[:, :3, :3] = torch.stack([p.R for p in poses]).numpy()
+    gt[:, :3, 3] = torch.stack([p.t for p in poses]).numpy()
+    return gt, twists
+
+
+def write_loop_sequence(out_dir, n_frames=LOOP_FRAMES, n_rings=APPS_RINGS,
+                        n_azimuth=APPS_AZIMUTHS):
+    """``loop_drive`` rendered in the street of ``make_street_sequence``
+    (the same scene and random stream) as a KITTI-format sequence, like
+    ``write_apps_sequence``. Returns (velodyne dir, gt path, gt poses)."""
+    from mp2p_icp_tpu_torch.eval.trajectory import save_kitti_poses
+
+    gt, twists = loop_drive(n_frames)
+    rng = np.random.RandomState(7)
+    scene = make_street_scene(rng, length=260.0, n_pillars=60)
+    out_dir = pathlib.Path(out_dir)
+    bin_dir = out_dir / "velodyne"
+    bin_dir.mkdir(parents=True, exist_ok=True)
+    for i in range(n_frames):
+        sc = render_spinning_scan(scene, pose_of_cpu(gt[i]), twists[i], rng,
+                                  n_rings=n_rings, n_azimuth=n_azimuth)
+        v = sc["valid"]
+        rows = np.concatenate([sc["xyz"][v], sc["intensity"][v][:, None]], axis=1)
+        rows.astype(np.float32).tofile(bin_dir / f"{i:06d}.bin")
+    save_kitti_poses(out_dir / "gt.txt", np.linalg.inv(gt[0]) @ gt)
+    return bin_dir, out_dir / "gt.txt", np.linalg.inv(gt[0]) @ gt
+
+
+def lap_graph(n_nodes=POSE_GRAPH_NODES, laps=POSE_GRAPH_LAPS, radius=75.0, loop_every=10,
+              seed=0):
+    """A pose graph whose trajectory laps a circuit ``laps`` times: node k
+    on a circle of ``radius`` m at the angle 2 pi k / per (per = the nodes
+    of a lap, so node k + per stands where node k stood), heading along it.
+    Odometry edges k -> k + 1 measured with noise (sigma 0.01 m and 0.001
+    rad per axis), loop edges from every ``loop_every``-th node to the node
+    one lap later (sigma 0.02 m, 0.002 rad), each with the information of
+    its noise, diag(1 / sigma^2); the initial guess integrates the noisy
+    odometry (it drifts).
+    numpy only (the port's se3 on the CPU, float64). Returns (gt [N, 4, 4],
+    init [N, 4, 4], edges {i, j, z_R, z_t, information, valid})."""
+    rng = np.random.RandomState(seed)
+    per = -(-n_nodes // laps)
+    ang = 2.0 * np.pi * np.arange(n_nodes) / per
+    gt = np.tile(np.eye(4), (n_nodes, 1, 1))
+    c, s_ = np.cos(ang + np.pi / 2), np.sin(ang + np.pi / 2)
+    gt[:, 0, 0], gt[:, 0, 1], gt[:, 1, 0], gt[:, 1, 1] = c, -s_, s_, c
+    gt[:, 0, 3], gt[:, 1, 3] = radius * np.cos(ang), radius * np.sin(ang)
+
+    def noisy(rel, sigma_t, sigma_r):
+        xi = np.concatenate([rng.randn(len(rel), 3) * sigma_t, rng.randn(len(rel), 3) * sigma_r],
+                            axis=1)
+        e = se3.exp(torch.from_numpy(xi))
+        n = np.tile(np.eye(4), (len(rel), 1, 1))
+        n[:, :3, :3], n[:, :3, 3] = e.R.numpy(), e.t.numpy()
+        return rel @ n
+
+    inv = np.linalg.inv(gt)
+    odo = noisy(inv[:-1] @ gt[1:], 0.01, 0.001)
+    li = np.arange(0, n_nodes - per, loop_every)
+    loop = noisy(inv[li] @ gt[li + per], 0.02, 0.002)
+    init = np.tile(np.eye(4), (n_nodes, 1, 1))
+    init[0] = gt[0]
+    for k in range(1, n_nodes):
+        init[k] = init[k - 1] @ odo[k - 1]
+    z = np.concatenate([odo, loop])
+    info = np.concatenate([np.tile([1e4] * 3 + [1e6] * 3, (n_nodes - 1, 1)),
+                           np.tile([2.5e3] * 3 + [2.5e5] * 3, (len(li), 1))])
+    edges = {"i": np.concatenate([np.arange(n_nodes - 1), li]),
+             "j": np.concatenate([np.arange(1, n_nodes), li + per]),
+             "z_R": z[:, :3, :3].astype(np.float32), "z_t": z[:, :3, 3].astype(np.float32),
+             "information": (np.eye(6)[None] * info[:, None, :]).astype(np.float32),
+             "valid": np.ones(len(z), bool)}
+    return gt, init, edges
+
+
+def pad_edges(edges, multiple):
+    """The edges padded with invalid ones (node 0 to 0, identity) to a
+    multiple of ``multiple`` rows, as a sharded solve needs."""
+    pad = (-len(edges["i"])) % multiple
+    fill = {"i": np.zeros(pad, np.int64), "j": np.zeros(pad, np.int64),
+            "z_R": np.tile(np.eye(3, dtype=np.float32), (pad, 1, 1)),
+            "z_t": np.zeros((pad, 3), np.float32),
+            "information": np.tile(np.eye(6, dtype=np.float32), (pad, 1, 1)),
+            "valid": np.zeros(pad, bool)}
+    return {k: np.concatenate([np.asarray(v), fill[k].astype(np.asarray(v).dtype)])
+            for k, v in edges.items()}
 
 
 def ground_cropped_yaml():
@@ -2406,10 +2570,423 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
           f"({', '.join(f.name for f in kept)}); the sequence and the input files deleted")
 
 
+def graph_inputs(n, multiple=1):
+    """lap_graph(n) on the card: (gt, init poses, edges padded to a
+    multiple of ``multiple``, the padded edges as numpy)."""
+    from mp2p_icp_tpu_torch.convert import pose_graph_edges_from_numpy
+
+    gt, init, e = lap_graph(n)
+    e = pad_edges(e, multiple)
+    p0 = se3.Pose(torch.from_numpy(init[:, :3, :3].astype(np.float32)).to(default_device()),
+                  torch.from_numpy(init[:, :3, 3].astype(np.float32)).to(default_device()))
+    return gt, p0, pose_graph_edges_from_numpy(**e), e
+
+
+def timed_solve(solve):
+    """(poses, chi², host seconds) of one synchronised solve."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt, chi2 = solve()
+    chi2 = float(chi2)
+    torch.cuda.synchronize()
+    return opt, chi2, time.perf_counter() - t0
+
+
+def pose_graph_phase(smi, kind):
+    """Phase 13 (a): the pose graph at KITTI 00's length on the card, dense
+    and CG, each twice (equal to the bit), held against each other and
+    against the JAX CPU reference; the dense solve on the 1,000-node graph
+    against JAX's. Returns the one-rank results the sharded solves are
+    held to: {"dense": (poses, chi²) on the small graph, "cg": on the big
+    graph with POSE_GRAPH_CG_SHARDED}."""
+    from mp2p_icp_tpu_torch.parallel import pose_graph as pg
+
+    ref = PARALLEL_JAX["pose_graph"]
+    cg_params = pg.PoseGraphCGParams(**POSE_GRAPH_CG)
+    dense_params = pg.PoseGraphParams()
+    gt, p0, edges, e = graph_inputs(POSE_GRAPH_NODES, SHARDS)
+    n_loop = int((np.asarray(e["valid"]) & (np.asarray(e["j"]) - np.asarray(e["i"]) > 1)).sum())
+    chi0 = float(pg.chi2_of(p0, edges))
+    print(f"[pose-graph] {POSE_GRAPH_NODES} nodes lapping a {POSE_GRAPH_LAPS}-lap circuit, "
+          f"{POSE_GRAPH_NODES - 1} odometry and {n_loop} loop edges (+{len(e['i']) - n_loop - POSE_GRAPH_NODES + 1} invalid pad), "
+          f"chi2 {chi0:.6g} before [JAX CPU reference: {ref['cg']['chi2_before']:.6g}]")
+    out = {}
+    for name, solve, iters in (
+            ("dense", lambda: pg.optimize_pose_graph(p0, edges, dense_params),
+             dense_params.max_iterations),
+            ("cg", lambda: pg.optimize_pose_graph_cg(p0, edges, cg_params),
+             cg_params.max_iterations)):
+        runs = [timed_solve(solve) for _ in range(2)]
+        (opt, chi2, sec), (opt2, chi2b, sec2) = runs
+        same = torch.equal(opt.R, opt2.R) and torch.equal(opt.t, opt2.t) and chi2 == chi2b
+        err = float(np.linalg.norm(opt.t.cpu().numpy() - gt[:, :3, 3], axis=1).mean())
+        print(f"[pose-graph] {name} on {kind}: chi2 {chi0:.6g} -> {chi2:.8g}, mean error to the "
+              f"truth {err:.4f} m, {sec2 * 1e3 / iters:.1f} ms per Gauss-Newton iteration "
+              f"(warm; cold {sec * 1e3 / iters:.1f}; {iters} iterations"
+              f"{f' of {cg_params.cg_iterations} CG steps' if name == 'cg' else ''}, the final "
+              f"chi2 included); two runs equal to the bit: {same} on {smi}")
+        check(same, f"pose graph {name}: two runs differ")
+        check(np.isfinite(opt.t.cpu().numpy()).all() and chi2 < chi0, f"pose graph {name}: "
+              f"chi2 {chi2} not below {chi0}")
+        out[name] = (opt, chi2)
+    rel = abs(out["cg"][1] - out["dense"][1]) / max(1.0, out["dense"][1])
+    print(f"[pose-graph] CG against dense: chi2 relative gap {rel:.3g} (must be <= 1e-4, "
+          f"tests/test_pose_graph.py:122), translations within "
+          f"{float((out['cg'][0].t - out['dense'][0].t).abs().max()):.4g} m")
+    check(rel <= 1e-4, f"pose graph: CG chi2 {out['cg'][1]} and dense {out['dense'][1]} differ")
+    gap = float(np.abs(out["cg"][0].t.cpu().numpy() - np.asarray(ref["cg"]["t"])).max())
+    rel_j = abs(out["cg"][1] - ref["cg"]["chi2"]) / ref["cg"]["chi2"]
+    print(f"[pose-graph] CG against JAX's CG on the CPU (float32): translations within "
+          f"{gap:.4g} m (band {PG_CG_BAND} m), chi2 {out['cg'][1]:.8g} against "
+          f"{ref['cg']['chi2']:.8g} (relative {rel_j:.3g})")
+    check(gap <= PG_CG_BAND, f"pose graph: CG {gap} m from JAX's")
+    # the dense solve against JAX's on the 1,000-node graph
+    _, p0s, edges_s, _ = graph_inputs(POSE_GRAPH_SMALL, SHARDS)
+    opt_s, chi_s, sec_s = timed_solve(lambda: pg.optimize_pose_graph(p0s, edges_s, dense_params))
+    gap_s = float(np.abs(opt_s.t.cpu().numpy() - np.asarray(ref["dense_small"]["t"])).max())
+    print(f"[pose-graph] dense, {POSE_GRAPH_SMALL} nodes on {kind}: chi2 {chi_s:.8g} "
+          f"[JAX CPU reference {ref['dense_small']['chi2']:.8g}], translations within "
+          f"{gap_s:.4g} m of JAX's (band {PG_DENSE_BAND} m), "
+          f"{sec_s * 1e3 / dense_params.max_iterations:.1f} ms per iteration")
+    check(gap_s <= PG_DENSE_BAND, f"pose graph: dense {gap_s} m from JAX's")
+    cg_sharded = pg.PoseGraphCGParams(**POSE_GRAPH_CG_SHARDED)
+    opt_c, chi_c, sec_c = timed_solve(lambda: pg.optimize_pose_graph_cg(p0, edges, cg_sharded))
+    print(f"[pose-graph] cg with {cg_sharded.cg_iterations} CG steps (the sharded run's "
+          f"reference): chi2 {chi_c:.8g}, {sec_c * 1e3 / cg_sharded.max_iterations:.1f} ms per "
+          f"Gauss-Newton iteration")
+    return {"dense": (opt_s, chi_s, sec_s), "cg": (opt_c, chi_c, sec_c)}
+
+
+def loop_closure_phase(smi, kind, launches, by_path):
+    """Phase 13 (b): kitti-odometry --mapping --loop-closure on an
+    out-and-back drive at HDL-64E geometry, held to the JAX CPU reference:
+    the candidates, the accepted loops, the printed line, ATE before and
+    after the closure, and the correction itself: JAX's odometry poses and
+    loop measurements through the port's optimize_trajectory on the card,
+    beside JAX's corrected poses."""
+    from mp2p_icp_tpu_torch import loop_closure
+    from mp2p_icp_tpu_torch.apps import kitti_odometry
+    from mp2p_icp_tpu_torch.eval.trajectory import load_kitti_poses
+
+    ref = PARALLEL_JAX["loop_closure"]
+    t0 = time.perf_counter()
+    bin_dir, gt_path, gt = write_loop_sequence(LOOP_DIR / "sequence", LOOP_FRAMES, APPS_RINGS,
+                                               APPS_AZIMUTHS)
+    config = LOOP_DIR / "cropped.yaml"
+    config.write_text(ground_cropped_yaml())
+    print(f"[loop] {LOOP_FRAMES} frames of the out-and-back drive ({APPS_RINGS} x "
+          f"{APPS_AZIMUTHS} rays, out {gt[LOOP_FRAMES // 2, 0, 3]:.1f} m and back) written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # record the closure (its input poses, its result, its seconds) and the
+    # iterations of its scan-to-scan aligns (the mapping run calls the
+    # align loop directly, so every ICP.align here is the closure's)
+    seen = {"iterations": 0}
+    close, align = loop_closure.close_and_optimize, ICP.align
+
+    def recorded_close(icp, params, clouds, poses, **kw):
+        t1 = time.perf_counter()
+        res = close(icp, params, clouds, poses, **kw)
+        torch.cuda.synchronize()
+        seen.update(poses=poses, result=res, seconds=time.perf_counter() - t1)
+        return res
+
+    def recorded_align(self, *a, **kw):
+        res = align(self, *a, **kw)
+        seen["iterations"] += res.n_iterations
+        return res
+
+    poses_path = LOOP_DIR / "poses.txt"
+    loop_closure.close_and_optimize, ICP.align = recorded_close, recorded_align
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        text, seconds = printed(kitti_odometry.main, [
+            "--bin-dir", bin_dir, "-c", config, "--gt-poses", gt_path, "--mapping",
+            "--map-capacity", APPS_MAP_CAPACITY, "--loop-closure", "--loop-min-gap", LOOP_MIN_GAP,
+            "--loop-max-distance", LOOP_MAX_DISTANCE, "--out-poses", poses_path,
+            "--device", default_device().type])
+        n = counts()
+    finally:
+        loop_closure.close_and_optimize, ICP.align = close, align
+    got = kitti_odometry_printed(text)
+    calls = got["iterations"] + seen["iterations"]
+    check(n["knn_sweep"] == calls and n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0,
+          f"loop closure: launches {n}, matcher calls {got['iterations']} (mapping) + "
+          f"{seen['iterations']} (closure)")
+    launches["knn_sweep"] += n["knn_sweep"]
+    by_path["knn_sweep"][f"kitti-odometry --mapping --loop-closure, {LOOP_FRAMES} frames"] = \
+        n["knn_sweep"]
+    poses = load_kitti_poses(str(poses_path))
+    res = seen["result"]
+    cands = loop_closure.propose_loop_candidates(seen["poses"], min_frame_gap=LOOP_MIN_GAP,
+                                                 max_distance=LOOP_MAX_DISTANCE)
+    before = trajectory_errors(seen["poses"], gt)
+    after = trajectory_errors(poses, gt)
+    line = next(ln for ln in text.splitlines() if ln.startswith("[loop-closure]"))
+    print(f"[loop] kitti-odometry --mapping --loop-closure on {kind}: {line!r} [JAX CPU "
+          f"reference: {ref['printed']}]; candidates {cands}; accepted (i, j, quality) "
+          f"{[(i, j, round(q, 4)) for i, j, q in res['loops']]}; ATE {before[0]:.4f} m before "
+          f"the closure, {after[0]:.4f} m after [JAX CPU reference: {ref['ate_before_m']:.4f} "
+          f"-> {ref['ate_m']:.4f} m]; {1e3 / got['scans_per_s']:.1f} ms per frame (the app's "
+          f"timer), the closure {seen['seconds']:.2f} s ({len(cands)} aligns, "
+          f"{seen['iterations']} iterations, and the pose graph); {n['knn_sweep']} K1 launches "
+          f"== {got['iterations']} + {seen['iterations']} matcher calls; {seconds:.1f} s for "
+          f"the call on {smi}")
+    # the same pairs; their order (closest first) follows distances of a
+    # few cm between the two runs' odometry
+    check(sorted(map(list, cands)) == sorted(ref["candidates"]),
+          f"loop closure: candidates {cands}, JAX {ref['candidates']}")
+    check(sorted([i, j] for i, j, _q in res["loops"]) == sorted([i, j] for i, j, _q in ref["loops"]),
+          f"loop closure: accepted {res['loops']}, JAX {ref['loops']}")
+    check([line] == ref["printed"], f"loop closure: printed {line!r}, JAX {ref['printed']}")
+    # the closure must gain at least half of what JAX's gained: a pose graph
+    # that returned the odometry unchanged gains nothing
+    margin = 0.5 * (ref["ate_before_m"] - ref["ate_m"])
+    check(after[0] <= max(1.5 * ref["ate_m"], ref["ate_m"] + 0.01)
+          and after[0] <= before[0] - margin,
+          f"loop closure: ATE {after[0]} m after (before {before[0]}, must gain {margin} m), "
+          f"JAX {ref['ate_before_m']} -> {ref['ate_m']}")
+
+    # the correction on JAX's own inputs: its odometry and loop measurements
+    def poses_of(rows):
+        out = np.tile(np.eye(4), (len(rows), 1, 1))
+        out[:, :3, :] = np.asarray(rows, np.float64).reshape(-1, 3, 4)
+        return out
+
+    j_odo, j_fixed = poses_of(ref["poses_odometry"]), poses_of(ref["poses"])
+    dev = default_device()
+    j_loops = [(i, j, se3.Pose(torch.tensor(R, dtype=torch.float32, device=dev).reshape(3, 3),
+                               torch.tensor(t_, dtype=torch.float32, device=dev)), q)
+               for i, j, R, t_, q in ref["loop_measurements"]]
+    fixed = loop_closure.optimize_trajectory(j_odo, j_loops)
+    gap = float(np.linalg.norm(fixed[:, :3, 3] - j_fixed[:, :3, 3], axis=1).max())
+    rot = float(np.abs(fixed[:, :3, :3] - j_fixed[:, :3, :3]).max())
+    moved = float(np.linalg.norm(j_fixed[:, :3, 3] - j_odo[:, :3, 3], axis=1).max())
+    print(f"[loop] optimize_trajectory on the card from JAX's odometry poses and its "
+          f"{len(j_loops)} loop measurements: every corrected pose within {gap:.3g} m and "
+          f"{rot:.3g} (rotation entries) of JAX's (band {PG_DENSE_BAND} m); JAX's correction "
+          f"moves a pose up to {moved:.3f} m")
+    check(gap <= PG_DENSE_BAND and rot <= PG_DENSE_BAND,
+          f"loop closure: the correction of JAX's inputs is {gap} m, {rot} from JAX's")
+    shutil.rmtree(LOOP_DIR / "sequence")  # 100 MB of scans: chiprun_out/ stays small
+
+
+SHARDS = 4  # the sharded kNN's, the spatial aligns' and the sharded pose graph's ranks
+RANK_DEVICE = "cuda:0"  # every rank on the one card
+# m: the card's pose graph against JAX's float32 one on the CPU (the align
+# band; the port on the CPU: CG within 5.1e-4 m, dense 1.1e-3 m)
+PG_CG_BAND = PG_DENSE_BAND = 5e-3
+
+
+def layer_numpy_dict(layers):
+    """{name: {field: numpy array}} of a layer dict (the form the ranks take)."""
+    from mp2p_icp_tpu_torch.convert import pointcloud_to_numpy
+
+    return {k: pointcloud_to_numpy(v) for k, v in layers.items()}
+
+
+def np_pose(p):
+    return p.R.cpu().numpy(), p.t.cpu().numpy()
+
+
+def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases,
+                   batch_case, odometry_case):
+    """Phase 13 (c): the sharded paths, several ranks on the one card over
+    gloo (NCCL refuses two ranks on one GPU): 4 ranks for the sharded kNN,
+    the spatial aligns and the sharded pose graph; 2 ranks, started by
+    init_from_env from the MP2P_* variables, for SpatialOdometryMapper and
+    the data-parallel batch. Each rank's launches and ms beside the one
+    process path's."""
+    from mp2p_icp_tpu_torch.odometry import voxel_owner
+    from mp2p_icp_tpu_torch.parallel import pose_graph as pg
+    from mp2p_icp_tpu_torch.parallel import ranks
+    from mp2p_icp_tpu_torch.parallel.launch import spawn_ranks
+
+    q, points, ks = knn_case
+    _, p0_small, _, e_small = graph_inputs(POSE_GRAPH_SMALL, SHARDS)
+    _, p0_big, _, e_big = graph_inputs(POSE_GRAPH_NODES, SHARDS)
+    tasks = [(ranks.sharded_knn, (q, points, ks, 5))]
+    for label, (icp, params, scan, gmap, guess, _ref, _ms) in align_cases.items():
+        tasks.append((ranks.spatial_align, (icp, params, layer_numpy_dict(scan),
+                                            layer_numpy_dict(gmap), np_pose(guess), 2)))
+    tasks += [(ranks.pose_graph, (np_pose(p0_small), e_small, "dense", pg.PoseGraphParams())),
+              (ranks.pose_graph, (np_pose(p0_big), e_big, "cg",
+                                  pg.PoseGraphCGParams(**POSE_GRAPH_CG_SHARDED)))]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out4 = spawn_ranks(ranks.sequence, SHARDS, "gloo", args=(tasks,), device=RANK_DEVICE)
+    print(f"[parallel] {SHARDS} ranks on the one card (gloo; CUDA tensors through the host) "
+          f"ran {len(tasks)} paths in {time.perf_counter() - t0:.1f} s, start-up included; "
+          f"seconds per path on rank 0: {[round(r['seconds'], 1) for r in out4[0]]}")
+    per_task = list(zip(*out4))
+
+    # the sharded kNN against one sweep of the whole map
+    knn = per_task[0]
+    dev = default_device()
+    qd = torch.from_numpy(q).to(dev)
+    pd = torch.from_numpy(points).to(dev)
+    ones = torch.ones
+    for k in ks:
+        reset_counts()
+        whole = nnb.knn_bruteforce(qd, ones(len(q), dtype=torch.bool, device=dev), pd,
+                                   ones(len(points), dtype=torch.bool, device=dev), k=k)
+        torch.cuda.synchronize()
+        kernel = "knn_sweep_streamed" if len(points) > nnb.STREAM_BLOCK else "knn_sweep"
+        check(counts()[kernel] == 1, "the one sweep of the whole map: not one launch")
+        one_ms = cuda_ms(lambda: nnb.knn_bruteforce(
+            qd, ones(len(q), dtype=torch.bool, device=dev), pd,
+            ones(len(points), dtype=torch.bool, device=dev), k=k), reps=5)
+        same = all(np.array_equal(r[k]["idx"], whole.idx.cpu().numpy())
+                   and np.array_equal(r[k]["dist_sq"], whole.dist_sq.cpu().numpy()) for r in knn)
+        shard_kernel = ("knn_sweep_streamed" if knn[0]["shard_rows"] > nnb.STREAM_BLOCK
+                        else "knn_sweep")
+        per_rank = [r[k]["launches"] for r in knn]
+        print(f"[parallel] sharded kNN, {len(q)} scan points against the {len(points)}-point "
+              f"corridor map in {SHARDS} shards of {knn[0]['shard_rows']} rows, k={k}: d2 and "
+              f"global idx equal to one sweep of the whole map on every rank: {same}; launches "
+              f"per rank {[n[shard_kernel] for n in per_rank]} of {shard_kernel}; "
+              f"{knn[0][k]['ms']:.3f} ms per sharded call (4 sweeps at once, the all_gather and "
+              f"the merge) against {one_ms:.3f} ms for the one sweep of the whole map on {smi}")
+        check(same, f"sharded kNN k={k}: not equal to one sweep of the whole map")
+        check(all(n[shard_kernel] == 1 and sum(n.values()) == 1 for n in per_rank),
+              f"sharded kNN k={k}: launches {per_rank}")
+        launches[shard_kernel] += sum(n[shard_kernel] for n in per_rank)
+        by_path[shard_kernel][f"sharded kNN k={k}, {SHARDS} ranks"] = \
+            [n[shard_kernel] for n in per_rank]
+
+    # the spatial aligns against the one-process aligns
+    for a, (label, (icp, params, scan, gmap, guess, ref, one_ms)) in enumerate(
+            align_cases.items()):
+        got = per_task[1 + a]
+        name = next(iter(gmap))
+        crop = params.crop_capacity
+        whole_box = int(icp.in_crop_box(params, gmap[name], scan, guess).sum())
+        boxes = [r["in_box"][name] for r in got]
+        overflow = whole_box > crop or any(b > crop for b in boxes)
+        kernel = "knn_sweep_streamed" if crop > nnb.STREAM_BLOCK else "knn_sweep"
+        calls = matcher_calls(icp, got[0]["iterations"])
+        per_rank = [r["launches"] for r in got]
+        t_gap = max(float(np.abs(r["pose"][1] - ref.optimal_tf.t.cpu().numpy()).max())
+                    for r in got)
+        R_gap = max(float(np.abs(r["pose"][0] - ref.optimal_tf.R.cpu().numpy()).max())
+                    for r in got)
+        same_its = all(r["iterations"] == ref.n_iterations
+                       and r["termination"] == ref.termination_reason.name for r in got)
+        print(f"[parallel] make_spatial_align, scan to the {label} map in {SHARDS} shards of "
+              f"{gmap[name].capacity // SHARDS} rows, each cropped to {crop} (if larger): in-box rows per "
+              f"shard {boxes} (whole map {whole_box}; a crop overflows: {overflow}); "
+              f"{got[0]['iterations']} iterations, {got[0]['termination']} [one process: "
+              f"{ref.n_iterations}, {ref.termination_reason.name}]; pose gap to the one-process "
+              f"align R {R_gap:.3g}, t {t_gap:.3g}; launches per rank "
+              f"{[n[kernel] for n in per_rank]} of {kernel} == {calls} matcher calls; "
+              f"{got[0]['ms']:.1f} ms per align against {one_ms:.1f} ms in one process on {smi}")
+        if overflow:
+            check(t_gap <= 5e-3 and abs(got[0]["iterations"] - ref.n_iterations) <= 1,
+                  f"spatial align {label}: {t_gap} m, iterations {got[0]['iterations']}")
+        else:
+            check(t_gap == 0.0 and R_gap == 0.0 and same_its,
+                  f"spatial align {label}: not the one-process align to the bit")
+        check(all(n[kernel] == calls and sum(n.values()) == calls for n in per_rank),
+              f"spatial align {label}: launches {per_rank}, matcher calls {calls}")
+        launches[kernel] += sum(n[kernel] for n in per_rank)
+        by_path[kernel][f"spatial align, {label} map, {SHARDS} ranks"] = \
+            [n[kernel] for n in per_rank]
+
+    # the sharded pose graph against one rank
+    for t_i, which in ((1 + len(align_cases), "dense"), (2 + len(align_cases), "cg")):
+        got = per_task[t_i]
+        opt, chi2, sec = one_rank[which]
+        gap = max(float(np.abs(r["pose"][1] - opt.t.cpu().numpy()).max()) for r in got)
+        alike = all(np.array_equal(r["pose"][1], got[0]["pose"][1]) for r in got)
+        nodes = POSE_GRAPH_SMALL if which == "dense" else POSE_GRAPH_NODES
+        steps = (f", {POSE_GRAPH_CG_SHARDED['cg_iterations']} CG steps" if which == "cg" else "")
+        print(f"[parallel] pose graph {which} ({nodes} nodes{steps}) with the edges over "
+              f"{SHARDS} ranks: within {gap:.3g} m of one rank (band 1e-3 m), chi2 "
+              f"{got[0]['chi2']:.8g} [one rank {chi2:.8g}], every rank the same bits: {alike}; "
+              f"{got[0]['solve_ms'] / 10:.1f} ms per Gauss-Newton iteration against "
+              f"{sec * 1e2:.1f} on one rank on {smi}")
+        check(gap <= 1e-3 and alike, f"sharded pose graph {which}: {gap} m from one rank")
+
+    # the 2-rank paths: SpatialOdometryMapper and the data-parallel batch
+    mapper, frames_np, twists, gt, run_1 = odometry_case
+    icp_b, params_b, locals_np, map_np, guesses, rb, b_ms = batch_case
+    t0 = time.perf_counter()
+    out2 = spawn_ranks(ranks.sequence, SPATIAL_RANKS, "gloo", device=RANK_DEVICE, init="env", args=([
+        (ranks.spatial_mapper, (mapper, frames_np, twists, (gt[0, :3, :3], gt[0, :3, 3]),
+                                ODO_DT, ODO_RESOLUTION)),
+        (ranks.data_parallel_batch, (icp_b, params_b, locals_np, map_np, guesses, 2))],))
+    print(f"[parallel] {SPATIAL_RANKS} ranks on the one card, started by init_from_env from "
+          f"MP2P_COORDINATOR / MP2P_NUM_PROCESSES / MP2P_PROCESS_ID (gloo): 2 paths in "
+          f"{time.perf_counter() - t0:.1f} s, start-up included; seconds per path on rank 0: "
+          f"{[round(r['seconds'], 1) for r in out2[0]]}")
+    sm, db = [r[0] for r in out2], [r[1] for r in out2]
+    ref = PARALLEL_JAX["spatial_mapper"]
+    ate = ate_rmse(sm[0]["poses"], gt)
+    m = sm[0]["map"]
+    sets = []
+    for s in range(SPATIAL_RANKS):
+        xyz = m["xyz"][s][: m["count"][s]]
+        owner = voxel_owner(torch.from_numpy(xyz), ODO_RESOLUTION, SPATIAL_RANKS).numpy()
+        check(len(xyz) > 0 and (owner == s).all(), f"spatial mapper: shard {s} owns a foreign voxel")
+        sets.append({tuple(c) for c in np.floor(xyz / ODO_RESOLUTION).astype(np.int64)})
+    shared = len(sets[0] & sets[1])
+    n1 = int(run_1["map"].count)
+    one = {tuple(c) for c in np.floor(run_1["map"].xyz[:n1].cpu().numpy()
+                                      / ODO_RESOLUTION).astype(np.int64)}
+    union = set().union(*sets)
+    jac = len(one & union) / len(one | union)
+    per_rank = [r["launches"] for r in sm]
+    calls = (sum(matcher_calls(mapper.icp, int(i)) for i in sm[0]["iterations"])
+             + (len(frames_np) - 1) + 1)
+    frame_ms = np.median(sm[0]["frame_seconds"]) * 1e3
+    print(f"[parallel] SpatialOdometryMapper, the {len(frames_np)}-frame drive over "
+          f"{SPATIAL_RANKS} ranks (incremental map, 2 shards of {m['xyz'].shape[1]} rows): ATE "
+          f"{ate:.4f} m [JAX CPU reference over 2 devices: {ref['ate_m']:.4f} m; one process "
+          f"on the card: {ate_rmse(run_1['poses'], gt):.4f} m]; shard maps {m['count'].tolist()} "
+          f"points [JAX: {ref['map_points']}], voxels on two shards: {shared}; the union's "
+          f"voxels {len(union)} against the one-process map's {len(one)}: Jaccard {jac:.4f}; "
+          f"every rank the same poses: {np.array_equal(sm[0]['poses'], sm[1]['poses'])}; "
+          f"dropped {[r['dropped'] for r in sm]}; K1 launches per rank "
+          f"{[n['knn_sweep'] for n in per_rank]} == {calls} (matcher calls + normals fits + "
+          f"the seed's); {frame_ms:.1f} ms per frame (median) against "
+          f"{np.median(run_1['frame_seconds']) * 1e3:.1f} in one process on {smi}")
+    check(shared == 0 and jac >= 0.97 and all(r["dropped"] == 0 for r in sm),
+          f"spatial mapper: {shared} voxels on two shards, Jaccard {jac}")
+    check(np.array_equal(sm[0]["poses"], sm[1]["poses"]), "spatial mapper: the ranks' poses differ")
+    check(ate <= max(1.5 * ref["ate_m"], ref["ate_m"] + 0.01),
+          f"spatial mapper: ATE {ate} m outside max(1.5x, +0.01 m) of JAX's {ref['ate_m']}")
+    check(all(n["knn_sweep"] == calls and sum(n.values()) == calls for n in per_rank),
+          f"spatial mapper: launches {per_rank}, expected {calls} K1")
+    launches["knn_sweep"] += sum(n["knn_sweep"] for n in per_rank)
+    by_path["knn_sweep"][f"SpatialOdometryMapper, {len(frames_np)} frames, "
+                         f"{SPATIAL_RANKS} ranks"] = [n["knn_sweep"] for n in per_rank]
+
+    per_rank = [r["launches"] for r in db]
+    R, t = rb.optimal_tf.R.cpu().numpy(), rb.optimal_tf.t.cpu().numpy()
+    same = all(np.array_equal(r["R"], R) and np.array_equal(r["t"], t)
+               and np.array_equal(r["iterations"], rb.n_iterations.cpu().numpy()) for r in db)
+    print(f"[parallel] data-parallel batch: {len(guesses)} scans against the shared 1M map, "
+          f"{db[0]['rows']} per rank over {SPATIAL_RANKS} ranks: every rank's fetched poses "
+          f"and iterations equal to the one-process batch to the bit: {same}; K2 launches per "
+          f"rank {[n['knn_sweep_batched'] for n in per_rank]}; {db[0]['ms']:.1f} ms per call "
+          f"against {b_ms:.1f} ms for all {len(guesses)} in one process on {smi}")
+    check(same, "data-parallel batch: not the one-process batch")
+    its = rb.n_iterations.cpu().numpy()
+    rows = len(guesses) // SPATIAL_RANKS
+    for r_, n in enumerate(per_rank):
+        calls = matcher_calls(icp_b, int(its[r_ * rows:(r_ + 1) * rows].max()))
+        check(n["knn_sweep_batched"] == calls and sum(n.values()) == calls,
+              f"data-parallel batch rank {r_}: launches {n}, matcher calls {calls}")
+    launches["knn_sweep_batched"] += sum(n["knn_sweep_batched"] for n in per_rank)
+    by_path["knn_sweep_batched"][f"data-parallel batch, {SPATIAL_RANKS} ranks"] = \
+        [n["knn_sweep_batched"] for n in per_rank]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile each path (phase 13)")
+                    help="also profile each path (phase 14)")
     args = ap.parse_args()
 
     clock = [time.perf_counter()]
@@ -2549,6 +3126,12 @@ def main():
     errs["knn_sweep_batched"].append(compare(
         f"K2 {BATCH}x8192x65536 k=1 shared map", nnb.knn_sweep_batched,
         nnb.knn_plain_batched, scans_b, maps_b[0], 1))
+    # the launch a data-parallel rank makes with its half of the batch (the
+    # split of the point axis depends on B)
+    b_rank = BATCH // SPATIAL_RANKS
+    errs["knn_sweep_batched"].append(compare(
+        f"K2 {b_rank}x8192x65536 k=1 (a data-parallel rank's share)", nnb.knn_sweep_batched,
+        nnb.knn_plain_batched, scans_b[:b_rank], maps_b[:b_rank], 1))
     errs["knn_sweep_batched"].append(compare(
         f"K2 {BATCH}x777x3001 k=4 invalid rows", nnb.knn_sweep_batched,
         nnb.knn_plain_batched, qs.expand(BATCH, -1, -1).contiguous(),
@@ -2658,6 +3241,9 @@ def main():
          lambda: nnb.knn_sweep_batched(scans_b, map_64k, 1), None),
         ("knn_sweep_batched", "batched B=2", 2, N_POINTS, 1 << 16, 1,
          lambda: nnb.knn_sweep_batched(scans_b[:2], maps_b[:2], 1), None),
+        ("knn_sweep_batched", "B=4, a data-parallel rank's half of the batch", 4, N_POINTS,
+         1 << 16, 1, lambda: nnb.knn_sweep_batched(scans_b[:4], maps_b[:4], 1),
+         lambda: nnb.knn_plain_batched(scans_b[:4], maps_b[:4], 1)),
         ("knn_sweep_batched", "fleet step", BATCH, 6144, 1 << 14, 1,
          lambda: nnb.knn_sweep_batched(fleet_q, fleet_p, 1),
          lambda: nnb.knn_plain_batched(fleet_q, fleet_p, 1)),
@@ -2675,7 +3261,7 @@ def main():
     operands = [(q, p), (q, p), (q2d, p2d), (q2d, p2d), (q2d, p2d), (odo_q, odo_p),
                 (fit_q, fit_p), (odo_q, odo_q), (scan_q, map_64k), (scan_q, map_p),
                 (scan_q, map_p), (scan_q, map_p), (scans_b, maps_b), (scans_b, map_64k),
-                (scans_b[:2], maps_b[:2]), (fleet_q, fleet_p), (fleet_fq, fleet_fp), (q1k, p1k),
+                (scans_b[:2], maps_b[:2]), (scans_b[:4], maps_b[:4]), (fleet_q, fleet_p), (fleet_fq, fleet_fp), (q1k, p1k),
                 (q1k, p1k), (q64k, p64k)]
     check(len(operands) == len(timed), "a timed row without its operands")
     graph_times = [[] for _ in timed]
@@ -2757,7 +3343,7 @@ def main():
     micp = map_icp()
     scan_l, sensor, gt_map = sensor_scan(corridor, 200.0, 34,
                                          (0.9, 0.2, 0.02, 0.02, 0.003, -0.004))
-    maps = {}
+    maps, map_results = {}, {}
     for label, n_map, crop, (j_err, j_it, j_reason) in MAP_CASES:
         gmap = {"map": PointCloud.from_numpy(corridor[:n_map], capacity=n_map)}
         mparams = ICPParameters(max_iterations=40, crop_capacity=crop, crop_extra_margin=4.0)
@@ -2789,6 +3375,7 @@ def main():
         print(f"[count] {label}: {kernel} launches {n[kernel]} == matcher calls {calls}")
         check(err < ERR_LIMIT, f"{label} map: SE(3) error {err} >= {ERR_LIMIT}")
         maps[label] = (gmap, mparams)
+        map_results[label] = (res, statistics.median(warm) * 1e3)
     map_1m = maps["1M"][0]
 
     phase_done("scan to large maps")
@@ -2937,7 +3524,30 @@ def main():
     apps_phase(smi, kind, launches, by_path, errs, shapes, pass1)
 
     phase_done("apps")
-    # ---- 13. profile (optional)
+    # ---- 13. the pose graph, loop closure and the sharded paths
+    global PARALLEL_JAX
+    PARALLEL_JAX = json.loads(PARALLEL_REFERENCE.read_text())
+    one_rank = pose_graph_phase(smi, kind)
+    phase_done("pose graph")
+    loop_closure_phase(smi, kind, launches, by_path)
+    phase_done("loop closure")
+    align_cases = {label: (micp, maps[label][1], scan_l, maps[label][0], sensor,
+                           *map_results[label]) for label in ("1M", "2M")}
+    # the 1M map with a crop that keeps every in-box row, in one process and
+    # in each shard: the case where the sharded align must equal it to the bit
+    params_wide = dataclasses.replace(maps["1M"][1], crop_capacity=1 << 19)
+    walls, res_wide = timed_aligns(micp, scan_l, map_1m, params_wide, 3, sensor)
+    align_cases["1M, crop 2^19"] = (micp, params_wide, scan_l, map_1m, sensor, res_wide,
+                                    statistics.median(walls[1:]) * 1e3)
+    batch_case = (micp, bparams, [layer_numpy_dict(pr_[0]) for pr_ in problems],
+                  layer_numpy_dict(map_1m), [np_pose(pr_[1]) for pr_ in problems], rb,
+                  statistics.median(warm_b) * 1e3)
+    odometry_case = (mapper, [layer_numpy_dict(f) for f in frames_o], twists_o, gt_o, runs_o[-1])
+    parallel_phase(smi, kind, launches, by_path, one_rank,
+                   (scan_q.cpu().numpy(), corridor[: 1 << 20], (1, 8)), align_cases, batch_case,
+                   odometry_case)
+    phase_done("sharded paths")
+    # ---- 14. profile (optional)
     if args.profile:
         profile_align(icp, loc, glob, params, smi, tables)
         gmap_2m, params_2m = maps["2M"]
@@ -2955,7 +3565,7 @@ def main():
         (out / "profile_tables.txt").write_text("\n\n".join(tables))
 
     phase_done("profile")
-    # ---- 14. results
+    # ---- 15. results
     # a kernel's own line is its first shape (the one its path gives it)
     print(json.dumps({"kernels": [{
         "name": name,

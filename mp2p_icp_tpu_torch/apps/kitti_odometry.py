@@ -13,7 +13,9 @@ through the YAML's filter pipeline and the ICP engine in one process:
   the poses once per batch and only frames [s, s+B] are resident;
 - ``--mapping``: scan-to-map odometry with ``OdometryMapper``, the
   matchers re-pointed at the rolling map layer, a FirstPoint voxel filter
-  maintaining it.
+  maintaining it; with ``--loop-closure``, then revisit detection,
+  ICP-verified loop edges and the pose graph over the trajectory
+  (``loop_closure.py``).
 
 The trajectory is evaluated against ground truth (ATE / RPE) and saved in
 KITTI pose format.
@@ -22,7 +24,8 @@ Usage:
   python -m mp2p_icp_tpu_torch.apps.kitti_odometry \\
       --bin-dir KITTI/sequences/00/velodyne -c icp-settings-kitti.yaml \\
       [--gt-poses 00.txt] [--max-frames N] [--out-poses est.txt] [-B 8] \\
-      [--mapping [--map-capacity N] [--out-map map.mm.npz]] [--device cpu]
+      [--mapping [--map-capacity N] [--out-map map.mm.npz] [--loop-closure]]
+      [--device cpu]
 """
 
 from __future__ import annotations
@@ -37,10 +40,6 @@ import time
 import numpy as np
 
 from mp2p_icp_tpu_torch.apps import add_device_argument, on_device
-
-LOOP_CLOSURE_TODO = ("--loop-closure: loop closure and the pose graph are not ported yet "
-                     "(ROADMAP A.7)")
-
 
 def sequence_capacity(scan_paths) -> int:
     """One capacity for the whole sequence, from its largest scan (16 bytes
@@ -172,18 +171,23 @@ def run_sequence(scan_paths, config_path: str, gt_poses=None, max_frames=None, v
 def run_sequence_mapping(scan_paths, config_path: str, gt_poses=None, max_frames=None,
                          map_layer: str = "map", map_capacity: int = 1 << 20,
                          map_voxel: float = 0.5, merge_every: int = 1,
-                         loop_closure: bool = False, verbose=True, device=None):
+                         loop_closure: bool = False, loop_min_gap: int = 20,
+                         loop_max_distance: float = 5.0, verbose=True, device=None):
     """Scan-to-map odometry (the mola_lidar_odometry loop): per frame the
     YAML's filter pipeline, an align against the rolling map on the device
     and the merge into it (``OdometryMapper`` of the port). The config's
     matchers are re-pointed at ``map_layer`` on the global side; a
     FilterDecimateVoxels (FirstPoint, ``map_voxel``) maintains the map.
 
+    ``loop_closure``: after the run, loop closure over the trajectory
+    (candidates at least ``loop_min_gap`` frames apart and within
+    ``loop_max_distance`` m, verified scan to scan with the YAML's own
+    modules, reloaded); "poses" are then the corrected ones, "poses_odometry" the
+    run's, "loop_closures" the accepted (i, j, quality).
+
     Returns OdometryMapper.run's dict ("poses", "map", "iterations" per
     frame, ...) with "n_frames" and, with ``gt_poses``, "ate_rmse",
     "rpe_trans", "rpe_rot"."""
-    if loop_closure:
-        raise NotImplementedError(LOOP_CLOSURE_TODO)
     from mp2p_icp_tpu_torch.device import resolve
     from mp2p_icp_tpu_torch.filters.decimate_voxels import FilterDecimateVoxels
     from mp2p_icp_tpu_torch.io.kitti import load_kitti_bin
@@ -213,6 +217,26 @@ def run_sequence_mapping(scan_paths, config_path: str, gt_poses=None, max_frames
     frames = [{"raw": load_kitti_bin(str(p), capacity=cap, device=device)} for p in scan_paths]
     out = mapper.run(frames, progress_every=50 if verbose else 0)
     out["n_frames"] = len(frames)
+    if loop_closure:
+        from mp2p_icp_tpu_torch.filters import apply_filter_pipeline
+        from mp2p_icp_tpu_torch.loop_closure import close_and_optimize
+
+        # the scan-to-scan aligns of the closure take the YAML's own layer
+        # topology: reload it
+        icp_lc, params_lc, _ = load_icp_config_file(config_path)
+
+        class _Filtered:  # a frame's filtered cloud, made when a candidate reads it
+            def __getitem__(self, k):
+                return apply_filter_pipeline(mapper.filters, dict(frames[k]))[local_layer]
+
+        lc = close_and_optimize(icp_lc, params_lc, _Filtered(), out["poses"],
+                                min_frame_gap=loop_min_gap, max_distance=loop_max_distance,
+                                layer=icp_lc.matchers[0].layer_matches[0].global_layer)
+        if verbose:
+            print(f"[loop-closure] candidates={lc['n_candidates']} accepted={lc['n_accepted']}")
+        out["poses_odometry"] = out["poses"]
+        out["poses"] = lc["poses"]
+        out["loop_closures"] = lc["loops"]
     return _evaluate(out, gt_poses)
 
 
@@ -238,12 +262,14 @@ def main(argv=None):
     ap.add_argument("--out-map", default=None,
                     help="save the final map as .mm.npz (mapping mode)")
     ap.add_argument("--loop-closure", action="store_true",
-                    help="after the mapping run: loop closure and pose-graph optimisation "
-                         "(not ported yet: raises NotImplementedError)")
+                    help="after the mapping run: revisit detection, ICP-verified loop edges "
+                         "and pose-graph Gauss-Newton over the trajectory (mapping mode)")
+    ap.add_argument("--loop-min-gap", type=int, default=20,
+                    help="minimum frame separation for a loop candidate")
+    ap.add_argument("--loop-max-distance", type=float, default=5.0,
+                    help="maximum revisit distance [m] for a candidate")
     add_device_argument(ap)
     args = ap.parse_args(argv)
-    if args.loop_closure:
-        raise NotImplementedError(LOOP_CLOSURE_TODO)
 
     from mp2p_icp_tpu_torch.eval.trajectory import load_kitti_poses, save_kitti_poses
 
@@ -256,7 +282,9 @@ def main(argv=None):
             out = run_sequence_mapping(
                 paths, args.config, gt_poses=gt, max_frames=args.max_frames,
                 map_capacity=args.map_capacity, map_voxel=args.map_voxel,
-                merge_every=args.merge_every, loop_closure=args.loop_closure, device=device)
+                merge_every=args.merge_every, loop_closure=args.loop_closure,
+                loop_min_gap=args.loop_min_gap, loop_max_distance=args.loop_max_distance,
+                device=device)
             if args.out_map:
                 from mp2p_icp_tpu_torch.core.metric_map import MetricMap
                 from mp2p_icp_tpu_torch.io.mm import save_mm_file

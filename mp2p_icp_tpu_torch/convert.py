@@ -63,6 +63,7 @@ from mp2p_icp_tpu_torch.matchers import (
     MatcherPointsInlierRatio,
 )
 from mp2p_icp_tpu_torch.ops.voxel_hash_map import VoxelHashMapState
+from mp2p_icp_tpu_torch.parallel.pose_graph import PoseGraphEdges
 from mp2p_icp_tpu_torch.quality.paired_ratio import QualityPairedRatio
 from mp2p_icp_tpu_torch.quality.range_image import QualityRangeImageSimilarity
 from mp2p_icp_tpu_torch.quality.voxels import QualityVoxels
@@ -72,9 +73,8 @@ from mp2p_icp_tpu_torch.solvers.robust import RobustKernel
 from mp2p_icp_tpu_torch.solvers.solver import SolverGaussNewton, SolverHorn, SolverOLAE
 
 # JAX-side fields with no counterpart in the port: the hash-grid candidate
-# budget (the grid path is not ported) and the shard count (read only when
-# spatial_axis is set, which raises)
-_DROPPED_FIELDS = {"k_per_cell", "spatial_num_shards"}
+# budget (the grid path is not ported)
+_DROPPED_FIELDS = {"k_per_cell"}
 _CHANNELS = ("intensity", "ring", "time", "normals")
 
 
@@ -215,6 +215,36 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def sharded_layers_from_jax(g_sharded: dict, device=None) -> dict:
+    """The port's copy of ``parallel.spatial.shard_global_layers``' output
+    in the JAX package: {name: stacked [n, C/n] cloud} (read through
+    numpy)."""
+    return {name: pointcloud_from_jax(pc, device) for name, pc in g_sharded.items()}
+
+
+def pose_graph_edges_from_numpy(i, j, z_R, z_t, information, valid=None,
+                                device=None) -> PoseGraphEdges:
+    """PoseGraphEdges from numpy arrays: nodes [E], measured poses R [E, 3,
+    3] and t [E, 3], information [E, 6, 6], validity [E] (all valid when
+    None)."""
+    device = resolve(device)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+    valid = np.ones(len(i), bool) if valid is None else valid
+    return PoseGraphEdges(i=t(i, np.int64), j=t(j, np.int64),
+                          z=Pose(t(z_R, np.float32), t(z_t, np.float32)),
+                          information=t(information, np.float32), valid=t(valid, np.bool_))
+
+
+def pose_graph_edges_from_jax(edges, device=None) -> PoseGraphEdges:
+    """The port's copy of a JAX package PoseGraphEdges (read through numpy)."""
+    return pose_graph_edges_from_numpy(
+        np.asarray(edges.i), np.asarray(edges.j), np.asarray(edges.z.R), np.asarray(edges.z.t),
+        np.asarray(edges.information), np.asarray(edges.valid), device=device)
+
+
 def pose_from_numpy(R, t, device=None) -> Pose:
     device = resolve(device)
     return Pose(
@@ -244,10 +274,21 @@ def expressions_from_jax(cfg: dict) -> dict:
     return {k: one(v) for k, v in cfg.items()}
 
 
-def _module_fields(cfg: dict) -> dict:
+def _module_fields(cfg: dict, mesh=None) -> dict:
     cfg = expressions_from_jax(cfg)
-    if cfg.pop("spatial_axis", None) is not None:
-        raise NotImplementedError("spatially sharded matchers are not ported yet")
+    if isinstance(cfg.get("spatial_axis"), str):
+        # the JAX package names a mesh axis; the port holds this rank's axis
+        if mesh is None:
+            raise ValueError(f"spatial_axis={cfg['spatial_axis']!r}: pass the mesh whose "
+                             "axis it names")
+        cfg["spatial_axis"] = mesh.axis(cfg["spatial_axis"])
+    if "spatial_num_shards" in cfg:
+        # the port reads the shard count from the axis itself
+        n = cfg.pop("spatial_num_shards")
+        axis = cfg.get("spatial_axis")
+        if axis is not None and n != axis.size:
+            raise ValueError(f"spatial_num_shards={n} but the mesh axis "
+                             f"{axis.name!r} has {axis.size} ranks")
     for k in _DROPPED_FIELDS:
         cfg.pop(k, None)
     if "layer_matches" in cfg:
@@ -255,9 +296,11 @@ def _module_fields(cfg: dict) -> dict:
     return cfg
 
 
-def matcher_from_config(name: str, cfg: dict):
-    """A port matcher from a JAX matcher's class name and asdict."""
-    cfg = _module_fields(cfg)
+def matcher_from_config(name: str, cfg: dict, mesh=None):
+    """A port matcher from a JAX matcher's class name and asdict; a
+    ``spatial_axis`` name becomes that axis of ``mesh``
+    (``parallel.mesh.make_mesh``)."""
+    cfg = _module_fields(cfg, mesh)
     if name == "MatcherPointsDistanceThreshold":
         return MatcherPointsDistanceThreshold(**cfg)
     if name == "MatcherAdaptive":
@@ -343,7 +386,7 @@ def params_from_config(cfg: dict) -> ICPParameters:
 
 
 def icp_from_config(matchers, solvers, quality_evaluators=None,
-                    quality_weights=None) -> ICP:
+                    quality_weights=None, mesh=None) -> ICP:
     """An ICP from ``[(class name, dataclasses.asdict(module)), ...]`` lists
     of the JAX package's modules. Without ``quality_evaluators`` the ICP
     keeps its default (one paired-ratio evaluator)."""
@@ -355,7 +398,7 @@ def icp_from_config(matchers, solvers, quality_evaluators=None,
     if quality_weights is not None:
         kw["quality_weights"] = list(quality_weights)
     return ICP(
-        matchers=[matcher_from_config(n, c) for n, c in matchers],
+        matchers=[matcher_from_config(n, c, mesh) for n, c in matchers],
         solvers=[solver_from_config(n, c) for n, c in solvers],
         **kw,
     )

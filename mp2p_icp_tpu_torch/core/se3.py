@@ -38,6 +38,11 @@ def identity(dtype=torch.float32, device=None) -> Pose:
                 torch.zeros(3, dtype=dtype, device=device))
 
 
+def from_matrix(T: torch.Tensor) -> Pose:
+    """The pose of a homogeneous [..., 4, 4] matrix."""
+    return Pose(T[..., :3, :3], T[..., :3, 3])
+
+
 def matmul3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """A @ B for A [..., n, 3] and B [..., 3, m], as three broadcast
     products added in index order. Only elementwise kernels run, so a value
@@ -262,6 +267,15 @@ def se3_left_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
 def se3_right_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
     """Jr^-1(xi) = Jl^-1(-xi)."""
     return se3_left_jacobian_inv(-xi)
+
+
+def adjoint(p: Pose) -> torch.Tensor:
+    """SE(3) adjoint for the tangent order [rho, theta]:
+    Ad(T) = [[R, hat(t) R], [0, R]] (6x6), so that
+    T exp(xi) T^-1 = exp(Ad(T) xi)."""
+    top = torch.cat([p.R, matmul3(hat(p.t), p.R)], dim=-1)
+    bottom = torch.cat([torch.zeros_like(p.R), p.R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:

@@ -44,6 +44,7 @@ from mp2p_icp_tpu_torch.matchers.base import (
     MatchContext,
     MatchState,
     point_layers,
+    spatial_scale,
     transformed_local,
 )
 from mp2p_icp_tpu_torch.quality.paired_ratio import QualityPairedRatio
@@ -156,7 +157,9 @@ class ICP:
         masks are only kept when several matchers run together.
         ``gidx_maps``: the crop's index maps (see _crop_globals)."""
         device = pose.t.device
-        state = MatchState.create(l_layers, g_layers) if sum(active) > 1 else None
+        # on a map split over ranks the global masks span every shard
+        scale = max(spatial_scale(m) for m in self.matchers)
+        state = MatchState.create(l_layers, g_layers, scale) if sum(active) > 1 else None
         ctx = MatchContext(icp_iteration=iteration,
                            global_index_maps=gidx_maps)
         acc: Dict[str, list] = {k: [] for k in BLOCK_TYPES}
@@ -294,26 +297,12 @@ class ICP:
         if not todo:
             return g_layers, {}
         M = params.crop_capacity
-        margin = params.crop_extra_margin + max(
-            (m.search_radius() for m in self.matchers), default=0.0
-        )
-        lnames = {lm.local_layer for m in self.matchers for lm in m.layer_matches}
-        los, his = [], []
-        for name in sorted(lnames):
-            if name not in l_layers:
-                continue
-            pts, valid = transformed_local(l_layers[name], guess)
-            los.append(torch.min(torch.where(valid[:, None], pts, _BIG), dim=0).values)
-            his.append(torch.max(torch.where(valid[:, None], pts, -_BIG), dim=0).values)
-        lo = torch.min(torch.stack(los), dim=0).values - margin
-        hi = torch.max(torch.stack(his), dim=0).values + margin
-
         out = dict(g_layers)
         index_maps = {}
         for name in todo:
             g = g_layers[name]
             N = g.capacity
-            inside = g.valid_mask() & torch.all((g.xyz >= lo) & (g.xyz <= hi), dim=1)
+            inside = self.in_crop_box(params, g, l_layers, guess)
             rank = torch.cumsum(inside, dim=0) - 1
             total = torch.sum(inside)
             stride = torch.clamp((total + M - 1) // M, min=1)
@@ -342,6 +331,25 @@ class ICP:
             )
             index_maps[name] = torch.where(keep, order.to(torch.int32), -1)
         return out, index_maps
+
+    def in_crop_box(self, params, g: PointCloud, l_layers, guess) -> torch.Tensor:
+        """[C] bool: the valid rows of ``g`` inside the crop's box, the box
+        around the transformed local layers the matchers read, grown by
+        the matchers' largest search radius plus ``crop_extra_margin``."""
+        margin = params.crop_extra_margin + max(
+            (m.search_radius() for m in self.matchers), default=0.0
+        )
+        lnames = {lm.local_layer for m in self.matchers for lm in m.layer_matches}
+        los, his = [], []
+        for name in sorted(lnames):
+            if name not in l_layers:
+                continue
+            pts, valid = transformed_local(l_layers[name], guess)
+            los.append(torch.min(torch.where(valid[:, None], pts, _BIG), dim=0).values)
+            his.append(torch.max(torch.where(valid[:, None], pts, -_BIG), dim=0).values)
+        lo = torch.min(torch.stack(los), dim=0).values - margin
+        hi = torch.max(torch.stack(his), dim=0).values + margin
+        return g.valid_mask() & torch.all((g.xyz >= lo) & (g.xyz <= hi), dim=1)
 
     # ------------------------------------------------------------------ loop
     def _quality_stack(self, pairings, g_layers, l_layers, pose, iteration):

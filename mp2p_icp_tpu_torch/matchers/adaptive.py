@@ -38,8 +38,10 @@ from mp2p_icp_tpu_torch.matchers.base import (
     Matcher,
     MatchState,
     claim,
+    neighbour_xyz,
     point_layers,
     recorded_global_idx,
+    spatial_scale,
     static_value,
     transformed_local,
 )
@@ -95,6 +97,10 @@ class MatcherAdaptive(Matcher):
     allow_match_already_matched_points: bool = False
     allow_match_already_matched_global_points: bool = False
     layer_matches: Tuple[LayerMatch, ...] = (LayerMatch(),)
+    # the map split over ranks (parallel/spatial.py): this rank's
+    # parallel.mesh.MeshAxis; its size is the shard count that the global
+    # ids and claim masks span
+    spatial_axis: object = None
 
     def search_radius(self) -> float:
         """The largest pairing distance, for the large-map crop's margin: an
@@ -140,8 +146,9 @@ class MatcherAdaptive(Matcher):
 
             res = knn_bruteforce(
                 pts, valid, glayer.xyz, glayer.valid_mask(), k=knn,
-                max_radius_sq=amsd**2,
+                max_radius_sq=amsd**2, spatial_axis=self.spatial_axis,
             )
+            neigh = neighbour_xyz(res, glayer)  # [Q, knn, 3]
 
             # --- stage 1: adaptive threshold from the 1st/2nd NN histogram
             max_corr_dist_sq = adaptive_threshold_sq(
@@ -152,7 +159,6 @@ class MatcherAdaptive(Matcher):
             C = local.capacity
             local_idx = torch.arange(C, dtype=torch.int32, device=pts.device)
             if self.enable_detect_planes:
-                neigh = glayer.xyz[torch.clamp(res.idx, 0, glayer.capacity - 1).long()]
                 pe = estimate_points_eigen(neigh, res.valid)
                 l0, l1, l2 = pe.eigenvalues.unbind(-1)
                 plane_like = ((l0 < self.plane_eigen_threshold * l2)
@@ -185,19 +191,19 @@ class MatcherAdaptive(Matcher):
             if is_plane is not None:
                 keep = keep & ~is_plane[:, None]
             gidx = res.idx[:, :kk]
-            g_cap = glayer.capacity
-            safe_gk = torch.clamp(gidx, 0, g_cap - 1).long()
             if state is not None and not self.allow_match_already_matched_global_points:
                 # skip globals an earlier matcher already paired
                 # (Matcher_Adaptive.cpp:278-281)
-                keep = keep & ~state.global_paired[lm.global_layer][safe_gk]
+                g_cap = glayer.capacity * spatial_scale(self)
+                keep = keep & ~state.global_paired[lm.global_layer][
+                    torch.clamp(gidx, 0, g_cap - 1).long()]
             w = torch.where(keep, lm.weight * gate, 0.0)
             wf = w.reshape(-1)
             gflat = gidx.reshape(-1)
             pt_blocks.append(
                 PairsPt2Pt(
                     local=torch.repeat_interleave(local.xyz, kk, dim=0),
-                    globl=glayer.xyz[safe_gk].reshape(-1, 3),
+                    globl=neigh[:, :kk].reshape(-1, 3),
                     weight=wf,
                     local_idx=torch.where(
                         wf > 0, torch.repeat_interleave(local_idx, kk), -1

@@ -67,7 +67,11 @@ class MatchState(NamedTuple):
     global_paired: Dict[str, torch.Tensor]
 
     @staticmethod
-    def create(local_map, global_map) -> "MatchState":
+    def create(local_map, global_map, global_scale: int = 1) -> "MatchState":
+        """global_scale > 1: the global layers are one rank's shards of a
+        map split over that many ranks, and the global masks span the
+        global ids of all shards (shard · capacity + local); built from the
+        merged kNN results, they are the same on every rank."""
         return MatchState(
             local_paired={
                 name: torch.zeros(layer.capacity, dtype=torch.bool,
@@ -75,7 +79,7 @@ class MatchState(NamedTuple):
                 for name, layer in point_layers(local_map).items()
             },
             global_paired={
-                name: torch.zeros(layer.capacity, dtype=torch.bool,
+                name: torch.zeros(layer.capacity * global_scale, dtype=torch.bool,
                                   device=layer.device)
                 for name, layer in point_layers(global_map).items()
             },
@@ -92,6 +96,22 @@ class MatchContext(NamedTuple):
     # layer (ICP._crop_globals): matchers record global_idx through it, so
     # results address the user's map; claim masks keep the cropped ids
     global_index_maps: Optional[dict] = None
+
+
+def spatial_scale(m) -> int:
+    """The shards a matcher's global ids span: the size of its
+    ``spatial_axis`` (the map split over ranks), else 1."""
+    axis = getattr(m, "spatial_axis", None)
+    return 1 if axis is None else axis.size
+
+
+def neighbour_xyz(res, layer: PointCloud) -> torch.Tensor:
+    """The coordinates [..., k, 3] of a kNN result's neighbours: carried by
+    the result on a sharded map (``ShardedNNResult.xyz``), else gathered
+    from the layer."""
+    if hasattr(res, "xyz"):
+        return res.xyz
+    return layer.xyz[torch.clamp(res.idx, 0, layer.capacity - 1).long()]
 
 
 def recorded_global_idx(ctx: MatchContext, layer: str, gidx: torch.Tensor) -> torch.Tensor:

@@ -23,9 +23,11 @@ from mp2p_icp_tpu_torch.matchers.base import (
     Matcher,
     MatchState,
     claim,
+    neighbour_xyz,
     point_layers,
     recorded_global_idx,
     static_value,
+    spatial_scale,
     subsample_mask,
     transformed_local,
 )
@@ -47,6 +49,10 @@ class MatcherPointsDistanceThreshold(Matcher):
     # range (m) at which the angular term is evaluated for the crop margin
     # (the per-point threshold thr² + (angFactor·|p|)² has no bound)
     angular_range_hint: float = 100.0
+    # the map split over ranks (parallel/spatial.py): this rank's
+    # parallel.mesh.MeshAxis; its size is the shard count that the global
+    # ids and claim masks span
+    spatial_axis: object = None
 
     def search_radius(self) -> float:
         """The largest pairing distance, for the large-map crop's margin (an
@@ -98,10 +104,10 @@ class MatcherPointsDistanceThreshold(Matcher):
 
             res = knn_bruteforce(
                 pts, valid, glayer.xyz, glayer.valid_mask(), k=k,
-                max_radius_sq=thr_sq,
+                max_radius_sq=thr_sq, spatial_axis=self.spatial_axis,
             )
             keep = res.valid
-            g_cap = glayer.capacity
+            g_cap = glayer.capacity * spatial_scale(self)
             if not self.allow_match_already_matched_global_points:
                 if state is not None:
                     gmask = state.global_paired[lm.global_layer]
@@ -115,11 +121,10 @@ class MatcherPointsDistanceThreshold(Matcher):
             C = local.capacity
             local_idx = torch.arange(C, dtype=torch.int32, device=wf.device)
             gidx = res.idx.reshape(-1)
-            safe_g = torch.clamp(gidx, 0, g_cap - 1).long()
             blocks.append(
                 PairsPt2Pt(
                     local=torch.repeat_interleave(local.xyz, k, dim=0),
-                    globl=glayer.xyz[safe_g],
+                    globl=neighbour_xyz(res, glayer).reshape(-1, 3),
                     weight=wf,
                     local_idx=torch.where(
                         wf > 0, torch.repeat_interleave(local_idx, k), -1

@@ -22,6 +22,7 @@ from mp2p_icp_tpu_torch.matchers.base import (
     MatchContext,
     Matcher,
     MatchState,
+    neighbour_xyz,
     point_layers,
     recorded_global_idx,
     subsample_mask,
@@ -42,6 +43,9 @@ class MatcherPointsInlierRatio(Matcher):
     layer_matches: Tuple[LayerMatch, ...] = (LayerMatch(),)
     # the crop's margin: the matcher itself has no radius
     search_radius_hint: float = 2.0
+    # the map split over ranks (parallel/spatial.py): this rank's
+    # parallel.mesh.MeshAxis
+    spatial_axis: object = None
 
     def search_radius(self) -> float:
         """The large-map crop's margin."""
@@ -66,7 +70,8 @@ class MatcherPointsInlierRatio(Matcher):
                 valid = valid & ~state.local_paired[lm.local_layer]
             valid = subsample_mask(valid, local.count, self.max_local_points_per_layer)
 
-            res = knn_bruteforce(pts, valid, glayer.xyz, glayer.valid_mask(), k=1)
+            res = knn_bruteforce(pts, valid, glayer.xyz, glayer.valid_mask(), k=1,
+                                 spatial_axis=self.spatial_axis)
             d = torch.where(res.valid[:, 0], res.dist_sq[:, 0], _BIG)
             n_valid = torch.sum(d < _BIG, dtype=torch.int32)
             n_keep = torch.ceil(self.inliers_ratio * n_valid.to(torch.float32)).to(torch.int64)
@@ -79,7 +84,7 @@ class MatcherPointsInlierRatio(Matcher):
             blocks.append(
                 PairsPt2Pt(
                     local=local.xyz,
-                    globl=glayer.xyz[torch.clamp(gidx, 0, glayer.capacity - 1).long()],
+                    globl=neighbour_xyz(res, glayer)[:, 0],
                     weight=w,
                     local_idx=torch.where(w > 0, rows, -1),
                     global_idx=torch.where(

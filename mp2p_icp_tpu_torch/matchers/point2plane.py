@@ -11,7 +11,9 @@ nearest plane). Two branches:
   local point and kept when l0 < plane_eigen_threshold * l2 (the
   reference's adaptive plane criterion).
 
-``spatial_axis`` (the spatially sharded map) is not ported yet and raises.
+On a map split over ranks (``spatial_axis``, parallel/spatial.py) the
+neighbours' coordinates come back with the merged kNN result, and the
+stored normals travel with them as its payload.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from mp2p_icp_tpu_torch.matchers.base import (
     MatchContext,
     Matcher,
     MatchState,
+    neighbour_xyz,
     point_layers,
     transformed_local,
 )
@@ -47,13 +50,8 @@ class MatcherPoint2Plane(Matcher):
     # take the plane from the global layer's stored per-point normals
     # instead of a kNN re-fit on every iteration
     use_point_normals: bool = False
+    # the map split over ranks: this rank's parallel.mesh.MeshAxis
     spatial_axis: object = None
-
-    def __post_init__(self):
-        if self.spatial_axis is not None:
-            raise NotImplementedError(
-                "MatcherPoint2Plane(spatial_axis=...) (sharded maps) is not ported yet"
-            )
 
     def search_radius(self) -> float:
         """The largest pairing distance, for the large-map crop's margin."""
@@ -84,22 +82,24 @@ class MatcherPoint2Plane(Matcher):
                         f"'{lm.global_layer}' has no normals channel — "
                         "run ops.normals.estimate_point_normals first"
                     )
+                # on a sharded map the normals travel with the neighbours
                 res = knn_bruteforce(
                     pts, valid, glayer.xyz, glayer.valid_mask(), k=1,
                     max_radius_sq=self.distance_threshold**2,
+                    spatial_axis=self.spatial_axis, point_payload=glayer.normals,
                 )
-                g_idx = torch.clamp(res.idx[:, 0], 0, glayer.capacity - 1).long()
-                centroid = glayer.xyz[g_idx]
-                normal = glayer.normals[g_idx]
+                centroid = neighbour_xyz(res, glayer)[:, 0]
+                normal = (res.payload[:, 0] if hasattr(res, "payload") else
+                          glayer.normals[torch.clamp(res.idx[:, 0], 0, glayer.capacity - 1).long()])
                 has_plane = torch.sum(normal * normal, dim=-1) > 0.5
                 keep = valid & res.valid[:, 0] & has_plane
             else:
                 res = knn_bruteforce(
                     pts, valid, glayer.xyz, glayer.valid_mask(), k=self.knn,
                     max_radius_sq=self.distance_threshold**2,
+                    spatial_axis=self.spatial_axis,
                 )
-                safe_g = torch.clamp(res.idx, 0, glayer.capacity - 1).long()
-                pe = estimate_points_eigen(glayer.xyz[safe_g], res.valid)
+                pe = estimate_points_eigen(neighbour_xyz(res, glayer), res.valid)
                 centroid = pe.mean
                 normal = pe.eigenvectors[:, :, 0]
                 enough = pe.count >= self.min_points_to_fit

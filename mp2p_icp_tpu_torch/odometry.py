@@ -45,7 +45,10 @@ both map modes keep the same FirstPoint winner per voxel on the same poses,
 the port tracks the JAX package on the same frames, a fleet's streams equal
 their sequential runs, and ``run_offline`` equals ``run``.
 
-Not ported yet: ``SpatialOdometryMapper``.
+``SpatialOdometryMapper`` runs the same step with the map split over the
+ranks of the mesh's ``space`` axis: each rank keeps the voxels that hash to
+it, sweeps only its shard in the align, and the k-lists are merged after
+one all_gather per kNN (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -62,9 +65,12 @@ from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud, scatter_rows
 from mp2p_icp_tpu_torch.core.se3 import Pose
 from mp2p_icp_tpu_torch.filters import FilterMerge, apply_filter_pipeline
+from mp2p_icp_tpu_torch.filters.common import compact
 from mp2p_icp_tpu_torch.ops.normals import estimate_point_normals
 from mp2p_icp_tpu_torch.ops.voxel_hash_map import empty_voxel_hash_map, hash_map_insert
 from mp2p_icp_tpu_torch.parallel.batch import _align_batched, crop_batched, stack_pytrees
+from mp2p_icp_tpu_torch.parallel.mesh import all_gather
+from mp2p_icp_tpu_torch.parallel.spatial import spatial_matchers
 
 _TWIST_NAMES = ("vx", "vy", "vz", "wx", "wy", "wz")
 
@@ -207,15 +213,21 @@ class OdometryMapper:
             layers = apply_filter_pipeline(self.map_filters, layers, None)
             return layers[self.map_layer], res, rel_new
 
+        return self._insert(map_state, src_world, near_map), res, rel_new
+
+    def _insert(self, map_state, src_world: PointCloud, near_map: PointCloud, valid=None):
+        """Incremental mode's map update: the insert of ``src_world``'s
+        valid points (or of those of ``valid``) into the voxel hash map,
+        then normals fitted only for this frame's newly inserted map points:
+        the winners compacted to a small query block, fitted against the
+        cropped map + the whole scan, and scattered into the map's normals
+        channel. The same map normals as a fit of every scan point (same
+        candidates): the others' fits were discarded."""
+        batch = src_world.xyz.shape[:-2]
         merged, dest = hash_map_insert(
-            map_state, src_world, self.incremental_map_resolution, with_dest=True
+            map_state, src_world, self.incremental_map_resolution, valid=valid, with_dest=True
         )
         if self.normals_knn:
-            # fit normals only for this frame's newly inserted map points:
-            # compact the winners to a small query block, fit against the
-            # cropped map + the scan, and scatter the results into the
-            # map's normals channel. The same map normals as a fit of every
-            # scan point (same candidates): the others' fits were discarded.
             C = merged.pc.capacity
             cap_n = self.normals_query_capacity
             win = dest < C
@@ -230,7 +242,7 @@ class OdometryMapper:
                              *self._candidates(near_map, src_world))
             merged = merged._replace(pc=dataclasses.replace(
                 merged.pc, normals=scatter_rows(merged.pc.normals, d_map, qfit.normals)))
-        return merged, res, rel_new
+        return merged
 
     # ------------------------------------------------------------------
     def seed_map(self, raw_layers, pose: Pose, twist=None):
@@ -262,13 +274,13 @@ class OdometryMapper:
 
     # ------------------------------------------------------------------
     def _drive(self, map_state, pose0: Pose, n: int, frame_of: Callable, twists,
-               dt: Optional[float], progress_every: int = 0) -> Dict:
-        """Frames 1 ... n-1 through ``_step``, for one stream or a fleet
-        (everything stacked). ``frame_of(i)`` gives frame i's raw layers;
-        ``twists`` is one [n, ..., 6] tensor on the device or None. Poses,
-        qualities, iteration counts and map counts are written into
-        tensors on the device, frame by frame, and fetched after the last
-        frame.
+               dt: Optional[float], progress_every: int = 0, step=None) -> Dict:
+        """Frames 1 ... n-1 through ``step`` (default ``_step``), for one
+        stream, a fleet (everything stacked) or one rank's shard of a map.
+        ``frame_of(i)`` gives frame i's raw layers; ``twists`` is one [n,
+        ..., 6] tensor on the device or None. Poses, qualities, iteration
+        counts and map counts are written into tensors on the device, frame
+        by frame, and fetched after the last frame.
         Returns numpy arrays with the frame axis first: "R" [n-1, ..., 3, 3],
         "t", "qualities", "iterations", "map_counts", and "frame_seconds"
         [n-1], "elapsed", "map_state"."""
@@ -294,7 +306,7 @@ class OdometryMapper:
         t0 = time.perf_counter()
         for i in range(1, n):
             t_frame = time.perf_counter()
-            map_state, res, rel_prev = self._step(
+            map_state, res, rel_prev = (step or self._step)(
                 map_state, frame_of(i), abs_pose, rel_prev, twist_of(i),
                 twist_of(i - 1), merges[i], step_dt,
             )
@@ -482,3 +494,173 @@ class BatchedOdometryMapper:
             return pytree.tree_map(lambda x: x[i - 1], frames_x)
 
         return self._results(self.mapper._drive(maps, pose0, n, frame_of, tw, dt), pose0)
+
+
+def voxel_owner(xyz: torch.Tensor, resolution: float, n_shards: int) -> torch.Tensor:
+    """[..., N] int64: the shard that owns each point's voxel,
+    teschner_hash(floor(xyz · (1 / resolution))) % n_shards with the hash
+    masked to 31 bits. Computed in int64, whose low 31 bits are those of the JAX
+    package's wrapping int32 products (odometry.py:823-827), and of its
+    numpy int64 seed (:942-947)."""
+    cell = torch.floor(xyz * (1.0 / resolution)).to(torch.int64)
+    h = (cell[..., 0] * 73856093 ^ cell[..., 1] * 19349663 ^ cell[..., 2] * 83492791) & 0x7FFFFFFF
+    return h % n_shards
+
+
+@dataclasses.dataclass
+class SpatialOdometryMapper:
+    """Map-building odometry with the rolling map split over the ranks of
+    the ``space`` axis: odometry over maps larger than one device (port of
+    the JAX package's class). Every rank of the axis runs ``run`` on the
+    same frames.
+
+    - align: each rank sweeps only its map shard; the per-query k-lists
+      are merged after one all_gather (``parallel/spatial.py``), so every
+      rank gets the same pairings and the same pose;
+    - merge: voxel ownership. A voxel of ``ownership_resolution`` belongs
+      to rank ``voxel_owner(...)``; each rank merges only the frame's
+      points of its voxels into its own map (capacity map_capacity / n)
+      and runs its own maintenance (FirstPoint filters, or the incremental
+      hash insert and the normals fit of its new voxels). No voxel is ever
+      on two shards.
+    """
+
+    mapper: OdometryMapper
+    mesh: object
+    axis: str = "space"
+    # ownership voxel size; MUST match the map-maintenance resolution so
+    # that a shard's FirstPoint maintenance is also globally exact
+    ownership_resolution: float = 0.5
+
+    def __post_init__(self):
+        m = self.mapper
+        self._axis = self.mesh.axis(self.axis)
+        self._shard_cap = -(-m.map_capacity // self._axis.size)
+        self._icp = dataclasses.replace(m.icp, matchers=spatial_matchers(m.icp.matchers, self._axis))
+
+    def _owned(self, xyz: torch.Tensor) -> torch.Tensor:
+        return voxel_owner(xyz, self.ownership_resolution, self._axis.size) == self._axis.rank
+
+    def _step(self, map_state, raw_layers, prev_pose, rel_prev, twist, twist_prev,
+              do_merge: bool, dt: Optional[float]):
+        """One frame on this rank's shard -> (new shard state, ICPResults,
+        rel_new); the results are the same on every rank."""
+        m = self.mapper
+        map_pc = m._map_pc(map_state)
+        seed_rel = se3.exp(dt * twist_prev) if dt is not None else rel_prev
+        guess = se3.compose(prev_pose, seed_rel)
+        src = m._local(raw_layers, twist)
+        l_layers = {m.local_layer: src}
+        g_crop, _ = self._icp._crop_globals(m.params, {m.map_layer: map_pc}, l_layers, guess)
+        res = self._icp._align_core(m.params, g_crop, l_layers, guess, None)
+        pose = res.optimal_tf
+        rel_new = se3.compose(se3.inverse(prev_pose), pose)
+        if not do_merge:
+            return map_state, res, rel_new
+        src_world = src.transformed(pose)
+        own = self._owned(src_world.xyz)
+        if m._incremental:
+            return (m._insert(map_state, src_world, g_crop[m.map_layer],
+                              valid=src_world.valid_mask() & own), res, rel_new)
+        merge = FilterMerge(input_pointcloud_layer="__world", target_layer=m.map_layer,
+                            target_capacity=self._shard_cap)
+        layers = merge({"__world": compact(src_world, own), m.map_layer: map_pc})
+        map_filters = [dataclasses.replace(f, output_capacity=self._shard_cap)
+                       if hasattr(f, "output_capacity") else f for f in m.map_filters]
+        return apply_filter_pipeline(map_filters, layers, None)[m.map_layer], res, rel_new
+
+    def seed_map(self, raw_layers, pose: Pose, twist=None):
+        """This rank's shard of the frame-0 map: the unsharded seed, its
+        points of this rank's voxels kept (in order, up to the shard's
+        capacity). Incremental mode returns a VoxelHashMapState."""
+        m = self.mapper
+        single = m._map_pc(m.seed_map(raw_layers, pose, twist))
+        owned = compact(single, self._owned(single.xyz))
+        cap = self._shard_cap
+
+        def cut(ch):
+            return None if ch is None else ch[:cap]
+
+        shard = PointCloud(xyz=owned.xyz[:cap], count=torch.clamp(owned.count, max=cap),
+                           intensity=cut(owned.intensity), ring=cut(owned.ring),
+                           time=cut(owned.time))
+        if not m._incremental:
+            return shard
+        if single.normals is not None:  # compact drops the normals: take them by row
+            keep = self._owned(single.xyz) & single.valid_mask()
+            rows = torch.nonzero(keep)[:cap, 0]
+            normals = torch.zeros((cap, 3), device=single.xyz.device)
+            shard = dataclasses.replace(shard, normals=normals.index_copy(
+                0, torch.arange(rows.shape[0], device=rows.device), single.normals[rows]))
+        st = empty_voxel_hash_map(
+            cap,
+            intensity=single.intensity is not None,
+            ring=single.ring is not None,
+            time=single.time is not None,
+            normals=single.normals is not None,
+            device=single.xyz.device,
+        )
+        return hash_map_insert(st, shard, m.incremental_map_resolution)
+
+    def gather_map(self, map_state) -> PointCloud:
+        """Every rank's shard, stacked in rank order: [n, shard capacity, ...]
+        per field."""
+        pc = self.mapper._map_pc(map_state)
+        return pytree.tree_map(lambda x: all_gather(x, self._axis), pc)
+
+    def run(self, frames, twists=None, initial_pose=None, dt: Optional[float] = None) -> Dict:
+        """``OdometryMapper.run``'s contract, on every rank of the axis with
+        the same frames; "map" is the stacked map of all shards
+        ([n, shard capacity, ...]), "map_state" this rank's shard."""
+        m = self.mapper
+        device = next(iter(frames[0].values())).device
+        tw = m._twist_table(twists, device)
+        pose0 = initial_pose or se3.identity(device=device)
+        state = self.seed_map(frames[0], pose0, None if tw is None else tw[0])
+        out = m._results(m._drive(state, pose0, len(frames), frames.__getitem__, tw, dt,
+                                  step=self._step), pose0)
+        out["map"] = self.gather_map(out["map_state"])
+        return out
+
+
+def reference_pipeline_map(
+    mapper: OdometryMapper,
+    frames: Sequence[Dict[str, PointCloud]],
+    poses: np.ndarray,
+    twists: Optional[Sequence] = None,
+) -> PointCloud:
+    """The sm2mm-style host path: the map rebuilt by running the frame
+    filter pipeline on each frame and FilterMerge with the robot-pose
+    variables (FilterMerge.cpp:96-108, input_layer_in_local_coordinates),
+    then the map filters: the equality oracle of the fused merge."""
+    merge = FilterMerge(
+        input_pointcloud_layer=mapper.local_layer,
+        target_layer=mapper.map_layer,
+        target_capacity=mapper.map_capacity,
+        use_robot_pose=True,
+    )
+    layers_acc: Dict[str, PointCloud] = {}
+    for i, frame in enumerate(frames):
+        R, t = poses[i, :3, :3], poses[i, :3, 3]
+        yaw, pitch, roll = _rot_to_ypr(R)
+        variables = {"robot_x": float(t[0]), "robot_y": float(t[1]), "robot_z": float(t[2]),
+                     "robot_yaw": yaw, "robot_pitch": pitch, "robot_roll": roll}
+        if twists is not None:
+            variables.update({k: float(v) for k, v in zip(_TWIST_NAMES, twists[i])})
+        local = apply_filter_pipeline(tuple(mapper.filters), dict(frame), variables)
+        layers_acc[mapper.local_layer] = local[mapper.local_layer]
+        layers_acc = merge(layers_acc, variables)
+        layers_acc = apply_filter_pipeline(tuple(mapper.map_filters), layers_acc, None)
+    return layers_acc[mapper.map_layer]
+
+
+def _rot_to_ypr(R: np.ndarray):
+    """ZYX yaw / pitch / roll of a rotation matrix (host helper)."""
+    pitch = -np.arcsin(np.clip(R[2, 0], -1.0, 1.0))
+    if abs(R[2, 0]) < 0.99999:
+        yaw = np.arctan2(R[1, 0], R[0, 0])
+        roll = np.arctan2(R[2, 1], R[2, 2])
+    else:  # gimbal lock
+        yaw = np.arctan2(-R[0, 1], R[1, 1])
+        roll = 0.0
+    return float(yaw), float(pitch), float(roll)

@@ -32,7 +32,9 @@ operator whose vmap rule launches the batched sweep, so ``torch.func.vmap``
 of anything that reaches ``knn_bruteforce`` (a matcher, a whole ICP
 iteration) runs one batched launch for all problems: the counterpart of
 the JAX ``custom_vmap`` rule. ``knn_bruteforce_batched`` is the batched
-front end.
+front end. ``knn_sharded`` (``knn_bruteforce(spatial_axis=...)``) is the
+front end of a map split over ranks: each rank sweeps its shard with K1 or
+K3 and the k-lists are merged after one all_gather.
 """
 
 from __future__ import annotations
@@ -65,6 +67,18 @@ class NNResult(NamedTuple):
     idx: torch.Tensor  # [..., Q, k] i32 (-1 invalid)
     dist_sq: torch.Tensor  # [..., Q, k] f32 (3e37 invalid)
     valid: torch.Tensor  # [..., Q, k] bool
+
+
+class ShardedNNResult(NamedTuple):
+    """``knn_sharded``'s result: NNResult's fields (idx global over the
+    shards) and what no rank can gather from another's shard, merged with
+    them: the neighbours' coordinates and ``point_payload`` rows."""
+
+    idx: torch.Tensor  # [Q, k] i32 (-1 invalid)
+    dist_sq: torch.Tensor  # [Q, k] f32 (3e37 invalid)
+    valid: torch.Tensor  # [Q, k] bool
+    xyz: torch.Tensor  # [Q, k, 3]
+    payload: Optional[torch.Tensor] = None  # [Q, k, P]
 
 
 # ------------------------------------------------------------ plain versions
@@ -410,22 +424,24 @@ def knn_bruteforce(
     k: int = 1,
     max_radius_sq=None,
     stream_block: int = STREAM_BLOCK,
-    spatial_axis: Optional[str] = None,
+    spatial_axis=None,
     point_payload: Optional[torch.Tensor] = None,
-) -> NNResult:
-    """Exact kNN of queries [Q, 3] among points [C, 3].
+):
+    """Exact kNN of queries [Q, 3] among points [C, 3]: an NNResult (a
+    ShardedNNResult with ``spatial_axis``).
 
     max_radius_sq: scalar or [Q] — pairs at or beyond it are invalidated.
     stream_block: maps of more than this many points take the streamed
     sweep (same result; on the CPU also its superblock size).
-    spatial_axis / point_payload (the spatially sharded map) are not ported
-    yet.
+    spatial_axis: a ``parallel.mesh.MeshAxis`` when ``points`` is this
+    rank's shard of a map split over the axis (shard s holds rows [s·C,
+    (s+1)·C) of the whole map): see ``knn_sharded``.
+    point_payload: [C, P] rows that travel with the neighbours (the sharded
+    path only; ignored otherwise: a local caller gathers them by idx).
     """
-    if spatial_axis is not None or point_payload is not None:
-        raise NotImplementedError(
-            "knn_bruteforce: spatial_axis / point_payload (sharded maps) are "
-            "not ported yet"
-        )
+    if spatial_axis is not None:
+        return knn_sharded(queries, query_valid, points, point_valid, spatial_axis, k,
+                           max_radius_sq, stream_block, point_payload)
     q = torch.where(query_valid[:, None], queries, _FAR).contiguous()
     p = torch.where(point_valid[:, None], points, -_FAR).contiguous()
     d2, idx = _sweep_op(q, p, k, stream_block)
@@ -433,6 +449,47 @@ def knn_bruteforce(
     if isinstance(r, torch.Tensor) and r.ndim == 1:
         r = r[:, None]
     return _result(d2, idx, points.shape[0], r)
+
+
+def knn_sharded(queries, query_valid, points, point_valid, axis, k: int = 1,
+                max_radius_sq=None, stream_block: int = STREAM_BLOCK,
+                point_payload: Optional[torch.Tensor] = None) -> ShardedNNResult:
+    """The kNN over a map split across the ranks of ``axis`` (the JAX
+    package's spatial_axis path, nn_bruteforce.py:734-765): each rank
+    sweeps its own shard (K1, or K3 above ``stream_block`` rows), takes
+    its neighbours' coordinates and payload rows from it, and one
+    all_gather brings every rank's k-list (d², global idx = shard·C +
+    local, xyz, payload, packed in one float32 tensor) to every rank,
+    where a stable sort on d² keeps the k nearest. Equal d² keep the lower
+    shard, and each shard's sweep the lower index, so the result equals
+    one sweep of the whole map, d² and idx to the bit; every rank gets the
+    same result."""
+    from mp2p_icp_tpu_torch.parallel.mesh import MeshAxis, all_gather
+
+    if not isinstance(axis, MeshAxis):
+        raise TypeError(f"spatial_axis is this rank's parallel.mesh.MeshAxis, not {axis!r}")
+    res = knn_bruteforce(queries, query_valid, points, point_valid, k=k,
+                         max_radius_sq=max_radius_sq, stream_block=stream_block)
+    C = points.shape[0]
+    Q = queries.shape[0]
+    gidx = torch.where(res.valid, res.idx + axis.rank * C, -1)
+    safe = torch.clamp(res.idx, 0, C - 1).long()
+    cols = [res.dist_sq[..., None], gidx.view(torch.float32)[..., None], points[safe]]
+    if point_payload is not None:
+        cols.append(point_payload[safe])
+    packed = all_gather(torch.cat(cols, dim=-1), axis)  # [n, Q, k, 5 (+P)]
+    cat = packed.movedim(0, 1).reshape(Q, axis.size * k, -1)
+    _, sel = torch.sort(cat[..., 0], dim=1, stable=True)
+    best = torch.gather(cat, 1, sel[:, :k, None].expand(-1, -1, cat.shape[-1]))
+    idx = best[..., 1].contiguous().view(torch.int32)
+    valid = idx >= 0
+    return ShardedNNResult(
+        idx=idx,
+        dist_sq=torch.where(valid, best[..., 0], _BIG),
+        valid=valid,
+        xyz=best[..., 2:5],
+        payload=best[..., 5:] if point_payload is not None else None,
+    )
 
 
 def knn_bruteforce_batched(

@@ -6,7 +6,11 @@ sequence (5 frames of the street drive at 16 rings x 256 azimuths,
 chip_smoke.write_apps_sequence): both packages' ``main`` sequentially, with
 -B 2 and with --mapping. Bands: each frame-to-frame pose within the align
 band (5e-3) of JAX's, ATE within max(1.5x, +0.01 m) of JAX's, map count
-within 2%. --loop-closure raises NotImplementedError (ROADMAP A.7).
+within 2%. --mapping --loop-closure on a short out-and-back drive
+(chip_smoke.write_loop_sequence: 12 frames of 16 rings x 128 azimuths,
+candidates at least 4 frames apart): JAX's candidates and accepted loops,
+the printed line, poses within the align band of JAX's and ATE in the
+trajectory band.
 """
 
 import contextlib
@@ -94,13 +98,54 @@ def test_kitti_odometry_matches_jax(inputs, mode):
         assert f"({int(m.count)} points)" in text
 
 
-def test_kitti_odometry_refuses_loop_closure(inputs):
-    argv = ["--bin-dir", inputs["bin_dir"], "-c", KITTI, "--mapping", "--loop-closure"]
-    with pytest.raises(NotImplementedError, match="A.7"):
-        kitti_odometry.main([str(a) for a in argv])
-    with pytest.raises(NotImplementedError, match="A.7"):
-        kitti_odometry.run_sequence_mapping(
-            sorted(inputs["bin_dir"].glob("*.bin")), KITTI, loop_closure=True)
+LOOP = dict(frames=12, rings=16, azimuths=128, min_gap=4, map_capacity=4096)
+
+
+@pytest.fixture(scope="module")
+def loop_inputs(tmp_path_factory, _ask_for_the_cpu):
+    """The out-and-back sequence and the JAX package's mapping run with
+    loop closure on it (its printed lines and its result)."""
+    root = tmp_path_factory.mktemp("loop")
+    bin_dir, gt_path, gt = cs.write_loop_sequence(root / "sequence", LOOP["frames"],
+                                                  LOOP["rings"], LOOP["azimuths"])
+    paths = sorted(bin_dir.glob("*.bin"))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jout = jkitti_odometry.run_sequence_mapping(
+            paths, KITTI, gt_poses=gt, map_capacity=LOOP["map_capacity"], loop_closure=True,
+            loop_min_gap=LOOP["min_gap"])
+    return {"root": root, "bin_dir": bin_dir, "gt": gt_path, "paths": paths, "jout": jout,
+            "jtext": buf.getvalue()}
+
+
+@pytest.mark.parametrize("entry", ["main", "run_sequence_mapping"])
+def test_kitti_odometry_loop_closure_matches_jax(loop_inputs, entry):
+    jout, jtext = loop_inputs["jout"], loop_inputs["jtext"]
+    line = next(ln for ln in jtext.splitlines() if ln.startswith("[loop-closure]"))
+    gt = load_kitti_poses(str(loop_inputs["gt"]))
+    if entry == "main":
+        out_path = loop_inputs["root"] / "port_loop.txt"
+        text = _printed(kitti_odometry.main, [
+            "--bin-dir", loop_inputs["bin_dir"], "-c", KITTI, "--gt-poses", loop_inputs["gt"],
+            "--mapping", "--map-capacity", LOOP["map_capacity"], "--loop-closure",
+            "--loop-min-gap", LOOP["min_gap"], "--out-poses", out_path, "--device", "cpu"])
+        assert line in text.splitlines()  # [loop-closure] candidates=... accepted=...
+        assert f"ATE={jout['ate_rmse']:.3f}m" in text
+        poses = load_kitti_poses(str(out_path))
+    else:
+        out = kitti_odometry.run_sequence_mapping(
+            loop_inputs["paths"], KITTI, gt_poses=gt, map_capacity=LOOP["map_capacity"],
+            loop_closure=True, loop_min_gap=LOOP["min_gap"], verbose=False, device="cpu")
+        assert [(i, j) for i, j, _q in out["loop_closures"]] == \
+            [(i, j) for i, j, _q in jout["loop_closures"]]
+        np.testing.assert_allclose([q for *_, q in out["loop_closures"]],
+                                   [q for *_, q in jout["loop_closures"]], atol=1e-3)
+        assert cs.pair_gaps(out["poses_odometry"], jout["poses_odometry"]).max() < 5e-3
+        poses = out["poses"]
+    assert "accepted=0" not in line
+    assert cs.pair_gaps(poses, jout["poses"]).max() < 5e-3
+    ate, _, _ = cs.trajectory_errors(poses, gt)
+    assert ate <= max(1.5 * jout["ate_rmse"], jout["ate_rmse"] + 0.01)
 
 
 def test_kitti_odometry_keeps_one_capacity(tmp_path):

@@ -122,7 +122,7 @@ def test_knn_sweep_checks_arguments():
         tnb.knn_sweep(q, q, 9)
     with pytest.raises(ValueError):
         tnb.knn_sweep(q.double(), q.double(), 1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="MeshAxis"):  # an axis name, not the rank's axis
         tnb.knn_bruteforce(q, torch.ones(4, dtype=torch.bool), q,
                            torch.ones(4, dtype=torch.bool), spatial_axis="space")
 

@@ -217,11 +217,11 @@ def test_two_matchers_share_paired_masks(layers):
 
 def test_adaptive_plane_detection_raises():
     """The plane stage is ported (test_adaptive_planes_match_jax holds it
-    against the JAX package): it sets the kNN's k; a sharded map still
-    raises."""
+    against the JAX package): it sets the kNN's k; a JAX matcher's
+    spatial axis name converts only with the mesh that holds the axis."""
     assert MatcherAdaptive(enable_detect_planes=True, plane_search_points=6)._knn() == 6
     assert MatcherAdaptive(max_pt2pt_correspondences=2)._knn() == 2
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         _to_port(dataclasses.replace(JDistance(), spatial_axis="space"))
 
 
@@ -290,8 +290,9 @@ def test_point2plane_state_and_refusals(layers):
     with pytest.raises(ValueError, match="no normals channel"):
         MatcherPoint2Plane(use_point_normals=True).match(
             gt, lt, pt, None, MatchContext(icp_iteration=0))
-    with pytest.raises(NotImplementedError, match="spatial_axis"):
-        MatcherPoint2Plane(spatial_axis="space")
+    with pytest.raises(TypeError, match="spatial_axis"):  # a name, not the rank's axis
+        MatcherPoint2Plane(spatial_axis="space").match(
+            gt, lt, pt, None, MatchContext(icp_iteration=0))
 
 
 def _rows_match(bj, bt, vec_fields=(), frac=0.01, atol=1e-4):
