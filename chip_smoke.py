@@ -125,7 +125,33 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    FilterEdgesPlanes' rows on threshold voxels counted and allowed to
    differ; sm2mm_app.main on phase 10's pass-1 simple map saved to disk
    (map counts equal phase 10's) and sm_cli info and cut on that file;
-13. the pose graph, loop closure and the sharded paths, each held to the
+13. the map tools (mp2p_icp_tpu_torch/apps, core/geodesy.py, utils/profiler.py,
+   ops/voxel_hash.py + ops/nn.nn_search), each held to the JAX CPU reference
+   constants of scripts/torch_tools_reference.json (written by
+   scripts/torch_tools_reference.py): (a) rawlog_filter.main over phase
+   12's 40 frames at HDL-64E geometry as a .rawlog.npz with TOOLS_YAML
+   (generator, range, FirstPoint 0.5 m, normals k=8): per frame the
+   observation and out_<layer> of its three point layers, rows exact and
+   sums as JAX's, the normals its run fitted within 1e-3 of JAX's but for
+   at most 5% of a frame's rows (counted), one K1 launch a frame, ms a
+   frame; the new K1 shape (the decimated layer at the raw capacity
+   against itself, k=8) compared with its plain version and timed; (b)
+   sm_filter.main with the same YAML on phase 10's pass-1 simple map: the
+   decimated rows of each keyframe as JAX's; (c) mm_georef.main on phase
+   12's map: --inject / --extract of an anchor near Karlsruhe with a 30°
+   yaw, JAX's --geodetic-to-map / --map-to-geodetic lines, --to-enu's rows
+   on the card equal to the host's float64 geodesy or 1 ulp from it
+   (counted); (d) txt2mm -> mm2txt and kitti2mm -> mm_info on frame 0: the
+   columns back, JAX's mm-info line; (e) mm_viewer --html on the map and
+   icp_log_viewer --html + text on an icp-run log: byte for byte their
+   --device cpu output; (f) nn_search over a HashGrid of decimated frame 0
+   (cell 1 m) for frame 1's points, k = 1 and 8, radius^2 0.99, against K1
+   (the same neighbours but for ties, a colliding bucket's duplicates and
+   overfull buckets, each counted; d2 within 1 ulp) and equal to its CPU
+   run; (g) every call in a utils.Profiler span, its report printed, one
+   span found among a torch.profiler trace's events. The inputs are
+   deleted at the end;
+14. the pose graph, loop closure and the sharded paths, each held to the
    JAX CPU reference constants of scripts/torch_parallel_reference.json
    (written by scripts/torch_parallel_reference.py): (a) a pose graph at
    KITTI 00's length (4,541 nodes lapping a 75 m circuit 8 times, 4,540
@@ -157,7 +183,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    rank; equal to the one-process batch to the bit). Each rank's launches
    are counted in its process and printed, with ms beside the one-process
    path's;
-14. with --profile only: where the time goes, by torch.profiler over 2
+15. with --profile only: where the time goes, by torch.profiler over 2
    warm calls (device busy share, launches, the kNN kernels' time) of a
    scan-to-scan align, a scan to the 2M map and the batched call, then
    per-section host times of a scan-to-scan align with a sync around each
@@ -167,7 +193,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    each stage; the same for one warm fleet run; then 2 warm aligns of each
    engine cell and the sections of a 3D engine align with a sync around
    each; the profiler's tables go to chiprun_out/profile_tables.txt;
-15. one JSON line with the kernels' numbers (each shape's time, bound,
+16. one JSON line with the kernels' numbers (each shape's time, bound,
    plain version and library call, torch.cdist + topk in a CUDA graph),
    then the last line {"ok": true, "device": {...}}.
 
@@ -184,9 +210,11 @@ scripts/torch_odometry_reference.py produces the odometry run's and, with
 phase's; scripts/torch_sm2mm_reference.py writes the sm2mm and YAML
 phases' to scripts/torch_sm2mm_reference.json,
 scripts/torch_apps_reference.py the apps phase's to
-scripts/torch_apps_reference.json and scripts/torch_parallel_reference.py
-phase 13's to scripts/torch_parallel_reference.json, which this script
-reads. The ranks of phase 13 run functions of
+scripts/torch_apps_reference.json, scripts/torch_tools_reference.py the
+tools phase's to scripts/torch_tools_reference.json and
+scripts/torch_parallel_reference.py phase 14's to
+scripts/torch_parallel_reference.json, which this script reads. The ranks
+of phase 14 run functions of
 mp2p_icp_tpu_torch/parallel/ranks.py in processes of their own; each
 loads the kernels phase 2 built.
 """
@@ -511,6 +539,44 @@ POSE_GRAPH_CG = {"max_iterations": 10, "cg_iterations": 2000}
 # the sharded CG against one rank: fewer CG steps (each is one all-reduce)
 POSE_GRAPH_CG_SHARDED = {"max_iterations": 10, "cg_iterations": 200}
 SPATIAL_RANKS = 2  # the sharded mapper's and the data-parallel batch's ranks
+# the tools phase: rawlog-filter over the apps phase's sequence, sm-filter
+# over the sm2mm phase's pass-1 simple map, each with TOOLS_YAML (the
+# normals fit on the decimated layer: one K1 k=8 launch per observation)
+TOOLS_DIR = REPO / "chiprun_out" / "tools"
+TOOLS_YAML = """
+generators:
+  - class_name: mp2p_icp::Generator
+    params: {target_layer: raw}
+filters:
+  - class_name: mp2p_icp_filters::FilterByRange
+    params: {input_pointcloud_layer: raw, output_layer_between: ranged,
+             range_min: 2.0, range_max: 60.0}
+  - class_name: mp2p_icp_filters::FilterDecimateVoxels
+    params: {input_pointcloud_layer: ranged, output_pointcloud_layer: decimated,
+             voxel_filter_resolution: 0.5, decimate_method: DecimateMethod::FirstPoint}
+  - class_name: mp2p_icp_filters::FilterEstimateNormals
+    params: {input_pointcloud_layer: decimated, knn: 8, max_radius: 2.0}
+"""
+TOOLS_LAYER = "decimated"  # the layer whose normals are held, sm-filter's output
+# the georeferencing that mm-georef injects: an anchor near Karlsruhe and a
+# T_enu_to_map of a 30 degree yaw and a translation; a fix and a map point
+GEOREF = {"latitude": 49.0097, "longitude": 8.4117, "height": 112.0,
+          "t_enu_to_map": {"translation": [120.0, -45.0, 3.5],
+                           "quaternion_wxyz": [float(np.cos(np.pi / 12)), 0.0, 0.0,
+                                               float(np.sin(np.pi / 12))]}}
+GEOREF_FIX = "49.0105,8.4130,115.0"
+GEOREF_POINT = "25.0,-10.0,1.5"
+# nn_search against K1: the grid's cell and the radius^2 of the search (<
+# cell^2: every neighbour within it lies in the 27 cells), candidates a cell
+NN_GRID_CELL, NN_GRID_RADIUS_SQ, NN_GRID_PER_CELL = 1.0, 0.99, 16
+# the share of a frame's normals allowed beyond 1e-3 of the JAX package's
+# (ROADMAP C, "closed-form eigen": 4.5% of a decimated street scan)
+NORMALS_BAND, NORMALS_SHARE = 1e-3, 0.05
+# the JAX package's results on the CPU for the tools phase: the file that
+# `JAX_PLATFORMS=cpu python3 scripts/torch_tools_reference.py --write
+# scripts/torch_tools_reference.json` writes; main() reads it into TOOLS_JAX
+TOOLS_REFERENCE = REPO / "scripts" / "torch_tools_reference.json"
+TOOLS_JAX = None
 
 
 def check(ok, what):
@@ -1050,6 +1116,125 @@ def write_app_inputs(out_dir, scans):
     return {k: str(v) for k, v in paths.items()}
 
 
+def write_rawlog(path, scans, imu_first=False):
+    """The scans' returns as a ``.rawlog.npz`` (the port's writer, on the
+    CPU), one point-cloud observation each (xyz, intensity, ring, time) at
+    t = ODO_DT * i; with ``imu_first`` an IMU observation (no generator
+    handles it) leads."""
+    from mp2p_icp_tpu_torch.filters.generator import Observation
+    from mp2p_icp_tpu_torch.io.rawlog import Rawlog
+
+    rl = Rawlog()
+    if imu_first:
+        rl.append(Observation(class_name="CObservationIMU", sensor_label="imu",
+                              timestamp=-ODO_DT, angular_velocity=(0.0, 0.0, 0.1)))
+    for i, sc in enumerate(scans):
+        v = sc["valid"]
+        rl.append(Observation(class_name="CObservationPointCloud", sensor_label="lidar",
+                              timestamp=ODO_DT * i, xyz=sc["xyz"][v],
+                              intensity=sc["intensity"][v], ring=sc["ring"][v],
+                              time=sc["time"][v]))
+    rl.save(str(path))
+    return path
+
+
+def observation_summary(obs):
+    """The numbers the tools phase compares for one observation of either
+    package: label, rows, float64 coordinate sums and |x| sums, channel
+    sums."""
+    xyz = np.asarray(obs.xyz, np.float64).reshape(-1, 3)
+    out = {"label": obs.sensor_label, "count": int(xyz.shape[0]), "sum": xyz.sum(0).tolist(),
+           "abs_sum": np.abs(xyz).sum(0).tolist()}
+    for ch in ("intensity", "ring", "time"):
+        v = getattr(obs, ch)
+        if v is not None:
+            out[f"{ch}_sum"] = float(np.asarray(v, np.float64).sum())
+    return out
+
+
+def rawlog_summary(rl):
+    """[frame: [observation_summary of each entry]] of either package's
+    Rawlog (the entries of a frame share its id)."""
+    frames = {}
+    for obs, f in zip(rl.observations, rl.frames):
+        frames.setdefault(f, []).append(observation_summary(obs))
+    return [frames[f] for f in sorted(frames)]
+
+
+@contextlib.contextmanager
+def captured_layers(filters_module, record, layer=TOOLS_LAYER):
+    """``filters_module.apply_filter_pipeline`` (either package's
+    ``filters``) wrapped so that every run appends its ``layer`` (xyz,
+    count, normals as numpy) to ``record``: rawlog-filter writes no
+    normals, and these are the ones its run fitted."""
+    run = filters_module.apply_filter_pipeline
+
+    def recording(filters, mm, variables=None):
+        out = run(filters, mm, variables)
+        pc = (out.layers if hasattr(out, "layers") else out).get(layer)
+        if pc is not None:
+            record.append({k: np.asarray(v.cpu() if hasattr(v, "cpu") else v) for k, v in (
+                ("xyz", pc.xyz), ("count", pc.count), ("normals", pc.normals))})
+        return out
+
+    filters_module.apply_filter_pipeline = recording
+    try:
+        yield record
+    finally:
+        filters_module.apply_filter_pipeline = run
+
+
+def normals_summary(layer):
+    """A fitted layer's rows with a normal and float64 sums of |n| (sign
+    free), from ``captured_layers``' numpy dict."""
+    n = int(layer["count"])
+    nrm = layer["normals"][:n].astype(np.float64)
+    return {"count": n, "with_normal": int((np.abs(nrm).sum(1) > 0).sum()),
+            "normal_abs_sum": np.abs(nrm).sum(0).tolist()}
+
+
+def pack_normals(normals):
+    """[n, 3] unit normals as int16 (x 32767, zlib, base64): 1.5e-5 steps."""
+    import zlib
+
+    q = np.round(np.asarray(normals, np.float64) * 32767).astype("<i2")
+    return base64.b64encode(zlib.compress(q.tobytes(), 9)).decode("ascii")
+
+
+def unpack_normals(text):
+    import zlib
+
+    return (np.frombuffer(zlib.decompress(base64.b64decode(text)), "<i2").reshape(-1, 3)
+            .astype(np.float64) / 32767)
+
+
+def normals_beyond_band(got, want, band=NORMALS_BAND):
+    """[n] bool: rows whose normal is more than ``band`` from the
+    reference's (up to 1.5e-5 of packing), up to sign."""
+    got = np.asarray(got, np.float64)
+    d = np.minimum(np.abs(got - want).max(1), np.abs(got + want).max(1))
+    return d > band + 2e-5
+
+
+def simplemap_summary(sm):
+    """The point rows of each keyframe of either package's SimpleMap."""
+    return [sum(int(np.asarray(o.xyz).shape[0]) for o in kf.observations
+                if o.xyz is not None) for kf in sm.keyframes]
+
+
+def tools_inputs_frame0(scan, out_dir):
+    """Frame 0 for the converters: ``frame0.txt`` (x y z intensity ring
+    time, %.6f) and ``frame0.bin`` (KITTI rows). Returns the two paths."""
+    v = scan["valid"]
+    out_dir = pathlib.Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    txt, bin_ = out_dir / "frame0.txt", out_dir / "frame0.bin"
+    np.savetxt(txt, np.column_stack([scan["xyz"][v], scan["intensity"][v], scan["ring"][v],
+                                     scan["time"][v]]), fmt="%.6f")
+    np.concatenate([scan["xyz"][v], scan["intensity"][v][:, None]], 1).astype(
+        np.float32).tofile(bin_)
+    return txt, bin_
+
 def icp_run_printed(text):
     """{"t", "quat" (wxyz), "iterations", "termination", "quality",
     "pairings"} from icp-run's printed results (either package's)."""
@@ -1389,11 +1574,12 @@ def library_slabs_ms(q, p, k, slab=8192):
     return ms
 
 
-def kernel_row(name, label, B, Q, C, k, run, plain, lq, lp, g_times, smi):
+def kernel_row(name, label, B, Q, C, k, run, plain, lq, lp, g_times, smi, plain_reps=3):
     """A kernel's line of the results: its device time per launch in a
     CUDA graph (the median of ``g_times``), one call between events, its
     bound from the valid rows and over every row swept, its plain
-    version's time (None: not timed) and the library call's (in query
+    version's time (the median of ``plain_reps`` calls after one warm-up)
+    and the library call's (in query
     slabs where the [Q, C] matrix passes 2^32 entries); printed."""
     bnd, by = data_bound_ms(lq, lp, k)
     swept, _ = bound_ms(B, Q, C, k)
@@ -1402,13 +1588,13 @@ def kernel_row(name, label, B, Q, C, k, run, plain, lq, lp, g_times, smi):
     row = {"shape": f"{B}x{Q}x{C}", "k": k, "what": label, "ms": ms,
            "call_ms": cuda_ms(run, reps=5 if slabs else 20), "bound_ms": bnd, "bound_by": by,
            "share_of_bound": bnd / ms, "swept_bound_ms": swept,
-           "plain_ms": cuda_ms(plain, reps=3, warmup=1) if plain else None,
+           "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=1),
            "library_ms": library_slabs_ms(lq, lp, k) if slabs else library_ms(lq, lp, k)}
     print(f"[time] {name} {label} {B}x{Q}x{C} k={k}: {ms:.4f} ms per launch in a CUDA "
           f"graph, {row['call_ms']:.4f} ms for one call between events; bound {bnd:.4f} ms "
           f"({by}, the valid rows), share {bnd / ms:.1%}; over every row swept "
-          f"{swept:.4f} ms, share {swept / ms:.1%}; plain "
-          f"{'%.4f ms' % row['plain_ms'] if plain else 'not timed'}; library cdist + topk "
+          f"{swept:.4f} ms, share {swept / ms:.1%}; plain {row['plain_ms']:.4f} ms; "
+          f"library cdist + topk "
           f"{row['library_ms']:.4f} ms "
           f"{'over query slabs of 8192 rows' if slabs else 'in a CUDA graph'} on {smi}")
     return row
@@ -2442,12 +2628,13 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
     crop = micp._crop_globals(mparams, {"map": load_mm_file(map_path).layers["map"]},
                               {"decimated": dec_last}, pose_last)[0]["map"]
     qm, pm = sentinel_padded(dec_last, 1.0e8), sentinel_padded(crop, -1.0e8)
+    # the last field: the plain version's timed calls (K2's takes 8 x 1.7 s)
     new_rows = (
-        ("knn_sweep", "kitti-odometry / icp-run: the decimated KITTI layer", 1, q1, p1, True),
-        ("knn_sweep", "kitti-odometry --mapping: against the map's crop", 1, qm, pm, True),
-        ("knn_sweep_batched", f"kitti-odometry -B {APPS_BATCH}", APPS_BATCH, qb, pb, False),
+        ("knn_sweep", "kitti-odometry / icp-run: the decimated KITTI layer", 1, q1, p1, 3),
+        ("knn_sweep", "kitti-odometry --mapping: against the map's crop", 1, qm, pm, 3),
+        ("knn_sweep_batched", f"kitti-odometry -B {APPS_BATCH}", APPS_BATCH, qb, pb, 1),
     )
-    for name, label, B, q, p, time_plain in new_rows:
+    for name, label, B, q, p, plain_reps in new_rows:
         kernel, plain = getattr(nnb, name), getattr(nnb, name.replace("sweep", "plain"))
         Q, C = q.shape[-2], p.shape[-2]
         errs[name].append(compare(f"{name} {B}x{Q}x{C} k=1 ({label}, "
@@ -2456,8 +2643,8 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
                                   kernel, plain, q, p, 1))
         g_times = graph_ms(lambda: kernel(q, p, 1), replays=3 if B > 1 else 7)
         shapes[name].append(kernel_row(
-            name, label, B, Q, C, 1, lambda: kernel(q, p, 1),
-            (lambda: plain(q, p, 1)) if time_plain else None, q, p, g_times, smi))
+            name, label, B, Q, C, 1, lambda: kernel(q, p, 1), lambda: plain(q, p, 1), q, p,
+            g_times, smi, plain_reps=plain_reps))
     del qb, pb
     torch.cuda.empty_cache()
 
@@ -2568,6 +2755,307 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
     print(f"[apps] kept under {APPS_DIR.relative_to(REPO)}: "
           f"{sum(f.stat().st_size for f in kept) / 2**20:.1f} MiB in {len(kept)} files "
           f"({', '.join(f.name for f in kept)}); the sequence and the input files deleted")
+    return scans
+
+
+def ulps_apart(a, b):
+    """|a - b| in units in the last place of float32 arrays (0 where equal)."""
+    ia, ib = (np.asarray(x, np.float32).view(np.int32).astype(np.int64) for x in (a, b))
+    ia = np.where(ia < 0, np.int64(-(2**31)) - ia, ia)  # sign-magnitude to a monotone line
+    ib = np.where(ib < 0, np.int64(-(2**31)) - ib, ib)
+    return np.abs(ia - ib)
+
+
+def grid_rows_explained(grid, q, rg, rb, k_per_cell):
+    """Rows where nn_search and the exact kNN differ, by cause: (ties: the
+    same distances in another order of indices, duplicates: a bucket's rows
+    gathered twice for two colliding cells, overflow: a bucket with more
+    rows than ``k_per_cell``, other). Numpy in, counts out."""
+    from mp2p_icp_tpu_torch.ops.voxel_hash import NEIGHBOR_OFFSETS, cell_coords, hash_cells
+
+    differ = (rg["idx"] != rb["idx"]).any(1) | (rg["valid"] != rb["valid"]).any(1)
+    rows = np.nonzero(differ)[0]
+    dup = np.array([len(set(r[v].tolist())) < int(v.sum()) for r, v in
+                    zip(rg["idx"][rows], rg["valid"][rows])], bool)
+    same_d = np.array([np.array_equal(a[va], b[vb]) for a, b, va, vb in zip(
+        rg["dist_sq"][rows], rb["dist_sq"][rows], rg["valid"][rows], rb["valid"][rows])], bool)
+    cells = cell_coords(torch.from_numpy(q[rows]), grid.cell_size)
+    nh = hash_cells(cells[:, None, :] + torch.from_numpy(NEIGHBOR_OFFSETS).to(torch.int32),
+                    grid.bucket_count.shape[0])
+    over = (grid.bucket_count.cpu()[nh] > k_per_cell).any(1).numpy()
+    ties = same_d & ~dup
+    other = ~(ties | dup | over)
+    return {"rows": len(rows), "ties": int(ties.sum()), "duplicates": int(dup.sum()),
+            "overflow": int((over & ~dup & ~ties).sum()), "other": int(other.sum())}
+
+
+def tools_phase(smi, kind, launches, by_path, errs, shapes, scans, pass1):
+    """Phase 13: the map tools, held to TOOLS_JAX (the JAX package's apps
+    on the CPU, scripts/torch_tools_reference.py): rawlog-filter over the
+    apps phase's sequence (``scans``) and sm-filter over the sm2mm phase's
+    pass-1 simple map with TOOLS_YAML, mm-georef on the apps phase's map,
+    the converters on frame 0, the viewers on that map and an icp-run log,
+    nn_search over a HashGrid of a decimated frame against K1, every call in
+    a Profiler span. The new K1 shape is compared with its plain version
+    and timed into ``shapes``. Inputs and outputs under TOOLS_DIR are
+    deleted at the end but for the card's HTML pages."""
+    from mp2p_icp_tpu_torch import filters as filters_pkg
+    from mp2p_icp_tpu_torch.apps import (icp_log_viewer, kitti2mm, mm2txt, mm_georef, mm_info,
+                                         mm_viewer, rawlog_filter, sm_filter, txt2mm)
+    from mp2p_icp_tpu_torch.core import geodesy
+    from mp2p_icp_tpu_torch.filters.sm2mm import SimpleMap
+    from mp2p_icp_tpu_torch.io.mm import load_mm_file
+    from mp2p_icp_tpu_torch.io.rawlog import Rawlog
+    from mp2p_icp_tpu_torch.ops.nn import nn_search
+    from mp2p_icp_tpu_torch.ops.voxel_hash import build_hash_grid
+    from mp2p_icp_tpu_torch.utils import Profiler
+
+    ref = TOOLS_JAX
+    size = {"frames": APPS_FRAMES, "rings": APPS_RINGS, "azimuths": APPS_AZIMUTHS,
+            "keyframes": SM2MM_KEYFRAMES}
+    check(all(ref["size"][k] == v for k, v in size.items()),
+          f"{TOOLS_REFERENCE.name} is of another size: {ref['size']}, here {size}")
+    prof = Profiler()
+    TOOLS_DIR.mkdir(parents=True, exist_ok=True)
+    d = TOOLS_DIR
+    with prof.scope("tools.inputs"):
+        write_rawlog(d / "in.rawlog.npz", scans)
+        txt, bin_ = tools_inputs_frame0(scans[0], d)
+        (d / "tools.yaml").write_text(TOOLS_YAML)
+        (d / "georef.yaml").write_text(yaml.safe_dump({"georeferencing": GEOREF}))
+        pass1["simple_map"].save(d / "in.sm.npz")
+    print(f"[tools] inputs: {APPS_FRAMES} frames as a .rawlog.npz "
+          f"({(d / 'in.rawlog.npz').stat().st_size / 2**20:.1f} MiB), frame 0 as .txt and "
+          f".bin, the sm2mm phase's pass-1 simple map ({len(pass1['simple_map'].keyframes)} "
+          f"keyframes) as .sm.npz")
+
+    # (a) rawlog-filter at full width: K1 k=8 once a frame (the normals fit)
+    record = []
+    torch.cuda.synchronize()
+    reset_counts()
+    with prof.scope("tools.rawlog_filter"), captured_layers(filters_pkg, record):
+        _, seconds = printed(rawlog_filter.main, ["-i", d / "in.rawlog.npz", "-o",
+                                                  d / "out.rawlog.npz", "-p", d / "tools.yaml",
+                                                  "-v", "QUIET"])
+    n = counts()
+    check(n["knn_sweep"] == APPS_FRAMES and n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0,
+          f"rawlog-filter: launches {n}, want one K1 a frame ({APPS_FRAMES})")
+    launches["knn_sweep"] += n["knn_sweep"]
+    by_path["knn_sweep"][f"rawlog-filter, {APPS_FRAMES} frames (normals k=8)"] = n["knn_sweep"]
+    got = rawlog_summary(Rawlog.load(str(d / "out.rawlog.npz")))
+    want = ref["rawlog"]
+    check(len(got) == len(want) == APPS_FRAMES, f"rawlog-filter: {len(got)} frames")
+    gap = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        check([o["label"] for o in a] == [o["label"] for o in b] and len(a) == 4,
+              f"rawlog-filter frame {i}: entries {[o['label'] for o in a]}, JAX "
+              f"{[o['label'] for o in b]}")
+        for x, y in zip(a, b):
+            check(x["count"] == y["count"], f"rawlog-filter frame {i} {x['label']}: "
+                  f"{x['count']} rows, JAX {y['count']}")
+            gap = max([gap] + [abs(u - v) / max(w, 1.0) for u, v, w in zip(
+                x["sum"], y["sum"], y["abs_sum"])] + [abs(x[c] - y[c]) / max(abs(y[c]), 1.0)
+                                                      for c in y if c.endswith("_sum")
+                                                      and c != "abs_sum"])
+    check(gap <= 1e-6, f"rawlog-filter: sums {gap} apart (relative)")
+    # the normals its run fitted (the file keeps none)
+    fit = [normals_summary(r) for r in record]
+    wn = [a["with_normal"] - b["with_normal"] for a, b in zip(fit, ref["rawlog_normals"])]
+    rows_far = {}
+    for key, packed in ref["rawlog_normal_rows"].items():
+        r = record[int(key)]
+        far = normals_beyond_band(r["normals"][: int(r["count"])], unpack_normals(packed))
+        rows_far[key] = (int(far.sum()), int(far.size))
+        check(far.mean() <= NORMALS_SHARE, f"rawlog-filter frame {key}: {far.mean():.2%} of "
+              f"the normals beyond {NORMALS_BAND} of JAX's")
+    check(all(abs(g) <= 0.005 * f["count"] for g, f in zip(wn, fit)),
+          f"rawlog-filter: rows with a normal differ from JAX's by {wn}")
+    decimated = [o["count"] for fr in got for o in fr if o["label"] == "out_decimated"]
+    print(f"[tools] rawlog-filter on {kind}: {APPS_FRAMES} frames, {seconds * 1e3 / APPS_FRAMES:.1f} "
+          f"ms a frame (host clock: load, generator, range, FirstPoint 0.5 m, normals, save; "
+          f"{seconds:.1f} s the call), 4 entries a frame (the observation, out_decimated, "
+          f"out_ranged, out_raw), rows exact and sums {gap:.3g} apart (relative) as JAX's; "
+          f"decimated {min(decimated)}-{max(decimated)} rows; {n['knn_sweep']} K1 launches, no "
+          f"K2/K3; rows with a normal minus JAX's per frame in [{min(wn)}, {max(wn)}]; "
+          + ", ".join(f"frame {k}: {a} of {b} normals beyond {NORMALS_BAND} of JAX's"
+                      for k, (a, b) in rows_far.items()) + f" on {smi}")
+
+    # the new K1 shape: the decimated layer against itself, k=8
+    dev = default_device()
+    layer0 = PointCloud(xyz=torch.from_numpy(record[0]["xyz"]).to(dev),
+                        count=torch.from_numpy(record[0]["count"]).to(dev))
+    q, p = sentinel_padded(layer0, 1.0e8), sentinel_padded(layer0, -1.0e8)
+    Q = q.shape[0]
+    errs["knn_sweep"].append(compare(
+        f"K1 {Q}x{Q} k=8 (rawlog-filter normals, {int(layer0.count)} valid)", nnb.knn_sweep,
+        nnb.knn_plain, q, p, 8))
+    g_times = graph_ms(lambda: nnb.knn_sweep(q, p, 8), replays=3)
+    shapes["knn_sweep"].append(kernel_row(
+        "knn_sweep", "rawlog-filter normals", 1, Q, Q, 8,
+        lambda: nnb.knn_sweep(q, p, 8), lambda: nnb.knn_plain(q, p, 8), q, p, g_times, smi,
+        plain_reps=1))
+    del q, p
+    torch.cuda.empty_cache()
+
+    # (b) sm-filter on the pass-1 simple map
+    record_sm = []
+    torch.cuda.synchronize()
+    reset_counts()
+    with prof.scope("tools.sm_filter"), captured_layers(filters_pkg, record_sm):
+        text, seconds = printed(sm_filter.main, ["-i", d / "in.sm.npz", "-o", d / "out.sm.npz",
+                                                 "-p", d / "tools.yaml", "--output-layer",
+                                                 TOOLS_LAYER])
+    n = counts()
+    n_kf = len(pass1["simple_map"].keyframes)
+    check(n["knn_sweep"] == n_kf and n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0,
+          f"sm-filter: launches {n}, want one K1 a keyframe ({n_kf})")
+    launches["knn_sweep"] += n["knn_sweep"]
+    by_path["knn_sweep"][f"sm-filter, {n_kf} keyframes (normals k=8)"] = n["knn_sweep"]
+    points = simplemap_summary(SimpleMap.load(str(d / "out.sm.npz")))
+    check(points == ref["sm_filter"]["points"],
+          f"sm-filter: keyframe points {points}, JAX {ref['sm_filter']['points']}")
+    check(text.replace(str(d / "out.sm.npz"), "OUT/out.sm.npz") == ref["sm_filter"]["line"],
+          f"sm-filter printed {text!r}, JAX {ref['sm_filter']['line']!r}")
+    print(f"[tools] sm-filter on {kind}: {n_kf} keyframes, {seconds * 1e3 / n_kf:.1f} ms a "
+          f"keyframe (host clock, load and save included), decimated rows per keyframe as "
+          f"JAX's ({min(points)}-{max(points)}), the output loads; {n['knn_sweep']} K1 launches")
+
+    # (c) mm-georef on the apps phase's map
+    src, geo, enu = APPS_DIR / "map.mm.npz", d / "geo.mm.npz", d / "enu.mm.npz"
+    with prof.scope("tools.mm_georef"):
+        printed(mm_georef.main, [src, "--inject", d / "georef.yaml", "-o", geo])
+        printed(mm_georef.main, [geo, "--extract", d / "again.yaml"])
+        lines = {"print": printed(mm_georef.main, [geo])[0],
+                 "geodetic_to_map": printed(mm_georef.main, [geo, "--geodetic-to-map",
+                                                             GEOREF_FIX])[0],
+                 "map_to_geodetic": printed(mm_georef.main, [geo, "--map-to-geodetic",
+                                                             GEOREF_POINT])[0]}
+        _, seconds = printed(mm_georef.main, [geo, "--to-enu", "-o", enu])
+    check(yaml.safe_load((d / "again.yaml").read_text()) == {"georeferencing": GEOREF},
+          "mm-georef: --extract after --inject differs from the injected YAML")
+    check(lines == ref["georef"], f"mm-georef printed {lines}, JAX {ref['georef']}")
+    before, after = load_mm_file(str(geo), device="cpu"), load_mm_file(str(enu), device="cpu")
+    ulp_rows, n_rows = 0, 0
+    for name, layer in before.layers.items():
+        if not isinstance(layer, PointCloud):
+            continue
+        k = int(layer.count)
+        host = geodesy.map_to_enu(layer.xyz[:k].numpy().astype(np.float64),
+                                  before.georeferencing).astype(np.float32)
+        u = ulps_apart(after.layers[name].xyz[:k].numpy(), host)
+        check(u.max() <= 1 and torch.equal(after.layers[name].xyz[k:], layer.xyz[k:]),
+              f"mm-georef --to-enu {name}: {u.max()} ulps from the host's geodesy")
+        ulp_rows += int((u.max(1) > 0).sum())
+        n_rows += k
+    check(after.georeferencing.t_enu_to_map_xyz == (0.0, 0.0, 0.0), "--to-enu: not identity")
+    print(f"[tools] mm-georef on {src.name}: --inject / --extract give the injected anchor "
+          f"back; --geodetic-to-map {GEOREF_FIX} -> {lines['geodetic_to_map'].strip()}, "
+          f"--map-to-geodetic {GEOREF_POINT} -> {lines['map_to_geodetic'].strip()} (JAX's lines); "
+          f"--to-enu rewrote {n_rows} rows on {kind} in {seconds:.2f} s, {ulp_rows} of them "
+          f"1 ulp from the host's float64 geodesy, the rest equal")
+
+    # (d) the converters on frame 0
+    with prof.scope("tools.converters"), contextlib.chdir(d):
+        printed(txt2mm.main, ["-i", txt, "-o", d / "frame0_txt.mm.npz", "-f", "xyzirt"])
+        printed(mm2txt.main, [d / "frame0_txt.mm.npz"])
+        printed(kitti2mm.main, ["-i", bin_, "-o", d / "frame0.mm.npz"])
+        info, _ = printed(mm_info.main, [d / "frame0.mm.npz"])
+    back = np.loadtxt(d / "frame0_txt_raw.txt", dtype=np.float32)
+    check(np.array_equal(back, np.loadtxt(txt, dtype=np.float32)),
+          "txt2mm -> mm2txt: the columns differ from the input's")
+    rows = np.fromfile(bin_, np.float32).reshape(-1, 4)
+    scan = load_mm_file(str(d / "frame0.mm.npz"), device="cpu").layers["raw"]
+    check(np.array_equal(scan.to_numpy(), rows[:, :3])
+          and np.array_equal(scan.intensity[: len(rows)].numpy(), rows[:, 3]),
+          "kitti2mm: the layer differs from the .bin rows")
+    check(info == ref["mm_info"], f"mm-info printed {info!r}, JAX {ref['mm_info']!r}")
+    print(f"[tools] txt2mm -f xyzirt -> mm2txt and kitti2mm -> mm-info on frame 0 "
+          f"({len(rows)} rows): the columns come back equal; mm-info: {info.strip()} (JAX's)")
+
+    # (e) the viewers: the card's run against the CPU's
+    log = APPS_DIR / "icp_run_xyz.icplog.npz"
+    pages = {}
+    for tag, dev_name in (("card", str(default_device())), ("cpu", "cpu")):
+        with prof.scope(f"tools.viewers ({tag})"):
+            mm_text, _ = printed(mm_viewer.main, [src, "--html", d / f"map_{tag}.html",
+                                                  "--device", dev_name])
+            log_text, _ = printed(icp_log_viewer.main, [log, "--html", d / f"log_{tag}.html",
+                                                        "--device", dev_name])
+        pages[tag] = (mm_text.replace(f"_{tag}.html", ".html"),
+                      log_text.replace(f"_{tag}.html", ".html"),
+                      (d / f"map_{tag}.html").read_bytes(), (d / f"log_{tag}.html").read_bytes())
+    check(pages["card"] == pages["cpu"], "the viewers' text or HTML differ between the card "
+          "and the CPU")
+    print(f"[tools] mm-viewer --html on {src.name} ({len(pages['card'][2]) / 2**20:.1f} MiB) "
+          f"and icp-log-viewer --html + text on {log.name} ({len(pages['card'][1].splitlines())} "
+          f"lines): byte for byte the pages and lines of --device cpu")
+
+    # (f) nn_search over a HashGrid of decimated frame 0, queries frame 1's
+    layer1 = record[1]
+    q_cpu = torch.from_numpy(layer1["xyz"])
+    qv_cpu = torch.arange(q_cpu.shape[0]) < int(layer1["count"])
+    p_cpu, pv_cpu = layer0.xyz.cpu(), layer0.valid_mask().cpu()
+    q, qv, p, pv = q_cpu.to(dev), qv_cpu.to(dev), p_cpu.to(dev), pv_cpu.to(dev)
+    with prof.scope("tools.nn_search"):
+        grid = build_hash_grid(p, pv, NN_GRID_CELL)
+        torch.cuda.synchronize()
+    grid_cpu = build_hash_grid(p_cpu, pv_cpu, NN_GRID_CELL)
+    check(all(torch.equal(getattr(grid, f).cpu(), getattr(grid_cpu, f)) for f in (
+        "points_sorted", "order", "valid_sorted", "bucket_start", "bucket_count")),
+          "build_hash_grid: the card's grid differs from the CPU's")
+    for k in (1, 8):
+        t0 = time.perf_counter()
+        rg = nn_search(grid, q, qv, k=k, k_per_cell=NN_GRID_PER_CELL,
+                       max_radius_sq=NN_GRID_RADIUS_SQ)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rc = nn_search(grid_cpu, q_cpu, qv_cpu, k=k, k_per_cell=NN_GRID_PER_CELL,
+                       max_radius_sq=NN_GRID_RADIUS_SQ)
+        check(all(torch.equal(getattr(rg, f).cpu(), getattr(rc, f)) for f in rg._fields),
+              f"nn_search k={k}: the card's result differs from the CPU's")
+        reset_counts()
+        rb = nnb.knn_bruteforce(q, qv, p, pv, k=k, max_radius_sq=NN_GRID_RADIUS_SQ)
+        torch.cuda.synchronize()
+        n = counts()
+        check(n["knn_sweep"] == 1 and sum(n.values()) == 1, f"nn_search's reference: {n}")
+        launches["knn_sweep"] += 1
+        by_path["knn_sweep"][f"nn_search against K1, k={k}"] = 1
+        a = {f: getattr(rg, f).cpu().numpy() for f in rg._fields}
+        b = {f: getattr(rb, f).cpu().numpy() for f in ("idx", "dist_sq", "valid")}
+        same = (a["idx"] == b["idx"]) & a["valid"] & b["valid"]
+        u = ulps_apart(a["dist_sq"][same], b["dist_sq"][same])
+        why = grid_rows_explained(grid, q_cpu.numpy(), a, b, NN_GRID_PER_CELL)
+        check(u.max(initial=0) <= 1, f"nn_search k={k}: d2 {u.max()} ulps from K1's")
+        check(why["other"] == 0, f"nn_search k={k}: rows that differ from K1's unexplained: "
+              f"{why}")
+        print(f"[tools] nn_search k={k} over a HashGrid (cell {NN_GRID_CELL} m, "
+              f"{grid.bucket_start.shape[0]} buckets, at most {int(grid.bucket_count.max())} "
+              f"rows a bucket) of decimated frame 0 ({int(pv.sum())} points), "
+              f"{int(qv.sum())} queries of frame 1, radius^2 {NN_GRID_RADIUS_SQ}: {ms:.1f} ms on "
+              f"{kind} (host clock), equal to its CPU run; against K1: "
+              f"{int(b['valid'].sum())} neighbours, {why['rows']} rows differ ({why['ties']} "
+              f"ties, {why['duplicates']} with a colliding bucket's duplicate, "
+              f"{why['overflow']} beside a bucket over {NN_GRID_PER_CELL} rows), d2 of the same "
+              f"neighbours within {u.max(initial=0)} ulp")
+
+    # (g) the profiler: the spans above, and one under torch.profiler
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as trace:
+        with prof.scope("tools.mm_info (traced)"):
+            printed(mm_info.main, [d / "frame0.mm.npz"])
+    names = {e.name for e in trace.events()}
+    check("tools.mm_info (traced)" in names, "the Profiler span is not among the trace's events")
+    print("[tools] Profiler spans of the phase (host clock, no sync; the traced span found "
+          "among torch.profiler's events):")
+    for line in prof.report().splitlines():
+        print(f"    | {line}")
+    # the inputs and outputs go (made again from the seeds); the card's pages stay
+    for f in sorted(d.iterdir()):
+        if f.name not in ("map_card.html", "log_card.html"):
+            f.unlink()
+    kept = sorted(d.iterdir())
+    print(f"[tools] kept under {d.relative_to(REPO)}: "
+          f"{sum(f.stat().st_size for f in kept) / 2**20:.1f} MiB ({', '.join(f.name for f in kept)})")
 
 
 def graph_inputs(n, multiple=1):
@@ -2593,7 +3081,7 @@ def timed_solve(solve):
 
 
 def pose_graph_phase(smi, kind):
-    """Phase 13 (a): the pose graph at KITTI 00's length on the card, dense
+    """Phase 14 (a): the pose graph at KITTI 00's length on the card, dense
     and CG, each twice (equal to the bit), held against each other and
     against the JAX CPU reference; the dense solve on the 1,000-node graph
     against JAX's. Returns the one-rank results the sharded solves are
@@ -2658,7 +3146,7 @@ def pose_graph_phase(smi, kind):
 
 
 def loop_closure_phase(smi, kind, launches, by_path):
-    """Phase 13 (b): kitti-odometry --mapping --loop-closure on an
+    """Phase 14 (b): kitti-odometry --mapping --loop-closure on an
     out-and-back drive at HDL-64E geometry, held to the JAX CPU reference:
     the candidates, the accepted loops, the printed line, ATE before and
     after the closure, and the correction itself: JAX's odometry poses and
@@ -2791,7 +3279,7 @@ def np_pose(p):
 
 def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases,
                    batch_case, odometry_case):
-    """Phase 13 (c): the sharded paths, several ranks on the one card over
+    """Phase 14 (c): the sharded paths, several ranks on the one card over
     gloo (NCCL refuses two ranks on one GPU): 4 ranks for the sharded kNN,
     the spatial aligns and the sharded pose graph; 2 ranks, started by
     init_from_env from the MP2P_* variables, for SpatialOdometryMapper and
@@ -2986,7 +3474,7 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile each path (phase 14)")
+                    help="also profile each path (phase 15)")
     args = ap.parse_args()
 
     clock = [time.perf_counter()]
@@ -3228,19 +3716,22 @@ def main():
         ("knn_sweep", "1M-map crop", 1, N_POINTS, 1 << 16, 1,
          lambda: nnb.knn_sweep(scan_q, map_64k, 1), lambda: nnb.knn_plain(scan_q, map_64k, 1)),
         ("knn_sweep", "K1 on K3's shape", 1, N_POINTS, 1 << 18, 1,
-         lambda: nnb.knn_sweep(scan_q, map_p, 1), None),
+         lambda: nnb.knn_sweep(scan_q, map_p, 1), lambda: nnb.knn_plain(scan_q, map_p, 1)),
         ("knn_sweep_streamed", "2M-map crop", 1, N_POINTS, 1 << 18, 1,
          lambda: nnb.knn_sweep_streamed(scan_q, map_p, 1),
          lambda: nnb.knn_plain_streamed(scan_q, map_p, 1)),
         ("knn_sweep_streamed", "2M-map crop k=8", 1, N_POINTS, 1 << 18, 8,
-         lambda: nnb.knn_sweep_streamed(scan_q, map_p, 8), None),
+         lambda: nnb.knn_sweep_streamed(scan_q, map_p, 8),
+         lambda: nnb.knn_plain_streamed(scan_q, map_p, 8)),
         ("knn_sweep_batched", "batched", BATCH, N_POINTS, 1 << 16, 1,
          lambda: nnb.knn_sweep_batched(scans_b, maps_b, 1),
          lambda: nnb.knn_plain_batched(scans_b, maps_b, 1)),
         ("knn_sweep_batched", "batched, shared map", BATCH, N_POINTS, 1 << 16, 1,
-         lambda: nnb.knn_sweep_batched(scans_b, map_64k, 1), None),
+         lambda: nnb.knn_sweep_batched(scans_b, map_64k, 1),
+         lambda: nnb.knn_plain_batched(scans_b, map_64k, 1)),
         ("knn_sweep_batched", "batched B=2", 2, N_POINTS, 1 << 16, 1,
-         lambda: nnb.knn_sweep_batched(scans_b[:2], maps_b[:2], 1), None),
+         lambda: nnb.knn_sweep_batched(scans_b[:2], maps_b[:2], 1),
+         lambda: nnb.knn_plain_batched(scans_b[:2], maps_b[:2], 1)),
         ("knn_sweep_batched", "B=4, a data-parallel rank's half of the batch", 4, N_POINTS,
          1 << 16, 1, lambda: nnb.knn_sweep_batched(scans_b[:4], maps_b[:4], 1),
          lambda: nnb.knn_plain_batched(scans_b[:4], maps_b[:4], 1)),
@@ -3521,10 +4012,17 @@ def main():
     # ---- 12. the command-line entry points
     global APPS_JAX
     APPS_JAX = json.loads(APPS_REFERENCE.read_text())
-    apps_phase(smi, kind, launches, by_path, errs, shapes, pass1)
+    apps_scans = apps_phase(smi, kind, launches, by_path, errs, shapes, pass1)
 
     phase_done("apps")
-    # ---- 13. the pose graph, loop closure and the sharded paths
+    # ---- 13. the map tools
+    global TOOLS_JAX
+    TOOLS_JAX = json.loads(TOOLS_REFERENCE.read_text())
+    tools_phase(smi, kind, launches, by_path, errs, shapes, apps_scans, pass1)
+    del apps_scans
+
+    phase_done("tools")
+    # ---- 14. the pose graph, loop closure and the sharded paths
     global PARALLEL_JAX
     PARALLEL_JAX = json.loads(PARALLEL_REFERENCE.read_text())
     one_rank = pose_graph_phase(smi, kind)
@@ -3547,7 +4045,7 @@ def main():
                    (scan_q.cpu().numpy(), corridor[: 1 << 20], (1, 8)), align_cases, batch_case,
                    odometry_case)
     phase_done("sharded paths")
-    # ---- 14. profile (optional)
+    # ---- 15. profile (optional)
     if args.profile:
         profile_align(icp, loc, glob, params, smi, tables)
         gmap_2m, params_2m = maps["2M"]
@@ -3565,7 +4063,7 @@ def main():
         (out / "profile_tables.txt").write_text("\n\n".join(tables))
 
     phase_done("profile")
-    # ---- 15. results
+    # ---- 16. results
     # a kernel's own line is its first shape (the one its path gives it)
     print(json.dumps({"kernels": [{
         "name": name,

@@ -1,7 +1,9 @@
 """Command-line entry points of the port (``python -m mp2p_icp_tpu_torch.apps.<name>``).
 
-Ports of ``mp2p_icp_tpu/apps``: icp_run, kitti_odometry, mm_filter,
-sm2mm_app and sm_cli. Each takes ``--device`` (default: the package's
+Ports of every app of ``mp2p_icp_tpu/apps``: icp_run, kitti_odometry,
+mm_filter, sm2mm_app, sm_cli, rawlog_filter, sm_filter, mm_georef, txt2mm,
+mm2txt, kitti2mm, mm_info, mm_viewer and icp_log_viewer (html_viewer is
+their page writer). Each takes ``--device`` (default: the package's
 default device, the card) and runs every tensor of its work there.
 """
 

@@ -62,6 +62,7 @@ from mp2p_icp_tpu_torch.matchers import (
     MatcherPointsDistanceThreshold,
     MatcherPointsInlierRatio,
 )
+from mp2p_icp_tpu_torch.ops.voxel_hash import HashGrid
 from mp2p_icp_tpu_torch.ops.voxel_hash_map import VoxelHashMapState
 from mp2p_icp_tpu_torch.parallel.pose_graph import PoseGraphEdges
 from mp2p_icp_tpu_torch.quality.paired_ratio import QualityPairedRatio
@@ -72,8 +73,9 @@ from mp2p_icp_tpu_torch.solvers.gauss_newton import GNParams
 from mp2p_icp_tpu_torch.solvers.robust import RobustKernel
 from mp2p_icp_tpu_torch.solvers.solver import SolverGaussNewton, SolverHorn, SolverOLAE
 
-# JAX-side fields with no counterpart in the port: the hash-grid candidate
-# budget (the grid path is not ported)
+# JAX-side fields with no counterpart in the port: the matchers' hash-grid
+# candidate budget (no matcher takes the grid path; ops.nn.nn_search has it
+# as an argument)
 _DROPPED_FIELDS = {"k_per_cell"}
 _CHANNELS = ("intensity", "ring", "time", "normals")
 
@@ -166,6 +168,19 @@ def voxel_hash_map_from_jax(state, device=None) -> VoxelHashMapState:
         table_k1=i32(state.table_k1), table_k2=i32(state.table_k2),
         n_dropped=i32(state.n_dropped),
     )
+
+
+def hash_grid_from_jax(grid, device=None) -> HashGrid:
+    """The port's copy of a JAX package HashGrid (ops/voxel_hash.py),
+    read through numpy, field for field."""
+    device = resolve(device)
+
+    def t(x):
+        return torch.from_numpy(np.array(x)).to(device)
+
+    return HashGrid(points_sorted=t(grid.points_sorted), order=t(grid.order),
+                    valid_sorted=t(grid.valid_sorted), bucket_start=t(grid.bucket_start),
+                    bucket_count=t(grid.bucket_count), cell_size=float(grid.cell_size))
 
 
 def stacked_voxel_hash_maps_from_jax(states, device=None) -> VoxelHashMapState:

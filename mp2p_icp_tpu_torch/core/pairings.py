@@ -192,6 +192,9 @@ class Pairings:
             + self.pl2pl.count()
         )
 
+    def empty_flag(self) -> torch.Tensor:
+        return self.size() == 0
+
     def decimated(self, capacity: int) -> "Pairings":
         """Every block thinned to at most ``capacity`` valid rows by an even
         stride and compacted: the bounded per-iteration record of

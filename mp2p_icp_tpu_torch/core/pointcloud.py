@@ -118,8 +118,24 @@ class PointCloud:
             time=pad_channel(time),
         )
 
+    @staticmethod
+    def empty(capacity: int, device=None) -> "PointCloud":
+        device = resolve(device)
+        return PointCloud(
+            xyz=torch.full((capacity, 3), PointCloud.PAD_VALUE, dtype=torch.float32,
+                           device=device),
+            count=torch.tensor(0, dtype=torch.int32, device=device),
+        )
+
     def to_numpy(self) -> np.ndarray:
         return self.xyz[: int(self.count)].cpu().numpy()
+
+    def bounding_box(self):
+        """(min, max) over the valid points; (+inf, -inf) if there are none."""
+        m = self.valid_mask()[..., None]
+        mn = torch.where(m, self.xyz, torch.inf).amin(dim=-2)
+        mx = torch.where(m, self.xyz, -torch.inf).amax(dim=-2)
+        return mn, mx
 
     def transformed(self, pose) -> "PointCloud":
         """Rigidly transform valid points (padding rows stay at the
@@ -133,6 +149,19 @@ class PointCloud:
         if nrm is not None:
             nrm = torch.where(m, se3.rotate(pose, nrm), nrm)
         return dataclasses.replace(self, xyz=new_xyz, normals=nrm)
+
+    def with_points(self, xyz: torch.Tensor, count: torch.Tensor) -> "PointCloud":
+        return dataclasses.replace(self, xyz=xyz, count=count)
+
+
+def sanity_check(pc: PointCloud) -> bool:
+    """Channel-length validation (reference: pointcloud_sanity_check.cpp:27-76):
+    with fixed capacities, every channel spans the capacity and the count
+    fits in it."""
+    for ch in (pc.intensity, pc.ring, pc.time, pc.normals):
+        if ch is not None and ch.shape[0] != pc.capacity:
+            return False
+    return int(pc.count) <= pc.capacity
 
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(PointCloud))

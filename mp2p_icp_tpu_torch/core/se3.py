@@ -31,6 +31,16 @@ class Pose(NamedTuple):
     R: torch.Tensor  # [..., 3, 3]
     t: torch.Tensor  # [..., 3]
 
+    @property
+    def batch_shape(self):
+        return self.t.shape[:-1]
+
+    def as_matrix(self) -> torch.Tensor:
+        """Homogeneous [..., 4, 4] matrix."""
+        top = torch.cat([self.R, self.t[..., :, None]], dim=-1)
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=self.R.dtype, device=self.R.device)
+        return torch.cat([top, bottom.expand(self.batch_shape + (1, 4))], dim=-2)
+
 
 def identity(dtype=torch.float32, device=None) -> Pose:
     device = resolve(device)
@@ -360,3 +370,17 @@ def delta_norms(a: Pose, b: Pose):
 def error_log_norm(gt: Pose, est: Pose) -> torch.Tensor:
     """‖log(gt⁻¹ ∘ est)‖ — the end-to-end accuracy metric."""
     return torch.linalg.vector_norm(log(compose(inverse(gt), est)), dim=-1)
+
+
+def random_pose(generator: torch.Generator, max_trans: float = 1.0,
+                max_angle: float = 3.1415, device=None) -> Pose:
+    """Uniform random pose for tests: a random axis, an angle U(0,
+    max_angle) and translation components U(-max_trans, max_trans), drawn
+    from ``generator`` (the JAX package draws from a PRNG key instead, so
+    the values differ; the distribution is the same)."""
+    device = resolve(device)
+    axis = torch.randn(3, generator=generator, device=generator.device)
+    axis = axis / torch.linalg.vector_norm(axis)
+    angle = torch.rand((), generator=generator, device=generator.device) * max_angle
+    t = (torch.rand(3, generator=generator, device=generator.device) * 2.0 - 1.0) * max_trans
+    return Pose(so3_exp(axis * angle).to(device), t.to(device))

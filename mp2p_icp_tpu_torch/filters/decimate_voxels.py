@@ -12,8 +12,9 @@ reference emits insertion order; point sets are order-free downstream).
 ``hash`` is a scratch voxel hash table (``ops.voxel_hash_map``); its
 output keeps the winners' input order. The other methods reduce over the
 voxel segments of the same sort (``voxel_segments``), with sums added in
-sorted order so that a mean has one value on every device; they take one
-cloud, not a batch.
+sorted order so that a mean has one value on every device. On a batch of
+clouds [B, C, 3] they run as B single calls, stacked: what ``jax.vmap`` of
+the JAX filter gives, each cloud to the bit as its own call.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import enum
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud, scatter_rows, take_rows
 from mp2p_icp_tpu_torch.filters.base import FilterBase
@@ -70,7 +72,9 @@ class FilterDecimateVoxels(FilterBase):
         if self.backend == "hash":
             return self._call_hash(layers)
         inputs = [layers[name] for name in self.input_pointcloud_layer]
-        # a batch of clouds [B, C, 3] decimates as B problems at once
+        if self.decimate_method != DecimateMethod.FIRST_POINT and inputs[0].xyz.ndim == 3:
+            return self._per_cloud(layers)
+        # a batch of clouds [B, C, 3] decimates by FirstPoint as B problems at once
         xyz = torch.cat([pc.xyz for pc in inputs], dim=-2)
         valid = torch.cat([pc.valid_mask() for pc in inputs], dim=-1)
 
@@ -111,9 +115,6 @@ class FilterDecimateVoxels(FilterBase):
             )
             src = torch.clamp(src, 0, C - 1)
             return self._emit(layers, inputs, xyz, valid, src, n, out_cap, bypass_pt)
-        if xyz.ndim != 2:
-            raise NotImplementedError(
-                f"FilterDecimateVoxels: {self.decimate_method} of a batch of clouds")
         segs = voxel_segments(xyz, valid_decim, self.voxel_filter_resolution,
                               flatten_z=self.flatten_to is not None)
         # rows of the voxel of rank j, for the first out_cap ranks
@@ -137,6 +138,17 @@ class FilterDecimateVoxels(FilterBase):
         d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
         src = segment_argmin(segs, d2, C)[ranks]
         return self._emit(layers, inputs, xyz, valid, src, segs.n_voxels, out_cap, bypass_pt)
+
+    def _per_cloud(self, layers):
+        """A batch of clouds as B single calls, the outputs stacked."""
+        B = layers[self.input_pointcloud_layer[0]].xyz.shape[0]
+        outs = [self({name: pytree.tree_map(lambda x: x[b], layers[name])
+                      for name in self.input_pointcloud_layer})[self.output_pointcloud_layer]
+                for b in range(B)]
+        new_layers = dict(layers)
+        new_layers[self.output_pointcloud_layer] = pytree.tree_map(
+            lambda *xs: torch.stack(xs), *outs)
+        return new_layers
 
     def _emit(self, layers, inputs, xyz, valid, src, n, out_cap, bypass_pt, out_xyz=None):
         """Output assembly: the first min(n, out_cap) voxel representatives

@@ -107,10 +107,11 @@ class FilterDeskew(FilterBase):
 
     @staticmethod
     def _along_trajectory(pc: PointCloud, twist: torch.Tensor, variables) -> torch.Tensor:
-        """The precise mode on one cloud: the tangents interpolated linearly
-        at each point's time, their rotation, and v*t."""
-        if pc.xyz.ndim != 2:
-            raise NotImplementedError("FilterDeskew: the precise mode of a batch of clouds")
+        """The precise mode: the tangents interpolated linearly at each
+        point's time, their rotation, and v*t. A batch of clouds [B, C, 3]
+        (with a twist each, or one for all) shares the trajectory; every
+        step is elementwise, so each cloud comes out as its own call gives
+        it, to the bit."""
         times = torch.as_tensor(variables["trajectory_times"], dtype=torch.float32,
                                 device=pc.device)
         tang = torch.as_tensor(variables["trajectory_tangents"], dtype=torch.float32,
@@ -120,7 +121,8 @@ class FilterDeskew(FilterBase):
         i0 = i1 - 1
         t0, t1 = times[i0], times[i1]
         a = torch.clamp((pc.time - t0) / torch.clamp(t1 - t0, min=1e-9), 0.0, 1.0)
-        tangents = tang[i0] * (1 - a)[:, None] + tang[i1] * a[:, None]
+        tangents = tang[i0] * (1 - a)[..., None] + tang[i1] * a[..., None]
         R = se3.exp(tangents).R
-        new_xyz = se3.matmul3(R, pc.xyz[:, :, None])[:, :, 0] + pc.time[:, None] * twist[None, :3]
-        return torch.where(pc.valid_mask()[:, None], new_xyz, pc.xyz)
+        new_xyz = (se3.matmul3(R, pc.xyz[..., :, None])[..., 0]
+                   + pc.time[..., None] * twist[..., None, :3])
+        return torch.where(pc.valid_mask()[..., None], new_xyz, pc.xyz)

@@ -123,6 +123,9 @@ class MatcherAdaptive(Matcher):
             "pt2pl": sum(caps),
         }
 
+    def out_capacity_pt2pl(self, local_map) -> int:
+        return self.out_blocks(local_map)["pt2pl"]
+
     def match(self, global_map, local_map, pose, state: MatchState, ctx: MatchContext):
         gate = self.gate(ctx.icp_iteration)
         it = ctx.icp_iteration

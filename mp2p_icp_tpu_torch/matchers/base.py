@@ -149,6 +149,10 @@ class Matcher:
     #     -> (pairing blocks, new MatchState, potential_pairings)
     # def out_blocks(self, local_map) -> {block name: capacity}
 
+    def out_capacity(self, local_map) -> int:
+        """Rows of the matcher's first pairing block (Adaptive: pt2pt)."""
+        return next(iter(self.out_blocks(local_map).values()))
+
 
 def subsample_mask(
     valid: torch.Tensor, count: torch.Tensor, max_points: int

@@ -244,16 +244,20 @@ def test_constructors_default_to_the_card():
 
 def test_package_does_not_import_jax():
     """Every module of the package, found by walking it (so that io/ and
-    apps/ are covered), imports in a fresh process without jax or the JAX
-    package."""
+    apps/ are covered), imports in a fresh process without jax, the JAX
+    package or matplotlib (the viewers import it only to draw a PNG)."""
     code = (
         "import importlib, pkgutil, sys, mp2p_icp_tpu_torch as pkg; "
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]; "
         "[importlib.import_module(n) for n in names]; "
         "assert {'mp2p_icp_tpu_torch.io.mrpt_mm', 'mp2p_icp_tpu_torch.apps.kitti_odometry', "
-        "'mp2p_icp_tpu_torch.apps.sm_cli', 'mp2p_icp_tpu_torch.io.native'} <= set(names), names; "
+        "'mp2p_icp_tpu_torch.apps.sm_cli', 'mp2p_icp_tpu_torch.io.native', "
+        "'mp2p_icp_tpu_torch.apps.mm_viewer', 'mp2p_icp_tpu_torch.apps.icp_log_viewer', "
+        "'mp2p_icp_tpu_torch.utils.profiler', 'mp2p_icp_tpu_torch.ops.voxel_hash'} "
+        "<= set(names), names; "
         "assert 'jax' not in sys.modules, 'jax was imported'; "
-        "assert 'mp2p_icp_tpu' not in sys.modules, 'the JAX package was imported'"
+        "assert 'mp2p_icp_tpu' not in sys.modules, 'the JAX package was imported'; "
+        "assert 'matplotlib' not in sys.modules, 'matplotlib was imported'"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=Path(__file__).resolve().parents[1])
@@ -272,3 +276,151 @@ def test_chip_smoke_imports_nothing_of_the_jax_side():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
+
+
+# Public names of the JAX package that the port leaves out by design
+# (ROADMAP, "Code of the JAX package that the port does not need"), each
+# with its reason.
+OMITTED = {
+    ("matchers.base", "GridCache"): "the matchers' grids argument: every production call "
+                                    "passes {} and no matcher reads it",
+    ("ops.nn_bruteforce", "BATCH_VMEM_BUDGET"): "a compiler workaround: the TPU's VMEM "
+                                                "slabbing of the batched kernel",
+}
+
+
+def _jax_modules():
+    """(dotted name under the package, path) of every module of mp2p_icp_tpu."""
+    root = Path(__file__).resolve().parents[1] / "mp2p_icp_tpu"
+    for path in sorted(root.rglob("*.py")):
+        parts = path.relative_to(root).with_suffix("").parts
+        yield ".".join(parts[:-1] if parts[-1] == "__init__" else parts), path
+
+
+def _public_names(path):
+    """{name: [public method names] or None} of a module's top-level
+    functions, classes and assigned constants (read with ast: the JAX
+    package is not imported)."""
+    import ast
+
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ClassDef):
+            out[node.name] = [f.name for f in node.body if isinstance(f, ast.FunctionDef)
+                              and not f.name.startswith("_")]
+        elif isinstance(node, ast.FunctionDef):
+            out[node.name] = None
+        elif isinstance(node, ast.Assign):
+            out.update({t.id: None for t in node.targets if isinstance(t, ast.Name)})
+    return {k: v for k, v in out.items() if not k.startswith("_")}
+
+
+def test_every_module_and_public_name_of_the_jax_package_is_ported():
+    """Each module of mp2p_icp_tpu has its counterpart in the port, and each
+    public top-level function, class (with its public methods) and constant
+    exists there, but for OMITTED."""
+    import importlib
+
+    missing = []
+    for rel, path in _jax_modules():
+        name = "mp2p_icp_tpu_torch" + (f".{rel}" if rel else "")
+        try:
+            mod = importlib.import_module(name)
+        except ModuleNotFoundError:
+            missing.append(name)
+            continue
+        for attr, methods in _public_names(path).items():
+            if (rel, attr) in OMITTED:
+                assert not hasattr(mod, attr), f"{name}.{attr} is ported: drop it from OMITTED"
+                continue
+            if not hasattr(mod, attr):
+                missing.append(f"{name}.{attr}")
+                continue
+            missing += [f"{name}.{attr}.{m}" for m in methods or ()
+                        if not hasattr(getattr(mod, attr), m)]
+    assert not missing, missing
+
+
+def test_random_pose_is_a_uniform_rigid_motion():
+    """se3.random_pose draws from an explicit generator: the same seed gives
+    the same pose, rotations are proper, the angle and translation stay in
+    their ranges and the axes spread over the sphere."""
+    g = torch.Generator().manual_seed(3)
+    poses = [se3.random_pose(g, max_trans=2.0, max_angle=1.5) for _ in range(200)]
+    again = se3.random_pose(torch.Generator().manual_seed(3), max_trans=2.0, max_angle=1.5)
+    assert torch.equal(again.R, poses[0].R) and torch.equal(again.t, poses[0].t)
+    R = torch.stack([p.R for p in poses])
+    t = torch.stack([p.t for p in poses])
+    eye = torch.eye(3).expand(200, 3, 3)
+    _close(R @ R.transpose(-1, -2), eye)
+    _close(torch.linalg.det(R), np.ones(200))
+    angles = torch.linalg.vector_norm(se3.so3_log(R), dim=-1)
+    assert float(angles.max()) <= 1.5 + 1e-5 and float(angles.min()) >= 0.0
+    assert float(t.abs().max()) <= 2.0 and float(t.abs().max()) > 1.5
+    axes = se3.so3_log(R) / angles[:, None]
+    assert float(axes.mean(0).abs().max()) < 0.2  # no preferred direction
+    assert poses[0].t.device.type == "cpu"
+
+
+def test_pose_matrix_and_batch_shape_match_jax():
+    rng = np.random.RandomState(5)
+    tang = rng.uniform(-1, 1, (4, 6)).astype(np.float32)
+    pj = jse3.exp(jnp.asarray(tang))  # the same R and t in both packages
+    pt = se3.Pose(torch.from_numpy(np.array(pj.R)), torch.from_numpy(np.array(pj.t)))
+    assert tuple(pt.batch_shape) == tuple(pj.batch_shape) == (4,)
+    np.testing.assert_array_equal(pt.as_matrix().numpy(), np.asarray(pj.as_matrix()))
+    one = se3.Pose(pt.R[0], pt.t[0])
+    assert tuple(one.batch_shape) == () and one.as_matrix().shape == (4, 4)
+    np.testing.assert_array_equal(one.as_matrix().numpy(),
+                                  np.asarray(jse3.Pose(pj.R[0], pj.t[0]).as_matrix()))
+
+
+def test_pointcloud_helpers_match_jax():
+    """bounding_box, with_points, empty and sanity_check against the JAX
+    package's, on a padded cloud, an empty one and a bad channel."""
+    from mp2p_icp_tpu.core.pointcloud import sanity_check as jsanity
+    from mp2p_icp_tpu_torch.core.pointcloud import sanity_check
+
+    rng = np.random.RandomState(6)
+    xyz = rng.uniform(-9, 9, (300, 3)).astype(np.float32)
+    pt, pj = PointCloud.from_numpy(xyz, capacity=512), JPointCloud.from_numpy(xyz, capacity=512)
+    for a, b in zip(pt.bounding_box(), pj.bounding_box()):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    et, ej = PointCloud.empty(64), JPointCloud.empty(64)
+    np.testing.assert_array_equal(et.xyz.numpy(), np.asarray(ej.xyz))
+    assert int(et.count) == int(ej.count) == 0 and et.count.dtype == torch.int32
+    for a, b in zip(et.bounding_box(), ej.bounding_box()):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))  # (+inf, -inf)
+    moved = pt.with_points(pt.xyz + 1.0, torch.tensor(10, dtype=torch.int32))
+    assert int(moved.count) == 10 and moved.capacity == 512
+    np.testing.assert_array_equal(moved.bounding_box()[1].numpy(), xyz[:10].max(0) + 1.0)
+    assert sanity_check(pt) == jsanity(pj) is True
+    bad_t = dataclasses.replace(pt, intensity=torch.zeros(100))
+    bad_j = dataclasses.replace(pj, intensity=jnp.zeros(100))
+    assert sanity_check(bad_t) == jsanity(bad_j) is False
+
+
+def test_out_capacity_and_empty_flag_match_jax():
+    """The matchers' out_capacity (Adaptive: and out_capacity_pt2pl) for a
+    two-layer local map, and Pairings.empty_flag, as the JAX package's."""
+    from mp2p_icp_tpu.core.pairings import Pairings as JPairings
+    from mp2p_icp_tpu import matchers as jm
+    from mp2p_icp_tpu_torch import matchers as tm
+
+    layers_t = {"raw": PointCloud.empty(1024), "dec": PointCloud.empty(256)}
+    layers_j = {"raw": JPointCloud.empty(1024), "dec": JPointCloud.empty(256)}
+    lms = ("raw", "dec")
+    for name, kw in (("MatcherPointsDistanceThreshold", {"pairings_per_point": 3}),
+                     ("MatcherAdaptive", {"max_pt2pt_correspondences": 2}),
+                     ("MatcherPoint2Plane", {}), ("MatcherPoint2Line", {}),
+                     ("MatcherPointsInlierRatio", {})):
+        mt = getattr(tm, name)(layer_matches=tuple(tm.LayerMatch(x, x) for x in lms), **kw)
+        mj = getattr(jm, name)(layer_matches=tuple(jm.LayerMatch(x, x) for x in lms), **kw)
+        assert mt.out_capacity(layers_t) == mj.out_capacity(layers_j), name
+        if name == "MatcherAdaptive":
+            assert mt.out_capacity_pt2pl(layers_t) == mj.out_capacity_pt2pl(layers_j) == 1280
+    pt = tpairings.Pairings.empty(pt2pt_cap=8)
+    assert bool(pt.empty_flag()) == bool(JPairings.empty(pt2pt_cap=8).empty_flag()) is True
+    filled = dataclasses.replace(pt, pt2pt=dataclasses.replace(
+        pt.pt2pt, weight=torch.ones(8)))
+    assert not bool(filled.empty_flag())

@@ -148,6 +148,72 @@ def test_deskew_trajectory_mode_raises():
     assert torch.equal(out["deskewed"].xyz, FilterDeskew()({"raw": pt}, {"vx": 1.0})["deskewed"].xyz)
 
 
+def _batch_of_clouds(seeds, n_points, cap):
+    """B clouds of one capacity, each in both packages, and their stack in
+    each: ([JAX clouds], [port clouds], JAX batch, port batch)."""
+    pairs = [_clouds(s, n, cap, spread=8.0) for s, n in zip(seeds, n_points)]
+    js, ts = [p[0] for p in pairs], [p[1] for p in pairs]
+    jb = JPointCloud(**{f: jnp.stack([getattr(c, f) for c in js])
+                        for f in ("xyz", "count") + CHANNELS[:3]})
+    tb = PointCloud(**{f: torch.stack([getattr(c, f) for c in ts])
+                       for f in ("xyz", "count") + CHANNELS[:3]})
+    return js, ts, jb, tb
+
+
+@pytest.mark.parametrize("method", ["RandomPoint", "VoxelAverage", "ClosestToAverage"])
+def test_decimate_batch_equals_single_calls(method):
+    """A batch of clouds [B, C, 3] (no longer refused beyond FirstPoint):
+    each cloud to the bit as its own call, and as jax.vmap of the JAX
+    filter with unbatched parameters (the bands of the single-cloud cases:
+    exact; VoxelAverage's means 1e-6 relative)."""
+    import jax
+
+    js, ts, jb, tb = _batch_of_clouds((30, 31, 32), (900, 0, 1500), 2048)
+    f = FilterDecimateVoxels(decimate_method=DecimateMethod(method), output_capacity=1024)
+    out = f({"raw": tb})["decimated"]
+    assert out.xyz.shape == (3, 1024, 3) and out.count.shape == (3,)
+    jf = JDecimate(decimate_method=JMethod(method), output_capacity=1024)
+    ojb = jax.vmap(lambda pc: jf({"raw": pc})["decimated"])(jb)
+    for b, pc in enumerate(ts):
+        single = f({"raw": pc})["decimated"]
+        for name in ("xyz", "count") + CHANNELS[:3]:
+            a, c = getattr(out, name), getattr(single, name)
+            assert (a is None) == (c is None), name
+            if c is not None:
+                assert torch.equal(a[b], c), (b, name)
+        got, want = out.xyz[b].numpy(), np.asarray(ojb.xyz[b])
+        assert int(out.count[b]) == int(ojb.count[b])
+        if method == "VoxelAverage":
+            np.testing.assert_allclose(got, want, rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(got, want)
+    assert int(out.count[1]) == 0 and int(out.count[2]) > int(out.count[0]) > 0
+
+
+def test_precise_deskew_batch_equals_single_calls():
+    """The precise deskew on a batch of clouds (no longer refused), one
+    twist per cloud and a shared trajectory: each cloud to the bit as its
+    own call, and within 1e-5 m of jax.vmap of the JAX filter."""
+    import jax
+
+    js, ts, jb, tb = _batch_of_clouds((33, 34), (3000, 2500), 4096)
+    times = np.linspace(-0.06, 0.06, 25)
+    tangents = np.zeros((25, 6))
+    tangents[:, 3:] = np.outer(np.sign(times) * times ** 2 * 40.0, [0.1, -0.2, 1.0])
+    tangents[:, :3] = np.outer(times, [9.0, 0.3, 0.0])
+    vx = np.array([9.5, 4.0], np.float32)
+    traj = {"trajectory_times": times, "trajectory_tangents": tangents}
+    f = FilterDeskew(use_precise_local_velocities=True)
+    out = f({"raw": tb}, {"vx": torch.from_numpy(vx), "vy": 0.4, **traj})["deskewed"]
+    jf = JDeskew(use_precise_local_velocities=True)
+    ojb = jax.vmap(lambda pc, v: jf({"raw": pc}, {"vx": v, "vy": 0.4, **traj})["deskewed"])(
+        jb, jnp.asarray(vx))
+    for b, pc in enumerate(ts):
+        single = f({"raw": pc}, {"vx": float(vx[b]), "vy": 0.4, **traj})["deskewed"]
+        assert torch.equal(out.xyz[b], single.xyz), b
+        np.testing.assert_allclose(out.xyz[b].numpy(), np.asarray(ojb.xyz[b]), rtol=0, atol=1e-5)
+
+
 # -------------------------------------------------------------- first point
 @pytest.mark.parametrize("n,cap,out_cap,flatten", [
     (3000, 4096, 4096, False), (3000, 4096, 512, False), (3000, 4096, 1024, True),
@@ -213,8 +279,9 @@ def test_decimate_hash_backend_matches_jax_and_sort():
 
 def test_decimate_options_that_raise():
     """The methods once refused now decimate as the JAX package does (the
-    parity cases below); what still raises is the hash backend's refusal of
-    the options it does not take, and a batch of clouds beyond FirstPoint."""
+    parity cases below), a batch of clouds beyond FirstPoint too (a batch of
+    one here; test_decimate_batch_equals_single_calls); what still raises is
+    the hash backend's refusal of the options it does not take."""
     pj, pt = _clouds(11, 100, 256)
     for method in (DecimateMethod.RANDOM_POINT, DecimateMethod.VOXEL_AVERAGE,
                    DecimateMethod.CLOSEST_TO_AVERAGE):
@@ -222,8 +289,8 @@ def test_decimate_options_that_raise():
         ot = FilterDecimateVoxels(decimate_method=method)({"raw": pt})["decimated"]
         assert_clouds_equal(oj, ot)
         batch = PointCloud(xyz=pt.xyz[None], count=pt.count[None])
-        with pytest.raises(NotImplementedError, match="batch"):
-            FilterDecimateVoxels(decimate_method=method)({"raw": batch})
+        ob = FilterDecimateVoxels(decimate_method=method)({"raw": batch})["decimated"]
+        assert torch.equal(ob.xyz[0], ot.xyz) and torch.equal(ob.count[0], ot.count)
     with pytest.raises(ValueError, match="FIRST_POINT only"):
         FilterDecimateVoxels(backend="hash", decimate_method=DecimateMethod.VOXEL_AVERAGE)(
             {"raw": pt})
