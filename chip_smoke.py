@@ -183,7 +183,28 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    rank; equal to the one-process batch to the bit). Each rank's launches
    are counted in its process and printed, with ms beside the one-process
    path's;
-15. with --profile only: where the time goes, by torch.profiler over 2
+15. data x space: 4 ranks on the one card over gloo, started by
+   init_from_env, as a 2 x 2 mesh (2 data rows of 2 space ranks): (a)
+   phase 6's 8 scans of 8192 points against the shared 1M corridor map,
+   each space rank holding a 524288-row shard and each data rank 4 scans,
+   through make_batched_align(..., space=) with each shard cropped at each
+   scan's guess, the crop capacity sized to keep every in-box row of a
+   shard (checked and printed; the one-process reference keeps every
+   in-box row of the whole map: phase 6's 2^16 crop, or phase 6's batch
+   re-run at the wider crop): R, t, iterations and termination equal to the
+   one-process batch to the bit on every rank, K2 launches per rank ==
+   matcher calls (no K1, K3), one all_gather over space per matcher call,
+   ms per call beside the one-process batch's; (b) the JAX dry run's
+   problems (scripts/torch_multichip_dryrun.py: 4 uniform 256-point
+   clouds, each its own map), B = 4 on the mesh, equal to the one-process
+   batch to the bit and within the align band of the JAX package's data x
+   space run on 8 CPU devices (scripts/torch_parallel_reference.json,
+   "data_space"); (c) K2 at a rank's shape, 4 x 8192 x the cropped shard's
+   rows, k = 1, against knn_plain_batched bit for bit, timed in a CUDA
+   graph beside its bound and cdist + topk; (d)
+   scripts/torch_multichip_dryrun.py 4 as a subprocess (gloo: one card
+   for 4 ranks), its tail printed, a non-zero exit failing the phase;
+16. with --profile only: where the time goes, by torch.profiler over 2
    warm calls (device busy share, launches, the kNN kernels' time) of a
    scan-to-scan align, a scan to the 2M map and the batched call, then
    per-section host times of a scan-to-scan align with a sync around each
@@ -193,7 +214,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    each stage; the same for one warm fleet run; then 2 warm aligns of each
    engine cell and the sections of a 3D engine align with a sync around
    each; the profiler's tables go to chiprun_out/profile_tables.txt;
-16. one JSON line with the kernels' numbers (each shape's time, bound,
+17. one JSON line with the kernels' numbers (each shape's time, bound,
    plain version and library call, torch.cdist + topk in a CUDA graph),
    then the last line {"ok": true, "device": {...}}.
 
@@ -3471,10 +3492,183 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
         [n["knn_sweep_batched"] for n in per_rank]
 
 
+MESH_RANKS, MESH_SPACE = 4, 2  # the data x space phase's 2 x 2 mesh
+DRYRUN_TIMEOUT = 600  # s: the phase's spawn, and scripts/torch_multichip_dryrun.py 4
+
+
+def mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, problems, map_1m,
+               rb, b_ms):
+    """Phase 15: the batched align over a data x space mesh of 4 ranks on
+    the one card (gloo), at full width (phase 6's batch against the shared
+    1M map) and on the JAX dry run's problems; K2 at a rank's shape; the
+    dry run itself as a subprocess."""
+    import torch.utils._pytree as pytree
+
+    from mp2p_icp_tpu_torch.core.pointcloud import round_capacity
+    from mp2p_icp_tpu_torch.parallel import ranks
+    from mp2p_icp_tpu_torch.parallel.batch import crop_batched
+    from mp2p_icp_tpu_torch.parallel.launch import spawn_ranks
+    from mp2p_icp_tpu_torch.parallel.mesh import MeshAxis
+    from mp2p_icp_tpu_torch.parallel.spatial import own_shard
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import torch_multichip_dryrun as dryrun
+
+    # (a) the crop capacities: the one-process reference keeps every in-box
+    # row of the whole map, the mesh every in-box row of each shard; each
+    # shard's rows keep their order, so the two sweeps meet the same rows
+    gmap = map_1m["map"]
+    in_box = [int(micp.in_crop_box(bparams, gmap, scan, guess).sum())
+              for scan, guess, _ in problems]
+    shards = [own_shard(map_1m, MeshAxis("space", MESH_SPACE, s))["map"]
+              for s in range(MESH_SPACE)]
+    shard_box = [[int(micp.in_crop_box(bparams, sh, scan, guess).sum()) for sh in shards]
+                 for scan, guess, _ in problems]
+    del shards
+    ref_crop = max(bparams.crop_capacity, round_capacity(max(in_box)))
+    crop = max(bparams.crop_capacity, round_capacity(max(map(max, shard_box))))
+    shard_rows = -(-gmap.capacity // MESH_SPACE)
+    params = dataclasses.replace(bparams, crop_capacity=crop)
+    l_b = stack_pytrees([pr_[0] for pr_ in problems])
+    g_b = stack_pytrees([pr_[1] for pr_ in problems])
+    if ref_crop == bparams.crop_capacity:
+        ref, ref_ms, what = rb, b_ms, "phase 6's batch"
+    else:  # phase 6's crop strides: its batch at the wider crop is the reference
+        fn = make_batched_align(micp, dataclasses.replace(bparams, crop_capacity=ref_crop),
+                                broadcast_globals=True)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = fn(l_b, map_1m, g_b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        ref_ms, what = statistics.median(walls[1:]) * 1e3, f"phase 6's batch at crop {ref_crop}"
+    kept = "keeps them all" if ref_crop == bparams.crop_capacity else "strides"
+    cropped = (f"each {shard_rows}-row shard is cropped" if shard_rows > crop
+               else f"the {shard_rows}-row shards are not cropped")
+    print(f"[mesh] in-box rows per scan of the whole 1M map {in_box} and of its "
+          f"{MESH_SPACE} shards {shard_box}: phase 6's crop {bparams.crop_capacity} {kept}; "
+          f"the reference's crop {ref_crop}, the mesh's {crop} >= every shard's count, so no "
+          f"shard's crop overflows ({cropped})")
+    check(max(in_box) <= ref_crop and max(map(max, shard_box)) <= crop,
+          f"mesh: a crop overflows ({in_box} / {ref_crop}, {shard_box} / {crop})")
+
+    # (b) the dry run's problems, B = 2 x n_data
+    d_globs, d_locals, d_guesses = dryrun.batch_problems(MESH_RANKS // MESH_SPACE)
+    d_icp, d_params = dryrun.make_icp(), ICPParameters(max_iterations=5)
+    d_ref = dryrun.one_process_batch(d_icp, d_params, d_globs, d_locals, d_guesses,
+                                     default_device())
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    guesses = [np_pose(pr_[1]) for pr_ in problems]
+    t0 = time.perf_counter()
+    out = spawn_ranks(ranks.sequence, MESH_RANKS, "gloo", device=RANK_DEVICE, init="env",
+                      timeout=DRYRUN_TIMEOUT, args=([
+        (ranks.data_parallel_batch, (micp, params, [layer_numpy_dict(pr_[0]) for pr_ in problems],
+                                     layer_numpy_dict(map_1m), guesses, 2, MESH_SPACE)),
+        (ranks.data_parallel_batch, (d_icp, d_params, d_locals, d_globs, d_guesses, 0,
+                                     MESH_SPACE))],))
+    print(f"[mesh] {MESH_RANKS} ranks on the one card as a {MESH_RANKS // MESH_SPACE} x "
+          f"{MESH_SPACE} (data x space) mesh, started by init_from_env (gloo; CUDA tensors "
+          f"through the host): 2 paths in {time.perf_counter() - t0:.1f} s, start-up included; "
+          f"seconds per path on rank 0: {[round(r['seconds'], 1) for r in out[0]]}")
+    full, tiny = [r[0] for r in out], [r[1] for r in out]
+
+    R, t = ref.optimal_tf.R.cpu().numpy(), ref.optimal_tf.t.cpu().numpy()
+    its, term = ref.n_iterations.cpu().numpy(), ref.termination_reason.cpu().numpy()
+    same = all(np.array_equal(r["R"], R) and np.array_equal(r["t"], t)
+               and np.array_equal(r["iterations"], its) and np.array_equal(r["termination"], term)
+               for r in full)
+    gap = max(max(float(np.abs(r["R"] - R).max()), float(np.abs(r["t"] - t).max())) for r in full)
+    rows = full[0]["rows"]
+    per_rank = [r["launches"] for r in full]
+    calls = [matcher_calls(micp, int(its[(i // MESH_SPACE) * rows:
+                                         (i // MESH_SPACE + 1) * rows].max()))
+             for i in range(MESH_RANKS)]
+    print(f"[mesh] {len(problems)} scans of {N_POINTS} points against the shared 1M map, "
+          f"{rows} per data rank, a {shard_rows}-row shard per space rank: R, t, iterations "
+          f"{full[0]['iterations'].tolist()} and terminations "
+          f"{[IterTermReason(int(x)).name for x in full[0]['termination']]} on every rank "
+          f"equal to {what} to the bit: {same} (max |R, t difference| {gap:.3g}); in-box rows "
+          f"of each rank's shard per scan {[r['in_box']['map'] for r in full]}")
+    print(f"[mesh] K2 launches per rank {[n['knn_sweep_batched'] for n in per_rank]} == matcher "
+          f"calls {calls}, K1 / K3 {[n['knn_sweep'] + n['knn_sweep_streamed'] for n in per_rank]}; "
+          f"all_gathers over space per rank {[r['gathers'] for r in full]} (one per matcher call "
+          f"for the rank's {rows} scans); {full[0]['ms']:.1f} ms per call on the mesh against "
+          f"{ref_ms:.1f} ms for all {len(problems)} in one process on {smi}")
+    check(same, "mesh: the batch on the 2 x 2 mesh is not the one-process batch")
+    check(all(n <= crop for r in full for n in r["in_box"]["map"]),
+          f"mesh: a rank's shard holds more in-box rows than its crop of {crop} keeps")
+    for i, n in enumerate(per_rank):
+        check(n["knn_sweep_batched"] == calls[i] and sum(n.values()) == calls[i]
+              and full[i]["gathers"] == calls[i],
+              f"mesh rank {i}: launches {n}, gathers {full[i]['gathers']}, calls {calls[i]}")
+    launches["knn_sweep_batched"] += sum(n["knn_sweep_batched"] for n in per_rank)
+    by_path["knn_sweep_batched"][f"data x space batch, 8 x 1M map, {MESH_RANKS} ranks"] = \
+        [n["knn_sweep_batched"] for n in per_rank]
+
+    want = PARALLEL_JAX["data_space"]
+    n_b = len(d_guesses)
+    jt, jR = np.asarray(want["t"])[:n_b], np.asarray(want["R"])[:n_b]
+    d_same = all(np.array_equal(r["R"], d_ref[0]) and np.array_equal(r["t"], d_ref[1])
+                 and np.array_equal(r["iterations"], d_ref[2])
+                 and np.array_equal(r["termination"], d_ref[3]) for r in tiny)
+    d_errs = np.linalg.norm(tiny[0]["t"] - np.asarray(dryrun.GT[:3], np.float32), axis=-1)
+    j_gap = max(float(np.abs(tiny[0]["t"] - jt).max()), float(np.abs(tiny[0]["R"] - jR).max()))
+    j_its = np.abs(tiny[0]["iterations"] - np.asarray(want["iterations"])[:n_b]).max()
+    j_term = np.array_equal(tiny[0]["termination"], np.asarray(want["termination"])[:n_b])
+    print(f"[mesh] the JAX dry run's problems, B={n_b} of {d_params.max_iterations} iterations "
+          f"on the mesh: translation errors {d_errs.tolist()}, iterations "
+          f"{tiny[0]['iterations'].tolist()}; equal to one process to the bit: {d_same}; against "
+          f"the JAX package on a {want['mesh']['data']} x {want['mesh']['space']} mesh of CPU "
+          f"devices: pose gap {j_gap:.3g}, iterations +-{j_its}, same terminations: {j_term}")
+    check(d_same and (d_errs < 1e-3).all(), "mesh: the dry run's batch")
+    check(j_gap < 5e-3 and j_its <= 1 and j_term, "mesh: outside the align band of JAX's")
+    per_rank = [r["launches"] for r in tiny]
+    launches["knn_sweep_batched"] += sum(n["knn_sweep_batched"] for n in per_rank)
+    by_path["knn_sweep_batched"][f"data x space batch, the dry run's problems, "
+                                 f"{MESH_RANKS} ranks"] = [n["knn_sweep_batched"] for n in per_rank]
+
+    # (c) K2 at the shape rank 0 launches on its first iteration: its 4 scans
+    # at their guesses against its shard, cropped at each guess
+    shard = own_shard(map_1m, MeshAxis("space", MESH_SPACE, 0))
+    l4, g4 = (pytree.tree_map(lambda x: x[:rows], tree) for tree in (l_b, g_b))
+    g_c, _, g_dim = crop_batched(micp, params, shard, l4, g4, None)
+    pc = g_c["map"]
+    p = torch.where(pc.valid_mask()[..., None], pc.xyz, -1.0e8).contiguous()
+    q = torch.stack([torch.where(l4["raw"].valid_mask()[b][:, None],
+                                 se3.apply(se3.Pose(g4.R[b], g4.t[b]), l4["raw"].xyz[b]), 1.0e8)
+                     for b in range(rows)]).contiguous()
+    C = p.shape[-2]
+    label = (f"K2 {rows}x{q.shape[1]}x{C} k=1 (a mesh rank's sweep"
+             f"{', its cropped shards' if g_dim == 0 else ', its shard shared by the rows'})")
+    errs["knn_sweep_batched"].append(compare(label, nnb.knn_sweep_batched,
+                                             nnb.knn_plain_batched, q, p, 1))
+    shapes["knn_sweep_batched"].append(kernel_row(
+        "knn_sweep_batched", "a data x space rank's sweep", rows, q.shape[1], C, 1,
+        lambda: nnb.knn_sweep_batched(q, p, 1), lambda: nnb.knn_plain_batched(q, p, 1),
+        q, p, graph_ms(lambda: nnb.knn_sweep_batched(q, p, 1)), smi, plain_reps=1))
+    del q, p, g_c, shard
+    torch.cuda.empty_cache()
+
+    # (d) the dry run, as a user runs it
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, str(REPO / "scripts" / "torch_multichip_dryrun.py"),
+                          str(MESH_RANKS)], capture_output=True, text=True,
+                         timeout=DRYRUN_TIMEOUT, cwd=REPO)
+    for line in run.stdout.strip().splitlines()[-8:]:
+        print(f"[dryrun] {line.removeprefix('[dryrun] ')}")
+    print(f"[mesh] scripts/torch_multichip_dryrun.py {MESH_RANKS}: exit {run.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(run.returncode == 0, f"the dry run failed: {run.stderr[-2000:]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile each path (phase 15)")
+                    help="also profile each path (phase 16)")
     args = ap.parse_args()
 
     clock = [time.perf_counter()]
@@ -4045,7 +4239,11 @@ def main():
                    (scan_q.cpu().numpy(), corridor[: 1 << 20], (1, 8)), align_cases, batch_case,
                    odometry_case)
     phase_done("sharded paths")
-    # ---- 15. profile (optional)
+    # ---- 15. the batched align on a data x space mesh
+    mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, problems, map_1m,
+               rb, statistics.median(warm_b) * 1e3)
+    phase_done("data x space")
+    # ---- 16. profile (optional)
     if args.profile:
         profile_align(icp, loc, glob, params, smi, tables)
         gmap_2m, params_2m = maps["2M"]
@@ -4063,7 +4261,7 @@ def main():
         (out / "profile_tables.txt").write_text("\n\n".join(tables))
 
     phase_done("profile")
-    # ---- 16. results
+    # ---- 17. results
     # a kernel's own line is its first shape (the one its path gives it)
     print(json.dumps({"kernels": [{
         "name": name,

@@ -70,7 +70,7 @@ from mp2p_icp_tpu_torch.ops.normals import estimate_point_normals
 from mp2p_icp_tpu_torch.ops.voxel_hash_map import empty_voxel_hash_map, hash_map_insert
 from mp2p_icp_tpu_torch.parallel.batch import _align_batched, crop_batched, stack_pytrees
 from mp2p_icp_tpu_torch.parallel.mesh import all_gather
-from mp2p_icp_tpu_torch.parallel.spatial import spatial_matchers
+from mp2p_icp_tpu_torch.parallel.spatial import spatial_icp
 
 _TWIST_NAMES = ("vx", "vy", "vz", "wx", "wy", "wz")
 
@@ -536,7 +536,7 @@ class SpatialOdometryMapper:
         m = self.mapper
         self._axis = self.mesh.axis(self.axis)
         self._shard_cap = -(-m.map_capacity // self._axis.size)
-        self._icp = dataclasses.replace(m.icp, matchers=spatial_matchers(m.icp.matchers, self._axis))
+        self._icp = spatial_icp(m.icp, self._axis)
 
     def _owned(self, xyz: torch.Tensor) -> torch.Tensor:
         return voxel_owner(xyz, self.ownership_resolution, self._axis.size) == self._axis.rank

@@ -34,7 +34,8 @@ iteration) runs one batched launch for all problems: the counterpart of
 the JAX ``custom_vmap`` rule. ``knn_bruteforce_batched`` is the batched
 front end. ``knn_sharded`` (``knn_bruteforce(spatial_axis=...)``) is the
 front end of a map split over ranks: each rank sweeps its shard with K1 or
-K3 and the k-lists are merged after one all_gather.
+K3 and the k-lists are merged after one all_gather; under vmap the sweep
+is one K2 launch and the all_gather one for the whole batch.
 """
 
 from __future__ import annotations
@@ -463,8 +464,9 @@ def knn_sharded(queries, query_valid, points, point_valid, axis, k: int = 1,
     where a stable sort on d² keeps the k nearest. Equal d² keep the lower
     shard, and each shard's sweep the lower index, so the result equals
     one sweep of the whole map, d² and idx to the bit; every rank gets the
-    same result."""
-    from mp2p_icp_tpu_torch.parallel.mesh import MeshAxis, all_gather
+    same result. Under ``torch.func.vmap`` every problem's shard is swept
+    in one K2 launch and the whole batch's k-lists in one all_gather."""
+    from mp2p_icp_tpu_torch.parallel.mesh import MeshAxis
 
     if not isinstance(axis, MeshAxis):
         raise TypeError(f"spatial_axis is this rank's parallel.mesh.MeshAxis, not {axis!r}")
@@ -474,22 +476,58 @@ def knn_sharded(queries, query_valid, points, point_valid, axis, k: int = 1,
     Q = queries.shape[0]
     gidx = torch.where(res.valid, res.idx + axis.rank * C, -1)
     safe = torch.clamp(res.idx, 0, C - 1).long()
-    cols = [res.dist_sq[..., None], gidx.view(torch.float32)[..., None], points[safe]]
+    cols = [res.dist_sq[..., None], points[safe]]
     if point_payload is not None:
         cols.append(point_payload[safe])
-    packed = all_gather(torch.cat(cols, dim=-1), axis)  # [n, Q, k, 5 (+P)]
-    cat = packed.movedim(0, 1).reshape(Q, axis.size * k, -1)
-    _, sel = torch.sort(cat[..., 0], dim=1, stable=True)
-    best = torch.gather(cat, 1, sel[:, :k, None].expand(-1, -1, cat.shape[-1]))
-    idx = best[..., 1].contiguous().view(torch.int32)
+    vals, ids = _SpaceGather.apply(torch.cat(cols, dim=-1), gidx, axis)  # [n, Q, k, 4 (+P)], [n, Q, k]
+    vals = vals.movedim(0, 1).reshape(Q, axis.size * k, -1)
+    ids = ids.movedim(0, 1).reshape(Q, axis.size * k)
+    _, sel = torch.sort(vals[..., 0], dim=1, stable=True)
+    sel = sel[:, :k]
+    best = torch.gather(vals, 1, sel[..., None].expand(-1, -1, vals.shape[-1]))
+    idx = torch.gather(ids, 1, sel)
     valid = idx >= 0
     return ShardedNNResult(
         idx=idx,
         dist_sq=torch.where(valid, best[..., 0], _BIG),
         valid=valid,
-        xyz=best[..., 2:5],
-        payload=best[..., 5:] if point_payload is not None else None,
+        xyz=best[..., 1:4],
+        payload=best[..., 4:] if point_payload is not None else None,
     )
+
+
+knn_sharded.gathers = 0
+
+
+class _SpaceGather(torch.autograd.Function):
+    """``knn_sharded``'s one all_gather over the ranks of ``axis``: the
+    float32 columns [..., F] and the int32 global ids [...] of every rank's
+    k-lists, packed bit for bit into one float32 block and unpacked after,
+    so each comes back with a leading [n]. Its vmap rule makes the batched
+    align over a data x space mesh gather the whole batch [B, ...] in one
+    collective, not one per problem, the batch on axis 1 of the results.
+    The packing happens here, on plain tensors: a dtype view has no
+    batching rule. ``knn_sharded.gathers`` counts the collectives."""
+
+    @staticmethod
+    def forward(vals, ids, axis):
+        from mp2p_icp_tpu_torch.parallel.mesh import all_gather
+
+        knn_sharded.gathers += 1
+        packed = all_gather(torch.cat([vals, ids.view(torch.float32)[..., None]], dim=-1), axis)
+        return packed[..., :-1], packed[..., -1].contiguous().view(torch.int32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, vals, ids, axis):
+        def batched(x, d):
+            return x.movedim(d, 0) if d is not None else x.expand(info.batch_size, *x.shape)
+
+        vals, ids = batched(vals, in_dims[0]), batched(ids, in_dims[1])
+        return _SpaceGather.apply(vals, ids, axis), (1, 1)
 
 
 def knn_bruteforce_batched(

@@ -23,7 +23,11 @@ Semantics are those of ``vmap`` over a ``while_loop``:
   and a quality evaluator with its own matcher runs that matcher under
   vmap (its kNN is one batched launch);
 - records, the hook and the optimal scale are per problem. As in the JAX
-  package, a batch writes no debug files.
+  package, a batch writes no debug files;
+- over a data x space mesh (``make_batched_align(..., space=mesh.space)``) each rank
+  runs this loop on its rows against its shard of their maps; the one
+  host read of an iteration agrees across a ``space`` group because the
+  merged pairings, and so every decision, are the same on its ranks.
 """
 
 from __future__ import annotations
@@ -46,12 +50,13 @@ from mp2p_icp_tpu_torch.icp import (
     stack_records,
 )
 from mp2p_icp_tpu_torch.matchers.base import point_layers
+from mp2p_icp_tpu_torch.parallel.spatial import spatial_icp
 
 _RUNNING = int(IterTermReason.UNDEFINED)
 
 
 def make_batched_align(icp: ICP, params: ICPParameters = None,
-                       broadcast_globals: bool = False):
+                       broadcast_globals: bool = False, space=None):
     """Returns ``fn(batched_local_layers, batched_global_layers,
     batched_guess) -> batched ICPResults`` (the argument order of
     ``ICP.align``). Every input carries a leading batch axis: layers are
@@ -63,15 +68,36 @@ def make_batched_align(icp: ICP, params: ICPParameters = None,
     each with its own crop, without B copies of it.
 
     The results carry a leading B: ``n_iterations`` and
-    ``termination_reason`` are [B] int32 tensors."""
+    ``termination_reason`` are [B] int32 tensors.
+
+    ``space``: the ``space`` axis (a ``parallel.mesh.MeshAxis``) of a data
+    x space mesh, which splits every problem's global map over its ranks
+    (the JAX package's data x space placement). Every rank of a ``space`` group calls ``fn`` with the same
+    rows (``mesh.shard_batch`` / ``multihost.host_local_batch``) and its own
+    shard of their maps (``spatial.own_shard``; with ``broadcast_globals``
+    one shard of the shared map). The matchers, and the own matcher of a
+    quality evaluator, sweep the shards (one K2 launch per call for all the
+    rows) and merge the k-lists with one all_gather over ``space`` for the
+    whole batch (``ops/nn_bruteforce.knn_sharded``); each shard is cropped
+    at each problem's guess and the crop's index maps are dropped, so
+    recorded global ids address the cropped shards, the same on every rank.
+    Every rank of the group ends with the same results, equal to the
+    unsharded batch's where no shard's crop overflows (``make_spatial_align``
+    states the same); ``multihost.fetch_replicated(x, mesh)`` gathers the
+    rows over ``data``. Collectives never cross ``data`` inside the loop."""
     params = params or ICPParameters()
     icp._check_options(params)
+    sharded = space is not None and space.size > 1
+    if sharded:
+        icp = spatial_icp(icp, space)
 
     def run(local_map, global_map, guess: Pose) -> ICPResults:
         l_layers, g_layers = point_layers(local_map), point_layers(global_map)
         _check_batched(l_layers, g_layers, guess, broadcast_globals)
         g_layers, gidx_maps, g_dim = crop_batched(
             icp, params, g_layers, l_layers, guess, None if broadcast_globals else 0)
+        if sharded:
+            gidx_maps = {}
         return _align_batched(icp, params, l_layers, g_layers, guess, gidx_maps, g_dim)
 
     return run

@@ -28,6 +28,7 @@ import pickle
 import shutil
 import socket
 import tempfile
+import time
 
 import torch
 import torch.distributed as dist
@@ -72,22 +73,35 @@ def _rank_main(rank, fn, n, backend, device, init, workdir, args):
         dist.destroy_process_group()
 
 
-def spawn_ranks(fn, n: int, backend: str, args=(), device=None, init: str = "file"):
+def spawn_ranks(fn, n: int, backend: str, args=(), device=None, init: str = "file",
+                timeout: float = None):
     """[fn(*args) of rank 0, ..., of rank n-1], each run in its own process
-    on its own rank of an n-rank group on ``backend``."""
+    on its own rank of an n-rank group on ``backend``. ``timeout``: seconds
+    after which every rank still running is killed and TimeoutError raised
+    (ranks that wait on a collective another rank skipped hang, they do
+    not fail)."""
     if init not in ("file", "env"):
         raise ValueError(f"init is 'file' or 'env', not {init!r}")
     device = resolve(device)  # the caller's default, not the new process's
     workdir = tempfile.mkdtemp(prefix="mp2p-ranks-")
+    # only an env start touches the variables, so a file start may run beside it
     saved = {k: os.environ.get(k) for k in ("MP2P_COORDINATOR", "MP2P_NUM_PROCESSES",
-                                             "MP2P_LOCAL_DEVICE_IDS")}
+                                             "MP2P_LOCAL_DEVICE_IDS")} if init == "env" else {}
     try:
         if init == "env":  # inherited by the spawned processes
             os.environ["MP2P_COORDINATOR"] = f"localhost:{free_port()}"
             os.environ["MP2P_NUM_PROCESSES"] = str(n)
             os.environ.pop("MP2P_LOCAL_DEVICE_IDS", None)
-        mp.spawn(_rank_main, args=(fn, n, backend, device, init, workdir, args), nprocs=n,
-                 join=True)
+        ctx = mp.spawn(_rank_main, args=(fn, n, backend, device, init, workdir, args),
+                       nprocs=n, join=False)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not ctx.join(None if deadline is None else max(0.0, deadline - time.monotonic())):
+            if deadline is not None and time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+                raise TimeoutError(f"{n} ranks of {fn.__name__} still ran after {timeout} s")
         out = []
         for rank in range(n):
             with open(os.path.join(workdir, f"result-{rank}.pkl"), "rb") as f:

@@ -3,7 +3,10 @@
 Port of ``mp2p_icp_tpu/parallel/spatial.py``. Each rank holds one
 contiguous shard of every global layer and sweeps only that shard (K1, or
 K3 above 131072 rows); the per-query k-lists are merged after one
-all_gather (``ops/nn_bruteforce.knn_sharded``). Everything after the
+all_gather (``ops/nn_bruteforce.knn_sharded``). ``make_spatial_align``
+aligns one problem; ``parallel.batch.make_batched_align(..., space=)``
+aligns a batch split over the ``data`` axis with every problem's map split
+over ``space`` (each rank passes ``own_shard`` of the maps). Everything after the
 matchers (solvers, termination, quality) runs on every rank on the same
 merged pairings, so every rank takes the same decisions and ends with the
 same result: the ICP loop is the unsharded one.
@@ -59,6 +62,19 @@ def shard_global_layers(g_layers: Dict[str, PointCloud], n_shards: int) -> Dict[
     return out
 
 
+def own_shard(g_layers: Dict[str, PointCloud], axis, batched: bool = False):
+    """This rank's shard of every layer split over ``axis``
+    (``shard_global_layers`` at ``axis.rank``): [ceil(C / n), 3] of one map,
+    or, ``batched``, [B, ceil(C / n), 3] of a batch of maps, each problem's
+    own shard."""
+    if batched:
+        B = next(iter(g_layers.values())).xyz.shape[0]
+        parts = [own_shard(pytree.tree_map(lambda x: x[b], dict(g_layers)), axis)
+                 for b in range(B)]
+        return pytree.tree_map(lambda *xs: torch.stack(xs), *parts)
+    return pytree.tree_map(lambda x: x[axis.rank], shard_global_layers(g_layers, axis.size))
+
+
 def spatial_matchers(matchers, axis):
     """The matchers with ``spatial_axis`` set to ``axis``; a matcher
     without the field raises."""
@@ -70,6 +86,18 @@ def spatial_matchers(matchers, axis):
     return adj
 
 
+def spatial_icp(icp: ICP, axis) -> ICP:
+    """``icp`` on a global map split over ``axis``: its matchers and the own
+    matcher of each quality evaluator that has one take ``spatial_axis``."""
+    evaluators = [
+        dataclasses.replace(ev, matcher=spatial_matchers([ev.matcher], axis)[0])
+        if getattr(ev, "matcher", None) is not None else ev
+        for ev in icp.quality_evaluators
+    ]
+    return dataclasses.replace(icp, matchers=spatial_matchers(icp.matchers, axis),
+                               quality_evaluators=evaluators)
+
+
 def make_spatial_align(icp: ICP, params: ICPParameters, mesh, axis: str = "space"):
     """Returns ``fn(l_layers, g_sharded, guess) -> ICPResults``, to be
     called by every rank of the ``axis`` group with the same arguments:
@@ -79,7 +107,7 @@ def make_spatial_align(icp: ICP, params: ICPParameters, mesh, axis: str = "space
     several may share an iteration (the paired masks span the global ids
     of all shards)."""
     ax = mesh.axis(axis)
-    sharded_icp = dataclasses.replace(icp, matchers=spatial_matchers(icp.matchers, ax))
+    sharded_icp = spatial_icp(icp, ax)
 
     def fn(l_layers, g_sharded, guess):
         g_local = pytree.tree_map(lambda x: x[ax.rank], dict(g_sharded))

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from mp2p_icp_tpu_torch.core.pairings import Pairings
-from mp2p_icp_tpu_torch.matchers.base import MatchState
+from mp2p_icp_tpu_torch.matchers.base import MatchState, spatial_scale
 from mp2p_icp_tpu_torch.matchers.distance_threshold import MatcherPointsDistanceThreshold
 
 
@@ -37,7 +37,8 @@ class QualityPairedRatio:
     def evaluate(self, pairings: Pairings, global_map=None, local_map=None,
                  pose=None, ctx=None) -> QualityResult:
         if not self.reuse_icp_pairings and self.matcher is not None:
-            state = MatchState.create(local_map, global_map)
+            # on a map split over ranks the global masks span every shard
+            state = MatchState.create(local_map, global_map, spatial_scale(self.matcher))
             blocks, _, pot = self.matcher.match(
                 global_map, local_map, pose, state, ctx
             )

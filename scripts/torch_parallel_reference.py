@@ -26,7 +26,15 @@ one JSON object of the constants chip_smoke.py holds the port against;
 - "spatial_mapper": ``SpatialOdometryMapper`` over 2 virtual CPU devices
   on the 36-frame street drive of chip_smoke.py's odometry phase, in its
   incremental configuration (``scripts/torch_odometry_reference.jax_mapper``):
-  ATE, map points per shard and the union's voxel count.
+  ATE, map points per shard and the union's voxel count;
+- "data_space": the JAX package's multi-chip dry run
+  (``__graft_entry__.dryrun_multichip(8)``'s first part): its 8 problems of
+  256 points (``_make_problem``, seeds 0-7) through ``make_batched_align``
+  with ``_make_icp`` and ``max_iterations=5``, every array of two or more
+  axes placed with ``P("data", "space")`` on a 4 x 2 mesh of 8 virtual CPU
+  devices, as ``__graft_entry__.py:94-118`` places them: each problem's R,
+  t, iterations and termination. ``jax_data_space`` also runs other
+  problems so (the CPU tests' shared map).
 
 One substitution, as in scripts/torch_apps_reference.py: the cropped
 YAML's decimated layer would keep the raw capacity of its input (131072
@@ -41,9 +49,11 @@ the CPU (set JAX_PLATFORMS=cpu).
 
 import os
 
-# two virtual CPU devices for the sharded mapper, before JAX starts
-os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                           + " --xla_force_host_platform_device_count=2").strip()
+# eight virtual CPU devices for the data x space mesh (the sharded mapper
+# takes two of them), before JAX starts
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8").strip()
 
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
@@ -207,6 +217,69 @@ def run_spatial_mapper():
     return out
 
 
+def jax_data_space_batch(icp, params, globs, locals_, guesses, shared=False):
+    """The JAX package's ``make_batched_align`` on a 4 x 2 (data, space) mesh
+    of 8 devices, inputs placed as ``__graft_entry__.py:94-118`` places
+    them: arrays of two or more axes with P("data", "space") (the batch over
+    ``data``, each problem's points over ``space``), one axis with
+    P("data"). ``globs`` is a list of B layer dicts ({name: {field:
+    array}}), or one shared map with ``shared`` (its rows over ``space``).
+    Returns {"R", "t", "iterations", "termination"} as lists."""
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from mp2p_icp_tpu.core.pointcloud import PointCloud as JPointCloud
+    from mp2p_icp_tpu.core.se3 import Pose as JPose
+    from mp2p_icp_tpu.parallel.batch import make_batched_align, stack_pytrees
+    from mp2p_icp_tpu.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_data=4, n_space=2)
+
+    def layers(d):
+        return {k: JPointCloud(**{f: jnp.asarray(a) for f, a in v.items()}) for k, v in d.items()}
+
+    def place(spec_2d, spec_1d):
+        def put(x):
+            if hasattr(x, "ndim") and x.ndim >= 1:
+                return jax.device_put(x, NamedSharding(mesh, spec_2d if x.ndim >= 2 else spec_1d))
+            return x
+        return lambda tree: jax.tree_util.tree_map(put, tree)
+
+    batched, shared_map = place(P("data", "space"), P("data")), place(P("space"), P("space"))
+    l_b = batched(stack_pytrees([layers(x) for x in locals_]))
+    g_b = shared_map(layers(globs)) if shared else batched(stack_pytrees([layers(g) for g in globs]))
+    u_b = jax.tree_util.tree_map(
+        lambda x: jax.device_put(x, NamedSharding(mesh, P("data"))),
+        stack_pytrees([JPose(jnp.asarray(R), jnp.asarray(t)) for R, t in guesses]))
+    with mesh:
+        res = make_batched_align(icp, params, broadcast_globals=shared)(l_b, g_b, u_b)
+        jax.block_until_ready(res.optimal_tf.t)
+    return {"R": np.asarray(res.optimal_tf.R).tolist(), "t": np.asarray(res.optimal_tf.t).tolist(),
+            "iterations": np.asarray(res.n_iterations).tolist(),
+            "termination": np.asarray(res.termination_reason).tolist()}
+
+
+def run_data_space():
+    import __graft_entry__ as graft
+    from mp2p_icp_tpu.icp import ICPParameters
+
+    t0 = time.perf_counter()
+    globs, locals_ = [], []
+    for seed in range(8):
+        g, loc = graft._make_problem(n_points=256, seed=seed)
+        globs.append({k: {"xyz": np.asarray(v.xyz), "count": np.asarray(v.count)}
+                      for k, v in g.items()})
+        locals_.append({k: {"xyz": np.asarray(v.xyz), "count": np.asarray(v.count)}
+                        for k, v in loc.items()})
+    eye = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+    out = jax_data_space_batch(graft._make_icp(), ICPParameters(max_iterations=5), globs,
+                               locals_, [eye] * 8)
+    out.update(mesh={"data": 4, "space": 2}, points=256, seeds=list(range(8)),
+               seconds=time.perf_counter() - t0)
+    log(f"data x space dry run: iterations {out['iterations']}, {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--write", default=None, help="also write the JSON here")
@@ -216,6 +289,7 @@ def main():
     out["pose_graph"] = run_pose_graph()
     out["loop_closure"] = run_loop_closure()
     out["spatial_mapper"] = run_spatial_mapper()
+    out["data_space"] = run_data_space()
     out["seconds"] = time.perf_counter() - t0
     text = json.dumps(out)
     print(text)
