@@ -16,7 +16,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    and k=5 (the 2D demo's Point2Line); K3 (the streamed sweep) on 8192 scan points against a
    262144-point corridor map for k=1 and k=8 and a ragged case; K2 (the
    batched sweep) on 8 scans of 8192 points against 8 maps of 65536 points
-   and against one shared map, plus a ragged case; then, for each kernel
+   and against one shared map, on the B = 16 scan-to-scan batch's 16 x 8192
+   x 8192 k=1 (each pair's local scan against its own global scan), plus a
+   ragged case; then, for each kernel
    and k in {1, 8}, the cases that stress the split of the point axis:
    points on an integer grid with duplicates (so the order of the merge
    decides every tie), Q = 1, 777 and 5000, fewer points than one tile and
@@ -46,6 +48,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    in one make_batched_align call; each SE(3) error < 0.1, each pose
    within 1e-5 of the port's sequential align on the card with the same
    iterations and termination, K2 launches == matcher calls, no K1 launch;
+   then the B = 16 scan-to-scan batch (bench.py:219-253: pairs 100 + 2b /
+   101 + 2b of the bench scene, each its own map, the KITTI configuration,
+   no broadcast) in one call, twice, with the same checks against phase 4's
+   and further sequential aligns;
 7. the odometry path (bench.py:580-683): the 36-frame street drive (48
    rings x 768 azimuths, raw capacity 2^16) through OdometryMapper.run
    with dt = 0.1: deskew, FirstPoint decimation at 0.5 m into 6144 rows,
@@ -59,7 +65,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 8. the fleet path (bench.py:738-776): 8 streams of 20 frames, stream b =
    frames [2b, 2b+20) of the street drive with its twists and its true
    start pose, through BatchedOdometryMapper.run once and .run_offline once
-   cold and twice warm; OdometryMapper.run_offline on the 36 frames; and
+   cold and once warm; OdometryMapper.run_offline on the 36 frames; and
    the 8 streams one after another through OdometryMapper.run. Each
    stream's fleet poses must equal its sequential poses (R and t within
    1e-5) with the same iterations per frame, the same final map count and
@@ -204,7 +210,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    graph beside its bound and cdist + topk; (d)
    scripts/torch_multichip_dryrun.py 4 as a subprocess (gloo: one card
    for 4 ranks), its tail printed, a non-zero exit failing the phase;
-16. with --profile only: where the time goes, by torch.profiler over 2
+16. bench_torch.py (the port's benchmark, the twin of bench.py) at full size
+   in a process of its own: exit 0, one stdout line with every key of
+   bench.py's line (BENCH_r05.json's names) plus device and power_limit_w,
+   backend "cuda", every SE(3) error < 0.1, the bench pair's iterations
+   within 1 of the JAX CPU reference's 12, the odometry ATE within
+   max(1.5x, +0.01 m) and its map count within 2% of ODO_JAX; its stderr in
+   chiprun_out/bench_torch.log, its line printed, its kernels' launches
+   added to the paths';
+17. with --profile only: where the time goes, by torch.profiler over 2
    warm calls (device busy share, launches, the kNN kernels' time) of a
    scan-to-scan align, a scan to the 2M map and the batched call, then
    per-section host times of a scan-to-scan align with a sync around each
@@ -214,9 +228,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    each stage; the same for one warm fleet run; then 2 warm aligns of each
    engine cell and the sections of a 3D engine align with a sync around
    each; the profiler's tables go to chiprun_out/profile_tables.txt;
-17. one JSON line with the kernels' numbers (each shape's time, bound,
+18. one JSON line with the kernels' numbers (each shape's time, bound,
    plain version and library call, torch.cdist + topk in a CUDA graph),
    then the last line {"ok": true, "device": {...}}.
+
+The workloads and configurations (kitti_icp, street_pair, corridor_scene,
+local_window, sensor_scan, map_icp, odometry_mapper, odometry_frames) are
+bench_torch.py's, imported from there.
 
 The port's constructors put their tensors on the card by default; this
 script passes ``device=`` only where it asks for the CPU (to prepare the
@@ -258,6 +276,20 @@ import numpy as np
 import torch
 import yaml
 
+from bench_torch import (  # the benchmark's workloads and configurations
+    GT,
+    N_POINTS,
+    ODO_DT,
+    ODO_RESOLUTION,
+    corridor_scene,
+    kitti_icp,
+    local_window,
+    map_icp,
+    odometry_frames,
+    odometry_mapper,
+    sensor_scan,
+    street_pair,
+)
 from mp2p_icp_tpu_torch import default_device
 from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.metric_map import VoxelGridLayer
@@ -282,11 +314,10 @@ from mp2p_icp_tpu_torch.matchers import (
     LayerMatch,
     MatcherAdaptive,
     MatcherPoint2Line,
-    MatcherPoint2Plane,
     MatcherPointsDistanceThreshold,
     MatcherPointsInlierRatio,
 )
-from mp2p_icp_tpu_torch.odometry import BatchedOdometryMapper, OdometryMapper
+from mp2p_icp_tpu_torch.odometry import BatchedOdometryMapper
 from mp2p_icp_tpu_torch.ops import cuda_build
 from mp2p_icp_tpu_torch.ops import nn_bruteforce as nnb
 from mp2p_icp_tpu_torch.ops.voxel_hash_map import hash_map_insert
@@ -302,9 +333,7 @@ from mp2p_icp_tpu_torch.solvers.gauss_newton import GNParams
 from mp2p_icp_tpu_torch.solvers.robust import RobustKernel
 from mp2p_icp_tpu_torch.solvers.solver import SolverGaussNewton, SolverHorn, SolverOLAE
 
-N_POINTS = 8192  # the bench pair: a decimated KITTI scan
 N_REQUESTS = 8
-GT = (1.1, 0.05, 0.01, 0.01, 0.002, 0.001)
 ERR_LIMIT = 0.1  # the reference's end-to-end bound on ||log(gt^-1 T)||
 # sweep -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -322,8 +351,10 @@ LIBRARY = {"knn_sweep": "knn_bruteforce", "knn_sweep_streamed": "knn_streamed",
 MAP_CASES = (("1M", 1 << 20, 1 << 16, (0.00133, 30, "STALLED")),
              ("2M", 1 << 21, 1 << 18, (0.00087, 33, "STALLED")),
              ("16M", 1 << 24, 1 << 18, (0.00139, 32, "STALLED")))
-MAP_TIMED = {"1M": 3, "2M": 2, "16M": 1}  # warm aligns timed per map
+# warm aligns timed per map (bench_torch.py, phase 16, times 10, 10 and 5)
+MAP_TIMED = {"1M": 1, "2M": 1, "16M": 1}
 BATCH = 8
+PAIR_BATCH = 16  # bench.py:220: the scan-to-scan batch, each pair with its own map
 # the least time the card can take: the kernels issue 9 FP32 instructions
 # per pair (3 sub, 3 mul, 2 add, 1 compare), none an FMA, so its 67 TFLOP/s
 # (NVIDIA's data sheet, H100 SXM) are 33.5 T instructions/s; the bytes
@@ -338,8 +369,6 @@ BATCH_JAX_ITERS = [17, 27, 24, 19, 25, 34, 28, 15]
 # same frames on the CPU (scripts/torch_odometry_reference.py): ATE in
 # metres, map points, mean ICP iterations per frame
 ODO_FRAMES = 36
-ODO_DT = 0.1
-ODO_RESOLUTION = 0.5
 ODO_JAX = {"ate_m": 0.026013, "map_points": 13796, "iterations_mean": 3.69}
 ATE_LIMIT = 0.1
 # the fleet (bench.py:738-752): stream b = frames [2b, 2b + 20) of the drive.
@@ -603,92 +632,6 @@ TOOLS_JAX = None
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def kitti_icp():
-    """icp-settings-kitti.yaml as bench.py:167-193 configures it."""
-    return ICP(
-        matchers=[
-            MatcherPointsDistanceThreshold(threshold=2.0, run_up_to_iteration=5),
-            MatcherAdaptive(confidence_interval=0.75, first_to_second_distance_max=1.2,
-                            absolute_max_search_distance=2.0, run_from_iteration=6),
-        ],
-        solvers=[
-            SolverHorn(run_up_to_iteration=5),
-            SolverGaussNewton(run_from_iteration=6, gn_params=GNParams(
-                max_iterations=3, kernel=RobustKernel.GEMAN_MCCLURE, kernel_param=0.15)),
-        ],
-    )
-
-
-def street_pair(scene, seed_g, seed_l, n=N_POINTS):
-    """(local layers, global layers) of one bench pair of n points, on the
-    port's default device (the scan is moved into the sensor frame on the
-    CPU)."""
-    g = sample_scan(scene, np.random.RandomState(seed_g), n=n)
-    loc = sample_scan(scene, np.random.RandomState(seed_l), n=n)
-    gt = se3.from_xyz_ypr(*GT, device="cpu")
-    loc = se3.apply(se3.inverse(gt), torch.from_numpy(loc)).numpy()
-    return ({"raw": PointCloud.from_numpy(loc)}, {"raw": PointCloud.from_numpy(g)})
-
-
-def corridor_scene(rng2, n, length=400.0):
-    """bench.py:349-365: a long corridor, ground + side walls + cross-walls
-    every 25 m, so every SE(3) axis is constrained locally."""
-    t = rng2.uniform(0, length, n)
-    kind = rng2.randint(0, 4, n)
-    y = np.where(kind == 0, -6.0, np.where(kind == 1, 6.0, rng2.uniform(-6, 6, n)))
-    z = np.where(kind < 2, rng2.uniform(0, 4, n),
-                 np.where(kind == 2, 0.0, rng2.uniform(0, 2.5, n)))
-    x = np.where(kind == 3, np.round(t / 25.0) * 25.0, t)
-    return np.stack([x, y, z], 1).astype(np.float32)
-
-
-def local_window(scene_pts, cx, rng3, n=8192, radius=50.0):
-    """bench.py:372-376: n noisy points of the corridor within radius of x=cx."""
-    m = np.abs(scene_pts[:, 0] - cx) < radius
-    pts = scene_pts[m]
-    idx = rng3.choice(pts.shape[0], size=n, replace=False)
-    return (pts[idx] + 0.02 * rng3.randn(n, 3)).astype(np.float32)
-
-
-def map_icp():
-    """The scan-to-map ICP of bench.py:382-398."""
-    return ICP(
-        matchers=[MatcherPointsDistanceThreshold(
-            threshold=2.0, layer_matches=(LayerMatch(global_layer="map", local_layer="raw"),))],
-        solvers=[SolverHorn(run_up_to_iteration=5),
-                 SolverGaussNewton(run_from_iteration=6, gn_params=GNParams(max_iterations=3))],
-    )
-
-
-def odometry_mapper():
-    """The odometry benchmark's mapper (bench.py:621-683 with its defaults:
-    sort-backend decimation, incremental voxel-hash map)."""
-    return OdometryMapper(
-        icp=ICP(
-            matchers=[MatcherPoint2Plane(
-                distance_threshold=1.5, use_point_normals=True,
-                layer_matches=(LayerMatch(global_layer="map", local_layer="decimated"),))],
-            solvers=[SolverGaussNewton(gn_params=GNParams(max_iterations=3))],
-        ),
-        params=ICPParameters(max_iterations=30, crop_capacity=1 << 14, crop_extra_margin=3.0),
-        filters=[
-            FilterDeskew(input_pointcloud_layer="raw", output_pointcloud_layer="deskewed"),
-            FilterDecimateVoxels(
-                input_pointcloud_layer=("deskewed",), output_pointcloud_layer="decimated",
-                voxel_filter_resolution=ODO_RESOLUTION, output_capacity=6144),
-        ],
-        incremental_map_resolution=ODO_RESOLUTION,
-        normals_knn=8, normals_radius=1.5, normals_query_capacity=2048,
-        local_layer="decimated", map_layer="map", map_capacity=1 << 15,
-    )
-
-
-def odometry_frames(scans):
-    """The rendered scans as raw layers of capacity 2^16 on the port's
-    default device."""
-    return [{"raw": scan_to_pointcloud(scan, capacity=1 << 16)} for scan in scans]
 
 
 def pose_of_cpu(mat):
@@ -1487,20 +1430,6 @@ def planar_range_pairs(n_rays=PLANAR_RAYS, n_pairs=PLANAR_PAIRS):
     return out
 
 
-def sensor_scan(corridor, cx, seed, err_ypr):
-    """(sensor-frame scan layers, guess = sensor pose, true pose) of one
-    scan of the corridor at x=cx, as bench.py:380-383 and :436-451 make it;
-    prepared on the CPU, returned on the port's default device."""
-    scan = local_window(corridor, cx, np.random.RandomState(seed))
-    sensor = se3.from_xyz_ypr(cx, 0.0, 1.5, 0.0, 0.0, 0.0, device="cpu")
-    gt = se3.compose(sensor, se3.from_xyz_ypr(*err_ypr, device="cpu"))
-    local = se3.apply(se3.inverse(gt), torch.from_numpy(scan)).numpy()
-    device = default_device()
-    return ({"raw": PointCloud.from_numpy(local, capacity=8192)},
-            se3.Pose(sensor.R.to(device), sensor.t.to(device)),
-            se3.Pose(gt.R.to(device), gt.t.to(device)))
-
-
 def reset_counts():
     for name in KERNELS:
         getattr(nnb, name).launches = 0
@@ -1870,7 +1799,7 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
 
     fleet_runs = []
     for label, fn in (("run", bm.run), ("run_offline, cold", bm.run_offline),
-                      ("run_offline, warm", bm.run_offline), ("run_offline, warm", bm.run_offline)):
+                      ("run_offline, warm", bm.run_offline)):
         torch.cuda.synchronize()
         reset_counts()
         if label == "run":
@@ -1922,7 +1851,7 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
         check(same and states_equal(rb["map_states"], r["map_states"]),
               "fleet: run_offline differs from run")
     print("[fleet] run_offline equals run to the bit (poses, qualities, iterations, map "
-          "states), three times")
+          f"states), {len(fleet_runs) - 1} times")
 
     # one stream: run_offline on the whole drive against phase 7's run
     torch.cuda.synchronize()
@@ -1981,9 +1910,8 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
           f"sequential streams: K1 launches {c['knn_sweep']} != {seq_calls}, or K2 ran: {c}")
     launches["knn_sweep"] += c["knn_sweep"]
     by_path["knn_sweep"][f"the fleet's {BATCH} streams one after another"] = c["knn_sweep"]
-    warm = [r["scans_per_s"] for r in fleet_runs[2:]]
     print(f"[fleet] aggregate: run {rb['scans_per_s']:.2f} scans/s, run_offline cold "
-          f"{fleet_runs[1]['scans_per_s']:.2f}, warm {warm[0]:.2f} and {warm[1]:.2f}; the same "
+          f"{fleet_runs[1]['scans_per_s']:.2f}, warm {fleet_runs[2]['scans_per_s']:.2f}; the same "
           f"{BATCH} streams one after another {BATCH * (n - 1) / seq_s:.2f} scans/s on {smi}")
     return bm, streams, kw
 
@@ -3665,10 +3593,68 @@ def mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, proble
     check(run.returncode == 0, f"the dry run failed: {run.stderr[-2000:]}")
 
 
+BENCH_TIMEOUT = 600  # s: bench_torch.py at full size, a subprocess
+# the keys of bench.py's line (its last record's ``parsed.extra``; only the
+# names are read) and the two the port's line adds
+BENCH_KEYS_FROM = REPO / "BENCH_r05.json"
+BENCH_ADDED_KEYS = ("device", "power_limit_w")
+BENCH_JAX_ITERS = 12  # the JAX package's iterations for the bench pair on the CPU
+
+
+def bench_phase(smi, launches, by_path):
+    """bench_torch.py at full size in a process of its own: its exit code,
+    its one stdout line, every key of bench.py's line, errors < ERR_LIMIT,
+    the bench pair's iterations and the odometry run against the JAX CPU
+    reference; its kernels' launches (its own count, printed on stderr)
+    added to the paths'. Its stderr goes to chiprun_out/bench_torch.log."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(REPO / "bench_torch.py")], cwd=REPO,
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    secs = time.perf_counter() - t0
+    logs = REPO / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    (logs / "bench_torch.log").write_text(out.stderr)
+    notes = [ln for ln in out.stderr.splitlines() if " rep " not in ln]
+    print("\n".join(f"[bench] | {ln}" for ln in notes[-30:]))
+    check(out.returncode == 0, f"bench_torch.py exited {out.returncode}")
+    lines = out.stdout.strip().splitlines()
+    check(len(lines) == 1, f"bench_torch.py printed {len(lines)} lines on stdout, not 1")
+    line = json.loads(lines[0])
+    print(f"[bench] bench_torch.py in {secs:.1f} s: {lines[0]}")
+    extra = line["extra"]
+    want = set(json.loads(BENCH_KEYS_FROM.read_text())["parsed"]["extra"]) | set(BENCH_ADDED_KEYS)
+    check(not want - set(extra), f"bench_torch.py: keys missing: {sorted(want - set(extra))}")
+    check(set(line) == {"metric", "value", "unit", "vs_baseline", "extra"},
+          f"bench_torch.py: the line's keys {sorted(line)}")
+    check(extra["backend"] == "cuda", f"bench_torch.py: backend {extra['backend']}")
+    errs = {k: v for k, v in extra.items() if k.endswith("_err") or k == "pose_err_se3_log"}
+    check(all(0.0 <= v < ERR_LIMIT for v in errs.values()), f"bench_torch.py: errors {errs}")
+    check(abs(extra["iters"] - BENCH_JAX_ITERS) <= 1,
+          f"bench_torch.py: {extra['iters']} iterations, JAX's {BENCH_JAX_ITERS}")
+    ate, ate_jax = extra["odometry_ate_m"], ODO_JAX["ate_m"]
+    check(ate <= max(1.5 * ate_jax, ate_jax + 0.01),
+          f"bench_torch.py: odometry ATE {ate} m outside max(1.5 x, + 0.01 m) of {ate_jax}")
+    n_map = extra["odometry_map_points"]
+    check(abs(n_map - ODO_JAX["map_points"]) <= 0.02 * ODO_JAX["map_points"],
+          f"bench_torch.py: {n_map} map points, not within 2% of {ODO_JAX['map_points']}")
+    counted = [ln for ln in out.stderr.splitlines() if ln.startswith("[bench] launches ")]
+    check(len(counted) == 1, "bench_torch.py printed no launch count")
+    n = json.loads(counted[0].removeprefix("[bench] launches "))
+    check(all(n[name] > 0 for name in KERNELS), f"bench_torch.py: a kernel never ran: {n}")
+    for name in KERNELS:
+        launches[name] += n[name]
+        by_path[name]["bench_torch.py (its own process)"] = n[name]
+    print(f"[bench] ok: {len(want)} keys, errors {errs} < {ERR_LIMIT}, {extra['iters']} "
+          f"iterations (JAX {BENCH_JAX_ITERS}), odometry ATE {ate} m (JAX {ate_jax}), "
+          f"{n_map} map points (JAX {ODO_JAX['map_points']}); launches {n}; "
+          f"{extra['device']}, {extra['power_limit_w']} W; nvidia-smi here: {smi}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile each path (phase 16)")
+                    help="also profile each path (phase 17)")
     args = ap.parse_args()
 
     clock = [time.perf_counter()]
@@ -3814,6 +3800,14 @@ def main():
     errs["knn_sweep_batched"].append(compare(
         f"K2 {b_rank}x8192x65536 k=1 (a data-parallel rank's share)", nnb.knn_sweep_batched,
         nnb.knn_plain_batched, scans_b[:b_rank], maps_b[:b_rank], 1))
+    # the B = 16 scan-to-scan batch (bench.py:219-253): each pair's local
+    # scan against its own global scan, Adaptive's k = 1 as DistanceThreshold's
+    pairs16 = [street_pair(scene, 100 + 2 * b, 101 + 2 * b) for b in range(PAIR_BATCH)]
+    q16 = torch.stack([pl["raw"].xyz for pl, _ in pairs16]).contiguous()
+    p16 = torch.stack([pg["raw"].xyz for _, pg in pairs16]).contiguous()
+    errs["knn_sweep_batched"].append(compare(
+        f"K2 {PAIR_BATCH}x{N_POINTS}x{N_POINTS} k=1 (the B = 16 scan-to-scan batch, each pair "
+        f"its own map)", nnb.knn_sweep_batched, nnb.knn_plain_batched, q16, p16, 1))
     errs["knn_sweep_batched"].append(compare(
         f"K2 {BATCH}x777x3001 k=4 invalid rows", nnb.knn_sweep_batched,
         nnb.knn_plain_batched, qs.expand(BATCH, -1, -1).contiguous(),
@@ -3870,7 +3864,7 @@ def main():
     for Q, C, k, B in ((6144, 1 << 14, 1, 1), (2048, 22528, 8, 1), (6144, 6144, 8, 1),
                        (N_POINTS, N_POINTS, 1, 1),
                        (N_POINTS, 1 << 16, 1, 1), (N_POINTS, 1 << 18, 1, 1),
-                       (N_POINTS, 1 << 16, 1, BATCH),
+                       (N_POINTS, 1 << 16, 1, BATCH), (N_POINTS, N_POINTS, 1, PAIR_BATCH),
                        (6144, 1 << 14, 1, BATCH), (2048, 22528, 8, BATCH)):
         # the grid and block sizes as the built library forms them for the
         # wrapper's split (both register tiles, k = 1 and k = 8), beside the
@@ -3923,6 +3917,10 @@ def main():
         ("knn_sweep_batched", "batched, shared map", BATCH, N_POINTS, 1 << 16, 1,
          lambda: nnb.knn_sweep_batched(scans_b, map_64k, 1),
          lambda: nnb.knn_plain_batched(scans_b, map_64k, 1)),
+        ("knn_sweep_batched", "the B = 16 scan-to-scan batch, each pair its own map",
+         PAIR_BATCH, N_POINTS, N_POINTS, 1,
+         lambda: nnb.knn_sweep_batched(q16, p16, 1),
+         lambda: nnb.knn_plain_batched(q16, p16, 1)),
         ("knn_sweep_batched", "batched B=2", 2, N_POINTS, 1 << 16, 1,
          lambda: nnb.knn_sweep_batched(scans_b[:2], maps_b[:2], 1),
          lambda: nnb.knn_plain_batched(scans_b[:2], maps_b[:2], 1)),
@@ -3946,7 +3944,7 @@ def main():
     operands = [(q, p), (q, p), (q2d, p2d), (q2d, p2d), (q2d, p2d), (odo_q, odo_p),
                 (fit_q, fit_p), (odo_q, odo_q), (scan_q, map_64k), (scan_q, map_p),
                 (scan_q, map_p), (scan_q, map_p), (scans_b, maps_b), (scans_b, map_64k),
-                (scans_b[:2], maps_b[:2]), (scans_b[:4], maps_b[:4]), (fleet_q, fleet_p), (fleet_fq, fleet_fp), (q1k, p1k),
+                (q16, p16), (scans_b[:2], maps_b[:2]), (scans_b[:4], maps_b[:4]), (fleet_q, fleet_p), (fleet_fq, fleet_fp), (q1k, p1k),
                 (q1k, p1k), (q64k, p64k)]
     check(len(operands) == len(timed), "a timed row without its operands")
     graph_times = [[] for _ in timed]
@@ -3965,7 +3963,7 @@ def main():
 
     print(f"[time] aside: {BATCH} K1 launches for the batched shape "
           f"{statistics.median(graph_ms(eight_k1)):.4f} ms in a CUDA graph on {smi}")
-    del maps_b, map_64k, timed
+    del maps_b, map_64k, timed, q16, p16
 
     phase_done("kernels against their plain versions, times")
     launches = {name: 0 for name in KERNELS}
@@ -4118,6 +4116,49 @@ def main():
           f"{b_walls[0] * 1e3:.1f} ms, warm {[round(w * 1e3, 1) for w in warm_b]} ms, "
           f"{BATCH * len(warm_b) / sum(warm_b):.2f} scans/s; the same scans aligned one "
           f"after another {BATCH / sum(seq_walls):.2f} scans/s on {smi}")
+    # the B = 16 scan-to-scan batch (bench.py:219-253): each pair its own
+    # map, no broadcast; phase 4 aligned the first N_REQUESTS pairs one by one
+    fn16 = make_batched_align(icp, params)
+    l16 = stack_pytrees([pl for pl, _ in pairs16])
+    g16 = stack_pytrees([pg for _, pg in pairs16])
+    u16 = stack_pytrees([se3.identity() for _ in pairs16])
+    walls16 = []
+    for rep in range(2):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        r16 = fn16(l16, g16, u16)
+        float(r16.optimal_tf.t[0, 0])  # syncs
+        walls16.append(time.perf_counter() - t0)
+        n = counts()
+        calls = matcher_calls(icp, int(r16.n_iterations.max()))
+        check(n["knn_sweep_batched"] == calls and calls > 0,
+              f"B = 16 pairs: K2 launches {n['knn_sweep_batched']} != matcher calls {calls}")
+        check(n["knn_sweep"] == n["knn_sweep_streamed"] == 0,
+              f"B = 16 pairs: K1/K3 launched during the batched call: {n}")
+        launches["knn_sweep_batched"] += n["knn_sweep_batched"]
+        by_path["knn_sweep_batched"][f"B = {PAIR_BATCH} scan-to-scan call"] = n["knn_sweep_batched"]
+    print(f"[count] B = {PAIR_BATCH} pairs: K2 launches {n['knn_sweep_batched']} == matcher "
+          f"calls {calls} per call, K1 and K3 launches 0")
+    seq16 = [r for r, _ in results[1:]]
+    for loc_l, glob_l in pairs16[len(seq16):]:
+        seq16.append(icp.align(loc_l, glob_l, se3.identity(), params))
+    for b, seq in enumerate(seq16):
+        pose_b = se3.Pose(r16.optimal_tf.R[b], r16.optimal_tf.t[b])
+        err = float(se3.error_log_norm(gt, pose_b))
+        gap = max(float((seq.optimal_tf.R - pose_b.R).abs().max()),
+                  float((seq.optimal_tf.t - pose_b.t).abs().max()))
+        it_b, reason_b = int(r16.n_iterations[b]), int(r16.termination_reason[b])
+        print(f"[batch16] pair {b}: SE(3) error {err:.6f}, {it_b} iterations, "
+              f"{IterTermReason(reason_b).name}; sequential align: {seq.n_iterations} "
+              f"iterations, {seq.termination_reason.name}, max |R, t difference| {gap:.3g}")
+        check(err < ERR_LIMIT, f"B = 16 pair {b}: SE(3) error {err} >= {ERR_LIMIT}")
+        check(gap < 1e-5, f"B = 16 pair {b}: pose differs from sequential by {gap}")
+        check(it_b == seq.n_iterations and reason_b == seq.termination_reason,
+              f"B = 16 pair {b}: iterations/termination differ from sequential")
+    print(f"[batch16] {PAIR_BATCH} scan-to-scan pairs, each its own map, in one call: first "
+          f"{walls16[0] * 1e3:.1f} ms, warm {walls16[1] * 1e3:.1f} ms, "
+          f"{PAIR_BATCH / walls16[1]:.2f} scans/s on {smi}")
 
     phase_done("batched")
     # ---- 7. the odometry path: the street drive, frame by frame
@@ -4243,7 +4284,10 @@ def main():
     mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, problems, map_1m,
                rb, statistics.median(warm_b) * 1e3)
     phase_done("data x space")
-    # ---- 16. profile (optional)
+    # ---- 16. bench_torch.py, the port's benchmark, at full size
+    bench_phase(smi, launches, by_path)
+    phase_done("bench_torch.py")
+    # ---- 17. profile (optional)
     if args.profile:
         profile_align(icp, loc, glob, params, smi, tables)
         gmap_2m, params_2m = maps["2M"]
@@ -4261,7 +4305,7 @@ def main():
         (out / "profile_tables.txt").write_text("\n\n".join(tables))
 
     phase_done("profile")
-    # ---- 17. results
+    # ---- 18. results
     # a kernel's own line is its first shape (the one its path gives it)
     print(json.dumps({"kernels": [{
         "name": name,
