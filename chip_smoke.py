@@ -29,6 +29,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    8x2048x22528 (k=8); and the YAML phase's K1 shapes: the 2D demo's
    generated layers (1024x1024, k=1 and 5) and the normals filter's
    65536x65536 k=8 on a decimated street frame.
+   The counted sweeps (a front end passes each side's count of leading rows
+   that hold every valid row, nn_bruteforce.valid_count, read on the
+   device): K1 on street points under nine kinds of mask (prefix,
+   scattered, no valid point, one, fewer than k, one valid query, counts of
+   4n + 1, 2, 3) for k = 1, 5 and 8, each also through the front end
+   against the uncounted sweep's NNResult (equal to the bit); integer grids
+   at k = 2, 4, 5 and 8 with counts through K1, and through K2 with
+   per-problem counts against a map per problem and one shared map; the
+   batched front end and torch.func.vmap with per-problem counts; a counted
+   K1 and K2 front-end call captured in a CUDA graph and replayed on
+   changed masks; and each padded shape of the later phases again with the
+   counts its path passes, its [launch] line giving its valid rows beside
+   its capacity. The counts of compare cases without and with counts are
+   printed.
    Times: each kernel at every shape its path (or the odometry step)
    gives it, as device time per launch of a CUDA graph of 20 wrapper
    calls and as the time of one call between CUDA events (which includes
@@ -1524,26 +1538,31 @@ def library_slabs_ms(q, p, k, slab=8192):
     return ms
 
 
-def kernel_row(name, label, B, Q, C, k, run, plain, lq, lp, g_times, smi, plain_reps=3):
+def kernel_row(name, label, B, Q, C, k, run, plain, lq, lp, g_times, smi, plain_reps=3,
+               counts=None):
     """A kernel's line of the results: its device time per launch in a
     CUDA graph (the median of ``g_times``), one call between events, its
-    bound from the valid rows and over every row swept, its plain
-    version's time (the median of ``plain_reps`` calls after one warm-up)
-    and the library call's (in query
+    bound from the valid rows and over every row swept (the leading rows of
+    ``counts`` = (query counts, point counts) where the call passes them,
+    else every row), its plain version's time (the median of
+    ``plain_reps`` calls after one warm-up) and the library call's (in query
     slabs where the [Q, C] matrix passes 2^32 entries); printed."""
     bnd, by = data_bound_ms(lq, lp, k)
-    swept, _ = bound_ms(B, Q, C, k)
+    nq, npt = swept_rows(B, Q, C, counts)
+    swept, _ = work_bound_ms(sum(a * b for a, b in zip(nq, npt)), sum(nq), sum(npt), k)
     ms = statistics.median(g_times)
     slabs = B * Q * C > 1 << 32
     row = {"shape": f"{B}x{Q}x{C}", "k": k, "what": label, "ms": ms,
            "call_ms": cuda_ms(run, reps=5 if slabs else 20), "bound_ms": bnd, "bound_by": by,
            "share_of_bound": bnd / ms, "swept_bound_ms": swept,
+           "swept_queries": sum(nq), "swept_points": sum(npt),
            "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=1),
            "library_ms": library_slabs_ms(lq, lp, k) if slabs else library_ms(lq, lp, k)}
     print(f"[time] {name} {label} {B}x{Q}x{C} k={k}: {ms:.4f} ms per launch in a CUDA "
-          f"graph, {row['call_ms']:.4f} ms for one call between events; bound {bnd:.4f} ms "
-          f"({by}, the valid rows), share {bnd / ms:.1%}; over every row swept "
-          f"{swept:.4f} ms, share {swept / ms:.1%}; plain {row['plain_ms']:.4f} ms; "
+          f"graph, {row['call_ms']:.4f} ms for one call between events; bound {bnd:.6f} ms "
+          f"({by}, the valid rows), share {bnd / ms:.3%}; swept rows {sum(nq)} x "
+          f"{sum(npt)} of {B * Q} x {B * C}{'' if counts else ' (every row)'}, their bound "
+          f"{swept:.6f} ms, share {swept / ms:.1%}; plain {row['plain_ms']:.4f} ms; "
           f"library cdist + topk "
           f"{row['library_ms']:.4f} ms "
           f"{'over query slabs of 8192 rows' if slabs else 'in a CUDA graph'} on {smi}")
@@ -1561,8 +1580,51 @@ def work_bound_ms(pairs, queries, points, k):
 
 def bound_ms(B, Q, C, k):
     """work_bound_ms of B problems of Q queries against C points, every
-    row counted (the sweep's own work: it passes over padding rows too)."""
+    row counted (the work of a sweep without counts)."""
     return work_bound_ms(B * Q * C, B * Q, B * C, k)
+
+
+def swept_rows(B, Q, C, counts=None):
+    """([queries], [points]) a sweep covers in each of its B problems: the
+    leading rows of ``counts`` = (query counts, point counts), each None,
+    one value or [B], clamped to the capacity as the kernels clamp them."""
+    def rows(c, cap):
+        if c is None:
+            return [cap] * B
+        v = [min(max(int(x), 0), cap) for x in c.reshape(-1).tolist()]
+        return v * B if len(v) == 1 else v
+    return rows(None if counts is None else counts[0], Q), rows(
+        None if counts is None else counts[1], C)
+
+
+def row_counts(x):
+    """The count a front end passes for a sentinel-padded array x [(B,) N,
+    3]: ``nn_bruteforce.valid_count`` of its valid rows (|x| < 1e7)."""
+    return nnb.valid_count((x.abs() < 1e7).all(-1))
+
+
+def launch_line(B, Q, C, k, counts=None):
+    """Print the launch of a sweep of B problems of Q queries against C
+    points as the built library forms it for the wrapper's split, beside
+    the rows it covers: with counts, only the blocks of query rows below
+    the query count sweep, over slices that split the point count on the
+    device."""
+    n_sm = nnb._sm_count(0)
+    split = nnb.sweep_split(Q, C, n_sm, k, B)
+    r = nnb.register_tile(Q, C, n_sm, k, B)
+    gx, gy, gz, threads = nnb.kernel_launch_dims(Q, B, r, split.groups, split.slices)
+    blocks, warps = gx * gy * gz, gx * gy * gz * threads // 32
+    nq, npt = swept_rows(B, Q, C, counts)
+    per_block = 32 * r
+    active = sum(-(-n // per_block) for n in nq) * gy
+    slices = sorted({((-(-n // gy)) + 3) & ~3 for n in npt}) if counts else [split.slice_len]
+    print(f"[launch] {B}x{Q}x{C} k={k} on {n_sm} SMs, {r} queries per thread: grid ({gx}, "
+          f"{gy}, {gz}) x {threads} threads = {blocks} blocks of {threads // 32} warps, {warps} warps = "
+          f"{warps / n_sm:.1f} per SM; valid rows swept: queries "
+          f"{sum(nq)} of {B * Q}, points {sum(npt)} of {B * C}"
+          f"{'' if counts else ' (no counts: every row)'}; {active} of {blocks} blocks sweep, "
+          f"{gy} slices of {'/'.join(map(str, slices[:4]))} points")
+    return blocks, warps
 
 
 def data_bound_ms(q, p, k):
@@ -1580,11 +1642,16 @@ def grid_points(rng, *shape):
     return torch.from_numpy(rng.randint(0, 6, shape + (3,)).astype(np.float32))
 
 
+COMPARED = {"without counts": 0, "with counts": 0}
+
+
 def compare(label, kernel, plain, *args):
     """A kernel against its plain version on the same card tensors: the
     distances must be equal bit for bit (both round (q-p)^2 per product and
     per sum in the same order) and so must the indices (both take the
-    lowest index on ties). Returns max |d2 - d2_plain| (0)."""
+    lowest index on ties). args: (q, p, k) or (q, p, k, q_count, p_count).
+    Returns max |d2 - d2_plain| (0)."""
+    COMPARED["with counts" if len(args) > 3 else "without counts"] += 1
     d, i = kernel(*args)
     d_ref, i_ref = plain(*args)
     torch.cuda.synchronize()
@@ -1597,6 +1664,134 @@ def compare(label, kernel, plain, *args):
     print(f"[kernel] {label}: ok, max |d2 - d2_plain| = {err:.3g} m^2 (must be 0), "
           f"indices equal on all {i.numel()} entries")
     return err
+
+
+MASK_KINDS = ("prefix", "scattered", "count 0", "count 1", "fewer points than k",
+              "one valid query", "4n+1", "4n+2", "4n+3")
+
+
+def kind_masks(kind, Q, C, rng):
+    """(query mask, point mask) numpy of one kind of padded cloud: valid
+    rows first (a compacted layer), interior invalid rows and a padded
+    tail, no valid point, one, fewer than k, one valid query, counts not a
+    multiple of 4."""
+    qv, pv = np.zeros(Q, bool), np.zeros(C, bool)
+    if kind == "prefix":
+        qv[:Q * 3 // 4], pv[:C // 2 + 3] = True, True
+    elif kind == "scattered":
+        qv[:Q - 17], pv[:C - 29] = rng.rand(Q - 17) > 0.3, rng.rand(C - 29) > 0.3
+    elif kind == "count 0":
+        qv[:] = True
+    elif kind == "count 1":
+        qv[:Q // 2], pv[0] = True, True
+    elif kind == "fewer points than k":
+        qv[:], pv[[2, 5, 6]] = True, True
+    elif kind == "one valid query":
+        qv[Q // 3], pv[:C - 1] = True, True
+    else:
+        n = int(kind.split("+")[1])
+        qv[:4 * 9 + n], pv[:4 * 37 + n] = True, True
+    return qv, pv
+
+
+def same_result(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def counted_cases(errs, dev, q_src, p_src, rng):
+    """Phase 3's cases of the counted sweeps, on the card: (a) each kind of
+    mask of ``kind_masks`` on street points through K1, the counts those
+    of the front end (``nn_bruteforce.valid_count``), against the counted
+    plain version bit for bit, and the front end's NNResult against the
+    uncounted sweep's (the same, to the bit); (b) integer-grid points
+    (ties everywhere) at k = 2, 4, 5, 8 with counts, through K1 and K2
+    with per-problem counts, a map per problem and one shared map; (c)
+    per-problem counts through the batched front end and through
+    torch.func.vmap of knn_bruteforce, against the uncounted sweep; (d) a
+    counted front-end call of K1 and of K2 captured in a CUDA graph (a host
+    read would refuse the capture) and replayed after its masks changed in
+    place: the replay must give the eager call's result on the new masks."""
+    q, p = q_src[:777].contiguous(), p_src[:3001].contiguous()
+    fronts = 0
+    for kind in MASK_KINDS:
+        qv, pv = (torch.from_numpy(m).to(dev) for m in kind_masks(kind, 777, 3001, rng))
+        qs = torch.where(qv[:, None], q, 1.0e8).contiguous()
+        ps = torch.where(pv[:, None], p, -1.0e8).contiguous()
+        n = (nnb.valid_count(qv), nnb.valid_count(pv))
+        for k in (1, 5, 8):
+            errs["knn_sweep"].append(compare(
+                f"K1 777x3001 k={k} counted, {kind} ({int(n[0])} x {int(n[1])} rows)",
+                nnb.knn_sweep, nnb.knn_plain, qs, ps, k, *n))
+            got = nnb.knn_bruteforce(q, qv, p, pv, k=k)
+            want = nnb._result(*nnb.knn_sweep(qs, ps, k), 3001, None)
+            check(same_result(got, want), f"front end k={k}, {kind}: the counted NNResult "
+                  f"differs from the uncounted sweep's")
+            fronts += 1
+    for k in (2, 4, 5, 8):
+        for Q, C in ((777, 3001), (5000, 20011)):
+            qg, pg = grid_points(rng, Q).to(dev), grid_points(rng, C).to(dev)
+            n = (torch.tensor(Q * 2 // 3 + 1, dtype=torch.int32, device=dev),
+                 torch.tensor(C * 3 // 5 + 2, dtype=torch.int32, device=dev))
+            errs["knn_sweep"].append(compare(
+                f"K1 {Q}x{C} k={k} integer grid (ties), counted {int(n[0])} x {int(n[1])}",
+                nnb.knn_sweep, nnb.knn_plain, qg, pg, k, *n))
+        for shared in (False, True):
+            B, Q, C = BATCH, 777, 3001
+            qg = grid_points(rng, B, Q).to(dev)
+            pg = grid_points(rng, *(() if shared else (B,)), C).to(dev)
+            n = (torch.from_numpy(rng.randint(0, Q + 1, B).astype(np.int32)).to(dev),
+                 torch.from_numpy(rng.randint(0, C + 1, 1 if shared else B).astype(np.int32)
+                                  ).to(dev))
+            n[0][0], n[1][-1] = 0, C  # a problem without a query, a map swept whole
+            errs["knn_sweep_batched"].append(compare(
+                f"K2 {B}x{Q}x{C} k={k} integer grid (ties), per-problem counts "
+                f"{n[0].tolist()} x {n[1].tolist()}{', shared map' if shared else ''}",
+                nnb.knn_sweep_batched, nnb.knn_plain_batched, qg, pg, k, *n))
+    for shared in (False, True):
+        B = BATCH
+        qb = q.expand(B, -1, -1).contiguous()
+        pb = p if shared else torch.stack([p.roll(37 * b, 0) for b in range(B)])
+        qv = torch.stack([torch.arange(777, device=dev) < 97 * b for b in range(B)])
+        pv = (torch.arange(3001, device=dev) < 2000) if shared else torch.stack(
+            [torch.arange(3001, device=dev) < 400 * b + 3 for b in range(B)])
+        for k in (1, 8):
+            got = nnb.knn_bruteforce_batched(qb, qv, pb, pv, k=k)
+            mapped = torch.func.vmap(
+                (lambda qq, vv: nnb.knn_bruteforce(qq, vv, pb, pv, k=k)) if shared else
+                (lambda qq, vv, pp, ww: nnb.knn_bruteforce(qq, vv, pp, ww, k=k)))(
+                *((qb, qv) if shared else (qb, qv, pb, pv)))
+            qs = torch.where(qv[..., None], qb, 1.0e8).contiguous()
+            ps = torch.where(pv[..., None], pb, -1.0e8).contiguous()
+            want = nnb._result(*nnb.knn_sweep_batched(qs, ps, k), 3001, None)
+            check(same_result(got, want) and same_result(mapped, want),
+                  f"batched front end k={k}{' shared map' if shared else ''}: the counted "
+                  f"NNResult differs from the uncounted sweep's")
+            fronts += 2
+    # (d) a counted call in a CUDA graph, replayed on changed masks
+    for batched in (False, True):
+        qq = q.expand(BATCH, -1, -1).contiguous() if batched else q
+        qv = torch.ones(qq.shape[:-1], dtype=torch.bool, device=dev)
+        pv = torch.ones(3001, dtype=torch.bool, device=dev)
+        front = nnb.knn_bruteforce_batched if batched else nnb.knn_bruteforce
+
+        def call():
+            return front(qq, qv, p, pv, k=8)
+
+        call()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for n_q, n_p in ((500, 1234), (0, 3001), (777, 5)):
+            qv.copy_(torch.arange(777, device=dev).expand_as(qv) < n_q)
+            pv.copy_(torch.arange(3001, device=dev) < n_p)
+            graph.replay()
+            check(same_result(out, call()), f"{'K2' if batched else 'K1'} counted front end: "
+                  f"the graph's replay on {n_q} x {n_p} valid rows differs from the eager call")
+        del graph
+    print(f"[kernel] counted front ends: {fronts} NNResults equal to the uncounted sweep's to "
+          f"the bit; a counted K1 and K2 front-end call captured in a CUDA graph (no host "
+          f"read) and replayed on 3 other pairs of masks, equal to the eager calls")
 
 
 def timed_aligns(icp, loc, glob, params, n, guess=None):
@@ -2590,10 +2785,15 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
                                   f"{int((q[..., 0].abs() < 1e7).sum())} valid queries, "
                                   f"{int((p[..., 0].abs() < 1e7).sum())} valid points)",
                                   kernel, plain, q, p, 1))
-        g_times = graph_ms(lambda: kernel(q, p, 1), replays=3 if B > 1 else 7)
+        # as the path calls it: with the counts of the front end
+        n = (row_counts(q), row_counts(p))
+        launch_line(B, Q, C, 1, n)
+        errs[name].append(compare(f"{name} {B}x{Q}x{C} k=1 ({label}) counted", kernel, plain,
+                                  q, p, 1, *n))
+        g_times = graph_ms(lambda: kernel(q, p, 1, *n), replays=3 if B > 1 else 7)
         shapes[name].append(kernel_row(
-            name, label, B, Q, C, 1, lambda: kernel(q, p, 1), lambda: plain(q, p, 1), q, p,
-            g_times, smi, plain_reps=plain_reps))
+            name, label, B, Q, C, 1, lambda: kernel(q, p, 1, *n), lambda: plain(q, p, 1, *n),
+            q, p, g_times, smi, plain_reps=plain_reps, counts=n))
     del qb, pb
     torch.cuda.empty_cache()
 
@@ -2838,11 +3038,15 @@ def tools_phase(smi, kind, launches, by_path, errs, shapes, scans, pass1):
     errs["knn_sweep"].append(compare(
         f"K1 {Q}x{Q} k=8 (rawlog-filter normals, {int(layer0.count)} valid)", nnb.knn_sweep,
         nnb.knn_plain, q, p, 8))
-    g_times = graph_ms(lambda: nnb.knn_sweep(q, p, 8), replays=3)
+    n = (row_counts(q), row_counts(p))  # as the normals filter's front end passes them
+    launch_line(1, Q, Q, 8, n)
+    errs["knn_sweep"].append(compare(f"K1 {Q}x{Q} k=8 (rawlog-filter normals) counted",
+                                     nnb.knn_sweep, nnb.knn_plain, q, p, 8, *n))
+    g_times = graph_ms(lambda: nnb.knn_sweep(q, p, 8, *n), replays=3)
     shapes["knn_sweep"].append(kernel_row(
         "knn_sweep", "rawlog-filter normals", 1, Q, Q, 8,
-        lambda: nnb.knn_sweep(q, p, 8), lambda: nnb.knn_plain(q, p, 8), q, p, g_times, smi,
-        plain_reps=1))
+        lambda: nnb.knn_sweep(q, p, 8, *n), lambda: nnb.knn_plain(q, p, 8, *n), q, p, g_times,
+        smi, plain_reps=1, counts=n))
     del q, p
     torch.cuda.empty_cache()
 
@@ -3574,10 +3778,17 @@ def mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, proble
              f"{', its cropped shards' if g_dim == 0 else ', its shard shared by the rows'})")
     errs["knn_sweep_batched"].append(compare(label, nnb.knn_sweep_batched,
                                              nnb.knn_plain_batched, q, p, 1))
+    # as the rank's matcher calls it: with the counts of the front end
+    n = (nnb.valid_count(l4["raw"].valid_mask()), nnb.valid_count(pc.valid_mask()))
+    launch_line(rows, q.shape[1], C, 1, n)
+    errs["knn_sweep_batched"].append(compare(label + " counted", nnb.knn_sweep_batched,
+                                             nnb.knn_plain_batched, q, p, 1, *n))
     shapes["knn_sweep_batched"].append(kernel_row(
         "knn_sweep_batched", "a data x space rank's sweep", rows, q.shape[1], C, 1,
-        lambda: nnb.knn_sweep_batched(q, p, 1), lambda: nnb.knn_plain_batched(q, p, 1),
-        q, p, graph_ms(lambda: nnb.knn_sweep_batched(q, p, 1)), smi, plain_reps=1))
+        lambda: nnb.knn_sweep_batched(q, p, 1, *n),
+        lambda: nnb.knn_plain_batched(q, p, 1, *n),
+        q, p, graph_ms(lambda: nnb.knn_sweep_batched(q, p, 1, *n)), smi, plain_reps=1,
+        counts=n))
     del q, p, g_c, shard
     torch.cuda.empty_cache()
 
@@ -3860,6 +4071,17 @@ def main():
     errs["knn_sweep_batched"].append(compare(
         f"K2 {BATCH}x2048x22528 k=8 (fleet normals fit, street scans)", nnb.knn_sweep_batched,
         nnb.knn_plain_batched, fleet_fq, fleet_fp, 8))
+    n_before = dict(COMPARED)
+    counted_cases(errs, dev, scan_q, map_p, rng)
+    # the YAML pipeline's normals fit as its front end calls it: with the counts
+    n64k = (row_counts(q64k), row_counts(p64k))
+    launch_line(1, q64k.shape[0], p64k.shape[0], 8, n64k)
+    errs["knn_sweep"].append(compare(
+        f"K1 {q64k.shape[0]}x{p64k.shape[0]} k=8 (YAML pipeline normals) counted "
+        f"{int(n64k[0])} x {int(n64k[1])}", nnb.knn_sweep, nnb.knn_plain, q64k, p64k, 8, *n64k))
+    print(f"[kernel] phase 3: {n_before['without counts']} compare cases without counts (as "
+          f"before counts), {COMPARED['with counts'] - n_before['with counts']} with counts, "
+          f"all bit-equal")
     torch.cuda.synchronize()
     for Q, C, k, B in ((6144, 1 << 14, 1, 1), (2048, 22528, 8, 1), (6144, 6144, 8, 1),
                        (N_POINTS, N_POINTS, 1, 1),
@@ -3867,19 +4089,13 @@ def main():
                        (N_POINTS, 1 << 16, 1, BATCH), (N_POINTS, N_POINTS, 1, PAIR_BATCH),
                        (6144, 1 << 14, 1, BATCH), (2048, 22528, 8, BATCH)):
         # the grid and block sizes as the built library forms them for the
-        # wrapper's split (both register tiles, k = 1 and k = 8), beside the
-        # wrapper's own arithmetic
-        split = nnb.sweep_split(Q, C, n_sm, k, B)
-        gx, gy, gz, threads = nnb.kernel_launch_dims(Q, B, k, split.groups, split.slices)
-        blocks, warps = gx * gy * gz, gx * gy * gz * threads // 32
+        # wrapper's split and register tile, beside the wrapper's own
+        # arithmetic
+        blocks, warps = launch_line(B, Q, C, k)
         shape = nnb.launch_shape(Q, C, n_sm, k, B)
         check((blocks, warps) == (shape["blocks"], shape["warps"]),
               f"{B}x{Q}x{C}: the library launches {blocks} blocks, {warps} warps; "
               f"the wrapper counts {shape['blocks']}, {shape['warps']}")
-        print(f"[launch] {B}x{Q}x{C} k={k} on {n_sm} SMs: grid ({gx}, {gy}, {gz}) x {threads} "
-              f"threads = {blocks} blocks of {threads // 32} warps, {warps} warps = "
-              f"{warps / n_sm:.1f} per SM; {gy} slices of {split.slice_len} points, "
-              f"{shape['points_per_warp']} points per warp")
         check(warps / n_sm >= 15.5, f"{B}x{Q}x{C}: under ~16 warps per SM")
 
     # ---- times, in turns: (kernel, label, B, Q, C, k, kernel call, plain call)
@@ -3938,24 +4154,25 @@ def main():
         ("knn_sweep", "2D YAML, DistanceThreshold", 1, 1024, 1024, 1,
          lambda: nnb.knn_sweep(q1k, p1k, 1), lambda: nnb.knn_plain(q1k, p1k, 1)),
         ("knn_sweep", "YAML filter pipeline, normals", 1, 1 << 16, 1 << 16, 8,
-         lambda: nnb.knn_sweep(q64k, p64k, 8), lambda: nnb.knn_plain(q64k, p64k, 8)),
+         lambda: nnb.knn_sweep(q64k, p64k, 8, *n64k),
+         lambda: nnb.knn_plain(q64k, p64k, 8, *n64k)),
     ]
     # the operands of each row, for its library call
     operands = [(q, p), (q, p), (q2d, p2d), (q2d, p2d), (q2d, p2d), (odo_q, odo_p),
                 (fit_q, fit_p), (odo_q, odo_q), (scan_q, map_64k), (scan_q, map_p),
                 (scan_q, map_p), (scan_q, map_p), (scans_b, maps_b), (scans_b, map_64k),
                 (q16, p16), (scans_b[:2], maps_b[:2]), (scans_b[:4], maps_b[:4]), (fleet_q, fleet_p), (fleet_fq, fleet_fp), (q1k, p1k),
-                (q1k, p1k), (q64k, p64k)]
+                (q1k, p1k), (q64k, p64k, n64k)]  # a third field: the counts the call passes
     check(len(operands) == len(timed), "a timed row without its operands")
     graph_times = [[] for _ in timed]
     for _ in range(2):  # two turns over all shapes
         for at, case in enumerate(timed):
             graph_times[at] += graph_ms(case[6])
     shapes = {name: [] for name in KERNELS}
-    for (name, label, B, Q, C, k, run, plain), g_times, (lq, lp) in zip(timed, graph_times,
-                                                                         operands):
+    for (name, label, B, Q, C, k, run, plain), g_times, (lq, lp, *n) in zip(timed, graph_times,
+                                                                             operands):
         shapes[name].append(kernel_row(name, label, B, Q, C, k, run, plain, lq, lp, g_times,
-                                       smi))
+                                       smi, counts=n[0] if n else None))
 
     def eight_k1():
         for b in range(BATCH):
@@ -4305,6 +4522,8 @@ def main():
         (out / "profile_tables.txt").write_text("\n\n".join(tables))
 
     phase_done("profile")
+    print(f"[kernel] compare cases of the run: {COMPARED['without counts']} without counts, "
+          f"{COMPARED['with counts']} with counts, every one bit-equal to its plain version")
     # ---- 18. results
     # a kernel's own line is its first shape (the one its path gives it)
     print(json.dumps({"kernels": [{

@@ -31,23 +31,27 @@
 //     order with the same strict-'<' insertion: within a slice entries come
 //     in (d, idx) order, and every entry of an earlier slice has a lower
 //     index, so the lowest index wins each tie, as in one long sweep.
-// Measured on an H100 80GB HBM3 at 700 W (device time in a CUDA graph):
-// 0.741 ms at 8192 x 262144 k=1, 78% of the bound (before: 1.18 ms, 49%);
-// 1.27 ms for k=8, 45% (before: 1.59 ms). PERF.md, section 6.
+// Measured on an H100 80GB HBM3 at 700.00 W (device time in a CUDA graph):
+// 0.733 ms at 8192 x 262144 k=1, 79% of the bound (before: 1.18 ms, 49%);
+// 0.958 ms for k=8, 60% (the insertion per pair: 1.27 ms). It sweeps its
+// whole capacity: the wrapper passes no counts yet. PERF.md, section 6.
 
 #include "knn_sweep.cuh"
 
-// Plain C entry point (loaded with ctypes). Blocks of `groups` warps, S
-// slices of `slice` points (S * slice >= C); part_d / part_i are [S, Q, k]
-// scratch, read only when S > 1. Launches both kernels on `stream`, does
-// not synchronise and allocates nothing; returns cudaGetLastError() after
-// the launches (0 on success).
+// Plain C entry point (loaded with ctypes). Blocks of `groups` warps of r
+// queries per thread, S slices of `slice` points (S * slice >= C);
+// part_d / part_i are [S, Q, k] scratch, read only when S > 1, and part_th
+// as for mp2p_knn_sweep_f32. nq / np: optional device int32 counts, as for
+// mp2p_knn_sweep_f32 (the wrapper passes none yet). Launches both kernels
+// on `stream`, does not synchronise and allocates nothing; returns
+// cudaGetLastError() after the launches (0 on success).
 extern "C" int mp2p_knn_sweep_streamed_f32(const float* q, int Q,
-                                           const float* p, int C, int k,
+                                           const float* p, int C, int k, int r,
                                            int groups, int slice, int S,
+                                           const int* nq, const int* np,
                                            float* part_d, int* part_i,
-                                           float* out_d, int* out_i,
-                                           void* stream) {
-  return mp2p_knn::run_sweep(q, Q, 0, p, C, 0, 1, k, groups, slice, S, part_d, part_i,
-                             out_d, out_i, stream);
+                                           unsigned* part_th, float* out_d,
+                                           int* out_i, void* stream) {
+  return mp2p_knn::run_sweep(q, Q, 0, p, C, 0, 1, k, r, groups, slice, S, nq, np, part_d,
+                             part_i, part_th, out_d, out_i, stream);
 }

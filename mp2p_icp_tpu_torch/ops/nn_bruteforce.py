@@ -26,6 +26,16 @@ rule, ``sweep_split``, that lays a sweep on the card from (Q, C, B, k) and
 the SM count: blocks of G warps, S slices of the point axis, the partial
 lists merged in index order, so the result does not depend on the split.
 
+K1 and K2 take optional counts, int32 tensors on the inputs' device: only
+the first ``q_count`` queries are answered (later rows come back (+inf, -1))
+and only the first ``p_count`` points are swept, the slices splitting that
+prefix on the device. The front ends pass ``valid_count`` of each mask (the
+last valid row + 1, two launches, no host read), so a padded cloud costs
+the work of its valid rows and the call stays capturable in a CUDA graph.
+Rows past the count are sentinels that pair at d² ≥ 1e15 with every valid
+row whose coordinates lie within 8e7 of the origin on each axis, so the
+front ends' ``NNResult`` is the uncounted sweep's.
+
 ``knn_bruteforce`` takes the streamed sweep for maps above ``stream_block``
 points, as the JAX package does. It calls the sweep through a custom
 operator whose vmap rule launches the batched sweep, so ``torch.func.vmap``
@@ -60,6 +70,8 @@ _WARP = 32
 _GROUPS = (16, 8)  # warps per block the split rule may choose, in order of preference
 _WARPS_PER_SM = (16, 32)  # what the split rule aims to keep in flight on every SM
 _MIN_PART = 128  # fewest points a warp sweeps: one tile of its ring (knn_sweep.cuh kTile)
+_TILES_KN = (4, 2, 1)  # register tiles of k > 1 (knn_sweep.cuh tile_allowed), largest first
+_LONG_PART = 4096  # points per warp beyond which a longer part saves no list refills
 _BALANCE_SLACK = 0.05  # forms this close to the best balance count as balanced
 _MAX_GRID = 65535  # limit of the grid's slice and problem axes
 
@@ -83,19 +95,30 @@ class ShardedNNResult(NamedTuple):
 
 
 # ------------------------------------------------------------ plain versions
-def knn_plain(q: torch.Tensor, p: torch.Tensor, k: int):
+def _leading(count, capacity: int) -> int:
+    """A count argument as the number of leading rows it keeps (a host read
+    where the count lies on the card: the plain versions are the yardstick,
+    not the path)."""
+    return capacity if count is None else min(max(int(count), 0), capacity)
+
+
+def knn_plain(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None, p_count=None):
     """Plain PyTorch kNN: explicit (q - p)² per pair, stable ascending sort,
     first k. The stable sort gives the lowest index on ties. Slots beyond
-    the number of points stay (+inf, -1), as in the kernel.
+    the number of points stay (+inf, -1), as in the kernel. With counts,
+    only the first ``q_count`` queries are answered (the other rows stay
+    (+inf, -1)) against the first ``p_count`` points.
     Returns (d2 [Q, k] f32, idx [Q, k] i32)."""
     Q, C = q.shape[0], p.shape[0]
     out_d = torch.full((Q, k), float("inf"), dtype=torch.float32, device=q.device)
     out_i = torch.full((Q, k), -1, dtype=torch.int32, device=q.device)
+    n_q, C = _leading(q_count, Q), _leading(p_count, C)
+    q, p = q[:n_q], p[:C]
     kk = min(k, C)
     if kk == 0:
         return out_d, out_i
-    for s in range(0, Q, _PLAIN_CHUNK):
-        e = s + _PLAIN_CHUNK
+    for s in range(0, n_q, _PLAIN_CHUNK):
+        e = min(s + _PLAIN_CHUNK, n_q)
         diff = q[s:e, None, :] - p[None, :, :]  # [chunk, C, 3]
         sq = diff * diff
         d = sq[..., 0] + sq[..., 1] + sq[..., 2]  # same rounding order as the kernel
@@ -129,12 +152,19 @@ def knn_plain_streamed(q: torch.Tensor, p: torch.Tensor, k: int,
     return d_acc, i_acc
 
 
-def knn_plain_batched(q: torch.Tensor, p: torch.Tensor, k: int):
+def knn_plain_batched(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None,
+                      p_count=None):
     """Plain version of the batched sweep: ``knn_plain`` on each problem.
     q [B, Q, 3] or [Q, 3], p [B, C, 3] or [C, 3] (an unbatched side is
-    shared by every problem). Returns (d2 [B, Q, k], idx [B, Q, k])."""
+    shared by every problem). Counts: [B], or one for all problems.
+    Returns (d2 [B, Q, k], idx [B, Q, k])."""
     B = q.shape[0] if q.ndim == 3 else p.shape[0]
-    outs = [knn_plain(q[b] if q.ndim == 3 else q, p[b] if p.ndim == 3 else p, k)
+
+    def nth(count, b):
+        return None if count is None else count.reshape(-1)[b if count.numel() > 1 else 0]
+
+    outs = [knn_plain(q[b] if q.ndim == 3 else q, p[b] if p.ndim == 3 else p, k,
+                      nth(q_count, b), nth(p_count, b))
             for b in range(B)]
     return torch.stack([d for d, _ in outs]), torch.stack([i for _, i in outs])
 
@@ -151,8 +181,9 @@ def _entry(lib: str, symbol: str, argtypes: tuple):
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# groups, slice, S, part_d, part_i, out_d, out_i, stream: the tail of every entry point
-_SPLIT_ARGS = (_I, _I, _I, _P, _P, _P, _P, _P)
+# r, groups, slice, S, nq, np, part_d, part_i, part_th, out_d, out_i, stream:
+# the tail of every entry point
+_SPLIT_ARGS = (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P)
 
 
 def load_kernel():
@@ -196,26 +227,62 @@ def _check(k, **arrays):
     return dev.type
 
 
+def _count_arg(name, count, entries, device):
+    """A count argument as the kernel reads it: ``entries`` contiguous int32
+    values on ``device`` (one count broadcast to several entries is
+    copied), or None."""
+    if count is None:
+        return None
+    if count.dtype != torch.int32 or count.device != device:
+        raise ValueError(f"{name} must be int32 on {device}, got {count.dtype} on {count.device}")
+    if count.numel() not in (1, entries):
+        raise ValueError(f"{name} has {count.numel()} entries, want 1 or {entries}")
+    return count.reshape(-1).expand(entries).contiguous()
+
+
+_POSITIONS: dict = {}  # (C, device) -> int32 [1, ..., C], for valid_count
+
+
+def valid_count(mask: torch.Tensor) -> torch.Tensor:
+    """The rows a sweep must cover to meet every valid row of ``mask``
+    [..., C]: the index of its last True + 1 (0 when none), int32 [...], on
+    the mask's device. Two launches and no host read, so it may run inside a
+    CUDA graph; exact for any mask (rows before the last valid one that are
+    invalid are the front ends' sentinels)."""
+    C = mask.shape[-1]
+    if C == 0:
+        return torch.zeros(mask.shape[:-1], dtype=torch.int32, device=mask.device)
+    key = (C, mask.device)
+    positions = _POSITIONS.get(key)
+    if positions is None:
+        positions = torch.arange(1, C + 1, dtype=torch.int32, device=mask.device)
+        # a tensor made during a capture holds nothing until the graph runs
+        if not (mask.device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            _POSITIONS[key] = positions
+    return (positions * mask).amax(-1)  # int32: the positions of the valid rows
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def queries_per_thread(k: int) -> int:
-    """The kernels' register tile: queries held by one thread. The same two
-    numbers as ``queries_per_thread`` of knn_sweep.cuh, repeated here so
-    that the split rule runs without the library; ``kernel_launch_dims``
-    reads the kernels' side."""
-    return 8 if k == 1 else 1
+    """The kernels' largest register tile for k: queries held by one
+    thread, 8 for k = 1 and 4 for k > 1 (kQueriesK1 and kQueriesKn of
+    knn_sweep.cuh, repeated here so that the split rule runs without the
+    library; ``kernel_launch_dims`` reads the kernels' side). A k > 1
+    launch may take a smaller tile: ``register_tile``."""
+    return 8 if k == 1 else _TILES_KN[0]
 
 
-def kernel_launch_dims(Q: int, B: int, k: int, groups: int, slices: int):
+def kernel_launch_dims(Q: int, B: int, r: int, groups: int, slices: int):
     """(grid x, grid y, grid z, threads per block) of the sweep kernel for
-    these arguments, answered by the built library from the functions its
-    launch uses. Launches nothing."""
+    these arguments (r: the register tile), answered by the built library
+    from the functions its launch uses. Launches nothing."""
     fn = _entry("knn_bruteforce", "mp2p_knn_sweep_launch_dims", (_I, _I, _I, _I, _I, _P))
     out = (ctypes.c_int * 4)()
-    fn(Q, B, k, groups, slices, out)
+    fn(Q, B, r, groups, slices, out)
     return tuple(out)
 
 
@@ -264,32 +331,59 @@ def split_chunks(chunks: int, C: int, n_sm: int) -> Split:
                key=lambda form: (form.groups, -form.slices))
 
 
-def _chunks(Q: int, k: int, B: int) -> int:
-    """Query chunks (one per block and slice) of B problems of Q queries."""
-    return max(1, -(-Q // (_WARP * queries_per_thread(k)))) * max(1, B)
+def _chunks(Q: int, r: int, B: int) -> int:
+    """Query chunks (one per block and slice) of B problems of Q queries,
+    r queries per thread."""
+    return max(1, -(-Q // (_WARP * r))) * max(1, B)
+
+
+@functools.lru_cache(maxsize=1024)
+def register_tile(Q: int, C: int, n_sm: int, k: int = 1, B: int = 1) -> int:
+    """Queries per thread of the launch: 8 for k = 1; for k > 1 the tile of
+    ``_TILES_KN`` whose split gives each warp the longest part, counted up
+    to ``_LONG_PART`` points, then the most warps in flight, counted up to
+    15 per SM, then the largest tile. Each part fills and refines its own
+    K-lists, about K (1 + ln(part / K)) insertions per query, so a small Q,
+    which the split rule cuts into many short parts, takes a smaller tile
+    (more query chunks, fewer parts each); a large one keeps the largest,
+    which reads each point for the most queries."""
+    if k == 1:
+        return queries_per_thread(1)
+
+    def score(r):
+        chunks = _chunks(Q, r, B)
+        split = split_chunks(chunks, C, n_sm)
+        warps = chunks * split.slices * split.groups / n_sm
+        return min(-(-split.slice_len // split.groups), _LONG_PART), min(warps, 15.0), r
+
+    return max(_TILES_KN, key=score)
 
 
 def sweep_split(Q: int, C: int, n_sm: int, k: int = 1, B: int = 1) -> Split:
     """The split of B problems of Q queries against C points each: one rule
-    for the three kernels, a function of the sizes and the SM count only."""
-    return split_chunks(_chunks(Q, k, B), C, n_sm)
+    for the three kernels, a function of the sizes and the SM count only
+    (with ``register_tile``'s queries per thread)."""
+    return split_chunks(_chunks(Q, register_tile(Q, C, n_sm, k, B), B), C, n_sm)
 
 
 def launch_shape(Q: int, C: int, n_sm: int, k: int = 1, B: int = 1) -> dict:
-    """The launch configuration ``sweep_split`` leads to: blocks, warps,
-    warps per SM and points per warp."""
+    """The launch configuration ``sweep_split`` leads to: queries per
+    thread, blocks, warps, warps per SM and points per warp."""
+    r = register_tile(Q, C, n_sm, k, B)
     split = sweep_split(Q, C, n_sm, k, B)
-    blocks = _chunks(Q, k, B) * split.slices
-    return {"groups": split.groups, "slices": split.slices, "slice": split.slice_len,
-            "blocks": blocks, "warps": blocks * split.groups,
+    blocks = _chunks(Q, r, B) * split.slices
+    return {"queries_per_thread": r, "groups": split.groups, "slices": split.slices,
+            "slice": split.slice_len, "blocks": blocks, "warps": blocks * split.groups,
             "warps_per_sm": blocks * split.groups / n_sm,
             "points_per_warp": -(-split.slice_len // split.groups)}
 
 
-def _launch_split(entry, name, q, p, k, B, head):
+def _launch_split(entry, name, q, p, k, B, head, counts=(None, None)):
     """Allocate the outputs (and the scratch when the points are split
-    across blocks) and launch ``entry`` on q's device and current stream.
-    ``head``: the entry point's arguments before (groups, slice, S, ...).
+    across blocks: the slices' lists and, for k > 1, the thresholds they
+    pool, at +inf) and launch ``entry`` on q's device and current stream.
+    ``head``: the entry point's arguments before (r, groups, slice, S, ...);
+    ``counts``: the (queries, points) count tensors of ``_count_arg``.
     Returns (d2 [B, Q, k], idx [B, Q, k], whether a kernel was launched)."""
     Q, C = q.shape[-2], p.shape[-2]
     dev = q.device
@@ -297,15 +391,19 @@ def _launch_split(entry, name, q, p, k, B, head):
     out_i = torch.empty((B, Q, k), dtype=torch.int32, device=dev)
     if Q == 0 or B == 0:
         return out_d, out_i, False
-    groups, S, slice_len = sweep_split(Q, C, _sm_count(dev.index or 0), k, B)
-    part_d = part_i = None
+    n_sm = _sm_count(dev.index or 0)
+    r = register_tile(Q, C, n_sm, k, B)
+    groups, S, slice_len = sweep_split(Q, C, n_sm, k, B)
+    part_d = part_i = part_th = None
     if S > 1:
         part_d = torch.empty((S, B * Q, k), dtype=torch.float32, device=dev)
         part_i = torch.empty((S, B * Q, k), dtype=torch.int32, device=dev)
+        if k > 1:
+            part_th = torch.full((B * Q,), float("inf"), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = entry(*head, groups, slice_len, S,
-                    None if part_d is None else part_d.data_ptr(),
-                    None if part_i is None else part_i.data_ptr(),
+        err = entry(*head, r, groups, slice_len, S,
+                    *(None if c is None else c.data_ptr() for c in counts),
+                    *(None if x is None else x.data_ptr() for x in (part_d, part_i, part_th)),
                     out_d.data_ptr(), out_i.data_ptr(),
                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -313,20 +411,25 @@ def _launch_split(entry, name, q, p, k, B, head):
     return out_d, out_i, True
 
 
-def knn_sweep(q: torch.Tensor, p: torch.Tensor, k: int):
+def knn_sweep(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None, p_count=None):
     """k nearest points of p [C, 3] for each query of q [Q, 3] (f32,
     contiguous, one device). Returns (d2 [Q, k] f32 ascending, idx [Q, k]
     i32), lowest index first on ties, (+inf, -1) in unfilled slots.
+    q_count / p_count: optional int32 counts (one value, on q's device):
+    only the first q_count queries are answered against the first p_count
+    points (``valid_count``).
 
     CPU tensors run ``knn_plain``; CUDA tensors launch the Hopper kernel
     (and raise if it cannot be built or launched — there is no fallback).
     ``knn_sweep.launches`` counts kernel launches (a sweep and the merge of
     its slices count as one)."""
     if _check(k, q=(q, (2,)), p=(p, (2,))) == "cpu":
-        return knn_plain(q, p, k)
+        return knn_plain(q, p, k, q_count, p_count)
     out_d, out_i, launched = _launch_split(
         load_kernel(), "knn_sweep", q, p, k, 1,
-        (q.data_ptr(), q.shape[0], p.data_ptr(), p.shape[0], k))
+        (q.data_ptr(), q.shape[0], p.data_ptr(), p.shape[0], k),
+        (_count_arg("q_count", q_count, 1, q.device),
+         _count_arg("p_count", p_count, 1, q.device)))
     knn_sweep.launches += launched
     return out_d[0], out_i[0]
 
@@ -339,7 +442,8 @@ def knn_sweep_streamed(q: torch.Tensor, p: torch.Tensor, k: int,
     """``knn_sweep`` for large maps (``csrc/knn_streamed.cu``): on CUDA
     tensors the point axis is split across blocks and the partial lists are
     k-merged; CPU tensors run ``knn_plain_streamed`` with superblocks of
-    ``stream_block`` points. Same result as ``knn_sweep``.
+    ``stream_block`` points. Same result as ``knn_sweep``; it takes no
+    counts yet and sweeps the whole map.
     ``knn_sweep_streamed.launches`` counts kernel launches (the slice sweep
     and its merge count as one)."""
     if _check(k, q=(q, (2,)), p=(p, (2,))) == "cpu":
@@ -354,11 +458,13 @@ def knn_sweep_streamed(q: torch.Tensor, p: torch.Tensor, k: int,
 knn_sweep_streamed.launches = 0
 
 
-def knn_sweep_batched(q: torch.Tensor, p: torch.Tensor, k: int):
+def knn_sweep_batched(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None,
+                      p_count=None):
     """``knn_sweep`` for B independent problems in one launch: q [B, Q, 3]
     or [Q, 3], p [B, C, 3] or [C, 3]; an unbatched side is shared by every
     problem (read with batch stride 0, not copied). Returns (d2 [B, Q, k],
-    idx [B, Q, k]).
+    idx [B, Q, k]). q_count / p_count: optional int32 counts as for
+    ``knn_sweep``, [B] (one per problem) or one value for all.
 
     CPU tensors run ``knn_plain_batched``; CUDA tensors launch
     ``csrc/knn_batched.cu`` once for all problems.
@@ -369,14 +475,16 @@ def knn_sweep_batched(q: torch.Tensor, p: torch.Tensor, k: int):
     if q.ndim == 3 and p.ndim == 3 and p.shape[0] != B:
         raise ValueError(f"batch sizes differ: q {q.shape[0]}, p {p.shape[0]}")
     if _check(k, q=(q, (2, 3)), p=(p, (2, 3))) == "cpu":
-        return knn_plain_batched(q, p, k)
+        return knn_plain_batched(q, p, k, q_count, p_count)
     if B > _MAX_GRID:
         raise ValueError(f"knn_sweep_batched takes at most {_MAX_GRID} problems")
     Q, C = q.shape[-2], p.shape[-2]
     out_d, out_i, launched = _launch_split(
         load_batched_kernel(), "knn_sweep_batched", q, p, k, B,
         (q.data_ptr(), Q, 3 * Q if q.ndim == 3 else 0,
-         p.data_ptr(), C, 3 * C if p.ndim == 3 else 0, B, k))
+         p.data_ptr(), C, 3 * C if p.ndim == 3 else 0, B, k),
+        (_count_arg("q_count", q_count, B if q.ndim == 3 else 1, q.device),
+         _count_arg("p_count", p_count, B if p.ndim == 3 else 1, q.device)))
     knn_sweep_batched.launches += launched
     return out_d, out_i
 
@@ -386,21 +494,32 @@ knn_sweep_batched.launches = 0
 
 # ------------------------------------------- the sweep as a custom operator
 @torch.library.custom_op("mp2p_icp_tpu_torch::knn_sweep", mutates_args=())
-def _sweep_op(q: torch.Tensor, p: torch.Tensor, k: int,
-              stream_block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _sweep_op(q: torch.Tensor, p: torch.Tensor, k: int, stream_block: int,
+              q_count: Optional[torch.Tensor],
+              p_count: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     if p.shape[0] > stream_block:
         return knn_sweep_streamed(q, p, k, stream_block)
-    return knn_sweep(q, p, k)
+    return knn_sweep(q, p, k, q_count, p_count)
 
 
 @_sweep_op.register_vmap
-def _sweep_op_vmap(info, in_dims, q, p, k, stream_block):
+def _sweep_op_vmap(info, in_dims, q, p, k, stream_block, q_count, p_count):
     """Under torch.func.vmap: one batched sweep for all problems (the JAX
-    package's custom_vmap rule, nn_bruteforce.py:287-342)."""
-    qd, pd = in_dims[0], in_dims[1]
-    q = q if qd is None else q.movedim(qd, 0).contiguous()
-    p = p if pd is None else p.movedim(pd, 0).contiguous()
-    return knn_sweep_batched(q, p, k), (0, 0)
+    package's custom_vmap rule, nn_bruteforce.py:287-342). A count is [B]
+    where it is batched, else one value for all problems."""
+    def batched(x, d):
+        return x if x is None or d is None else x.movedim(d, 0).contiguous()
+
+    def sides(x, d, count, cd):
+        # a side whose count differs by problem is given to each problem
+        x, count = batched(x, d), batched(count, cd)
+        if d is None and cd is not None:
+            x = x.expand(info.batch_size, *x.shape).contiguous()
+        return x, count
+
+    q, q_count = sides(q, in_dims[0], q_count, in_dims[4])
+    p, p_count = sides(p, in_dims[1], p_count, in_dims[5])
+    return knn_sweep_batched(q, p, k, q_count, p_count), (0, 0)
 
 
 # --------------------------------------------------------------- front ends
@@ -445,7 +564,8 @@ def knn_bruteforce(
                            max_radius_sq, stream_block, point_payload)
     q = torch.where(query_valid[:, None], queries, _FAR).contiguous()
     p = torch.where(point_valid[:, None], points, -_FAR).contiguous()
-    d2, idx = _sweep_op(q, p, k, stream_block)
+    d2, idx = _sweep_op(q, p, k, stream_block, valid_count(query_valid),
+                        valid_count(point_valid))
     r = max_radius_sq  # a number, or a tensor on d2's device
     if isinstance(r, torch.Tensor) and r.ndim == 1:
         r = r[:, None]
@@ -544,7 +664,7 @@ def knn_bruteforce_batched(
     [B, Q]. Returns an NNResult of [B, Q, k], from one batched sweep."""
     q = torch.where(query_valid[..., None], queries, _FAR).contiguous()
     p = torch.where(point_valid[..., None], points, -_FAR).contiguous()
-    d2, idx = knn_sweep_batched(q, p, k)
+    d2, idx = knn_sweep_batched(q, p, k, valid_count(query_valid), valid_count(point_valid))
     r = max_radius_sq
     if isinstance(r, torch.Tensor) and r.ndim >= 1:
         r = r[:, None, None] if r.ndim == 1 else r[..., None]

@@ -132,9 +132,9 @@ def test_vmap_of_front_end_takes_the_batched_sweep(monkeypatch):
     calls = []
     real = tnb.knn_sweep_batched
 
-    def spy(q, p, k):
+    def spy(q, p, k, *counts):
         calls.append((tuple(q.shape), tuple(p.shape)))
-        return real(q, p, k)
+        return real(q, p, k, *counts)
 
     monkeypatch.setattr(tnb, "knn_sweep_batched", spy)
     t = [torch.from_numpy(x) for x in (qs, qv, ps, pv)]

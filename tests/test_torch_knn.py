@@ -195,10 +195,28 @@ def test_split_rule_covers_points_and_respects_limits(Q, C, n_sm, B, k):
     shape = tnb.launch_shape(Q, C, n_sm, k, B)
     assert shape["slices"] == S and shape["groups"] == groups
     assert shape["blocks"] <= 2**31 - 1
-    chunks = -(-Q // (32 * tnb.queries_per_thread(k))) * B
+    r = tnb.register_tile(Q, C, n_sm, k, B)
+    assert r == shape["queries_per_thread"] and r in ((8,) if k == 1 else tnb._TILES_KN)
+    chunks = -(-Q // (32 * r)) * B
     if S > 1:
         assert chunks * S <= max(1, max(tnb._WARPS_PER_SM) // groups) * n_sm
         assert C // S >= groups * tnb._MIN_PART
+
+
+@pytest.mark.parametrize("Q,C,k,B,r", [(8192, 8192, 8, 1, 2), (2048, 22528, 8, 1, 1),
+                                       (6144, 6144, 8, 1, 1), (2048, 22528, 8, 8, 4),
+                                       (8192, 262144, 8, 1, 4), (1081, 1081, 5, 1, 1),
+                                       (8192, 8192, 1, 1, 8)])
+def test_register_tile_takes_the_longest_parts(Q, C, k, B, r):
+    """The tile of each path's shape on a 132-SM card: the longest parts
+    (up to _LONG_PART points), then the most warps, then the largest tile;
+    k = 1 always holds 8 queries a thread."""
+    assert tnb.register_tile(Q, C, 132, k, B) == r
+    if k > 1:
+        def part(t):
+            split = tnb.split_chunks(-(-Q // (32 * t)) * B, C, 132)
+            return min(-(-split.slice_len // split.groups), tnb._LONG_PART)
+        assert part(r) == max(part(t) for t in tnb._TILES_KN)
 
 
 @pytest.mark.parametrize("chunks", [1, 7, 13, 48, 64, 79, 128, 131, 132, 133, 512, 5000])
@@ -246,24 +264,268 @@ def test_split_rule_and_kernel_header_agree_on_their_constants():
 
     assert tnb.queries_per_thread(1) == constant("kQueriesK1")
     assert all(tnb.queries_per_thread(k) == constant("kQueriesKn") for k in range(2, 9))
+    # the k > 1 tiles the rule may choose are the ones the kernel dispatches
+    assert re.search(r"return k == 1 \? r == kQueriesK1 : \(r == 1 \|\| r == 2 \|\| "
+                     r"r == kQueriesKn\);", header)
+    assert tnb._TILES_KN == (constant("kQueriesKn"), 2, 1)
     assert tnb._MIN_PART == constant("kTile")
     assert max(tnb._GROUPS) <= constant("kMaxGroups")
+    # a k > 1 window's hits are one bit per group in a 32-bit mask
+    assert 1 <= constant("kShareGroups") <= 32
+    # a block fits the card's 227 KB of shared memory: each warp's ring,
+    # reused for its R lists of K (distance, index) entries, and for k > 1
+    # the block's pooled bound and each warp's half-list distance of each of
+    # its 32 R queries
+    ring = constant("kStages") * 3 * constant("kTile") * 4
+    G = max(tnb._GROUPS)
+    assert G * max(ring, constant("kQueriesK1") * 32 * 8) <= 227 * 1024
+    R = constant("kQueriesKn")
+    assert G * max(ring, R * tnb.MAX_K * 32 * 8) + (1 + G) * R * 32 * 4 <= 227 * 1024
 
 
+def _device_slices(n_p, S):
+    """The slices of the points [0, n_p) that block row s of a counted
+    sweep covers (the arithmetic of knn_sweep_kernel in csrc/knn_sweep.cuh):
+    [s·L, min((s+1)·L, n_p)) with L = ceil(n_p / S) rounded up to whole
+    4-point groups."""
+    L = ((-(-n_p // S)) + 3) & ~3
+    slices = []
+    for s in range(S):
+        begin = min(n_p, s * L)
+        slices.append((begin, min(n_p, begin + L)))
+    return slices
+
+
+def _device_part_starts(n_p, S, groups):
+    """``_part_starts`` for a counted sweep: each device slice of
+    ``_device_slices`` cut into ``groups`` parts as sweep_block cuts it."""
+    starts = []
+    for begin, end in _device_slices(n_p, S):
+        part = ((-(-(end - begin) // groups)) + 3) & ~3
+        starts += [min(end, begin + g * part) for g in range(groups)]
+    return starts + [n_p]
+
+
+@pytest.mark.parametrize("counted", [False, True])
 @pytest.mark.parametrize("k", [1, 4, 8])
 @pytest.mark.parametrize("Q,C,n_sm", [(300, 3001, 132), (64, 5000, 8), (33, 5, 132),
                                       (8192, 2048, 132), (1, 20_000, 132)])
-def test_split_and_merge_in_order_equals_knn_plain(Q, C, n_sm, k):
+def test_split_and_merge_in_order_equals_knn_plain(Q, C, n_sm, k, counted):
     """Bit for bit on tie-heavy inputs, for the parts the rule chooses at
-    this shape and for a deeper and an uneven split."""
+    this shape and for a deeper and an uneven split; counted: the first
+    n_q queries against the first n_p points, the slices split on the
+    device from n_p, the rows past n_q (+inf, -1)."""
     q, p = _grid_problem(min(Q, 300), C, seed=Q + C + k)
-    d_ref, i_ref = tnb.knn_plain(q, p, k)
+    n_q, n_p = (q.shape[0] * 2 // 3 + 1, (C * 3 // 5) | 1 if C > 1 else C) if counted else (
+        q.shape[0], C)
+    count = (torch.tensor(n_q, dtype=torch.int32), torch.tensor(n_p, dtype=torch.int32))
+    d_ref, i_ref = tnb.knn_plain(q, p, k, *count) if counted else tnb.knn_plain(q, p, k)
     groups, S, slice_len = tnb.sweep_split(Q, C, n_sm, k)
-    for starts in (_part_starts(C, S, slice_len, groups),
-                   _part_starts(C, -(-C // 48) if C else 1, 48, 3),
-                   _part_starts(C, 1, C + 16, 16)):
-        d, i = _split_and_merge(q, p, k, starts)
+    forms = ((S, slice_len, groups), (-(-C // 48) if C else 1, 48, 3), (1, C + 16, 16))
+    for S_, slice_, groups_ in forms:
+        starts = (_device_part_starts(n_p, S_, groups_) if counted
+                  else _part_starts(C, S_, slice_, groups_))
+        d, i = _split_and_merge(q, p[:n_p], k, starts)
+        d[n_q:], i[n_q:] = float("inf"), -1
         assert torch.equal(d, d_ref) and torch.equal(i, i_ref), starts[:8]
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("Q,C,n_sm,B", SPLIT_SHAPES)
+def test_device_slices_cover_the_counted_points_once_in_order(Q, C, n_sm, B, k):
+    """For every form of the split rule and counts from 0 to C, the slices
+    and parts a counted sweep computes on the device cover [0, n_p) exactly
+    once, in order, each part starting on a whole 4-point group, and no
+    slice holds more than its share (L = ceil(n_p / S) rounded up to 4)."""
+    groups, S, _ = tnb.sweep_split(Q, C, n_sm, k, B)
+    for n_p in sorted({0, 1, 3, 4, 5, C // 3, C // 2 + 1, max(C - 1, 0), C}):
+        if n_p > C:
+            continue
+        slices = _device_slices(n_p, S)
+        assert slices[0][0] == 0 and slices[-1][1] == n_p
+        assert all(a[1] == b[0] for a, b in zip(slices[:-1], slices[1:]))
+        assert all(b - a <= (-(-n_p // S)) + 3 for a, b in slices)
+        starts = _device_part_starts(n_p, S, groups)
+        assert starts[0] == 0 and starts[-1] == n_p
+        assert all(a <= b for a, b in zip(starts[:-1], starts[1:]))
+        assert all(a % 4 == 0 for a in starts[:-1] if a < n_p)
+
+
+def _masks(kind, Q, C, rng):
+    """(query mask, point mask) of one kind of padded cloud."""
+    qv, pv = np.zeros(Q, bool), np.zeros(C, bool)
+    if kind == "prefix":  # a compacted layer: valid rows first
+        qv[:Q * 3 // 4], pv[:C // 2 + 3] = True, True
+    elif kind == "scattered":  # interior invalid rows, a padded tail
+        qv[:Q - 17], pv[:C - 29] = rng.rand(Q - 17) > 0.3, rng.rand(C - 29) > 0.3
+    elif kind == "count 0":
+        qv[:] = True
+    elif kind == "count 1":
+        qv[:Q // 2], pv[0] = True, True
+    elif kind == "fewer points than k":
+        qv[:], pv[[2, 5, 6]] = True, True
+    elif kind == "one valid query":
+        qv[Q // 3], pv[:C - 1] = True, True
+    else:  # counts not a multiple of 4: 4n + 1, 4n + 2, 4n + 3
+        n = int(kind.split("+")[1])
+        qv[:4 * 9 + n], pv[:4 * 37 + n] = True, True
+    return qv, pv
+
+
+MASK_KINDS = ["prefix", "scattered", "count 0", "count 1", "fewer points than k",
+              "one valid query", "4n+1", "4n+2", "4n+3"]
+
+
+def _uncounted(q, qv, p, pv, k, radius=None):
+    """The front end as it was without counts: sentinels, the whole sweep."""
+    qs = torch.where(qv[..., None], q, 1.0e8).contiguous()
+    ps = torch.where(pv[..., None], p, -1.0e8).contiguous()
+    if q.ndim == 3:
+        d, i = tnb.knn_plain_batched(qs, ps, k)
+    else:
+        d, i = tnb.knn_plain(qs, ps, k)
+    return tnb._result(d, i, p.shape[-2], radius)
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("kind", MASK_KINDS)
+def test_valid_count_and_counted_front_end(kind, k):
+    """valid_count is the last valid row + 1; knn_bruteforce, which sweeps
+    only those rows, gives the uncounted sweep's NNResult exactly, and the
+    counted plain version answers the rows below the query count as the
+    uncounted one does."""
+    Q, C = 203, 517
+    q, _, p, _, rng = _problem(Q, C, seed=k)
+    qv, pv = _masks(kind, Q, C, rng)
+    qt, pt, qvt, pvt = (torch.from_numpy(x) for x in (q, p, qv, pv))
+    n_q, n_p = tnb.valid_count(qvt), tnb.valid_count(pvt)
+    assert n_q.dtype == torch.int32 and n_q.shape == ()
+    assert int(n_q) == (np.flatnonzero(qv)[-1] + 1 if qv.any() else 0)
+    assert int(n_p) == (np.flatnonzero(pv)[-1] + 1 if pv.any() else 0)
+    res = tnb.knn_bruteforce(qt, qvt, pt, pvt, k=k)
+    ref = _uncounted(qt, qvt, pt, pvt, k)
+    for a, e in zip(res, ref):
+        assert torch.equal(a, e)
+    qs = torch.where(qvt[:, None], qt, 1.0e8)
+    ps = torch.where(pvt[:, None], pt, -1.0e8)
+    d, i = tnb.knn_plain(qs, ps, k, n_q, n_p)
+    d_all, i_all = tnb.knn_plain(qs[:int(n_q)], ps[:int(n_p)], k)
+    assert torch.equal(d[:int(n_q)], d_all) and torch.equal(i[:int(n_q)], i_all)
+    assert torch.isinf(d[int(n_q):]).all() and (i[int(n_q):] == -1).all()
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+@pytest.mark.parametrize("k,kind", [(1, "prefix"), (8, "scattered"), (5, "fewer points than k"),
+                                    (4, "4n+3"), (8, "count 1")])
+def test_counted_front_end_matches_jax(backend, k, kind):
+    """The counted front end against JAX's knn_bruteforce, run both ways its
+    own tests run it, within the kNN band (parity.py), with a radius."""
+    Q, C = 203, 517
+    q, _, p, _, rng = _problem(Q, C, seed=11 + k)
+    qv, pv = _masks(kind, Q, C, rng)
+    r = rng.uniform(0.5, 50.0, Q).astype(np.float32)
+    ref = jnb.knn_bruteforce(jnp.asarray(q), jnp.asarray(qv), jnp.asarray(p), jnp.asarray(pv),
+                             k=k, max_radius_sq=jnp.asarray(r), backend=backend,
+                             interpret=backend == "pallas")
+    res = _port(q, qv, p, pv, k, r)
+    bad = knn_mismatch(q, p, res.idx.numpy(), res.valid.numpy(), np.asarray(ref.idx),
+                       np.asarray(ref.dist_sq), np.asarray(ref.valid), radius_sq=r)
+    assert not bad.any(), f"{bad.sum()} entries disagree beyond ties"
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("k", [1, 8])
+def test_counted_batch_per_problem_counts(shared, k):
+    """A batch whose problems have their own counts (one without a valid
+    query, one without a valid point unless the map is shared), through the
+    batched front end and through torch.func.vmap of knn_bruteforce: equal
+    to the uncounted sweep, and to JAX's knn_bruteforce problem by problem
+    within the kNN band."""
+    B, Q, C = 4, 150, 331
+    rng = np.random.RandomState(20 + k)
+    q = rng.uniform(-30, 30, (B, Q, 3)).astype(np.float32)
+    p = rng.uniform(-30, 30, (C, 3) if shared else (B, C, 3)).astype(np.float32)
+    qv = np.zeros((B, Q), bool)
+    for b, n in enumerate((Q, 0, 77, 5)):
+        qv[b, :n] = rng.rand(n) > 0.2
+    if shared:
+        pv = np.zeros(C, bool)
+        pv[:C - 40] = rng.rand(C - 40) > 0.25
+    else:
+        pv = np.zeros((B, C), bool)
+        for b, n in enumerate((C, 61, 0, 2)):
+            pv[b, :n] = True
+    t = [torch.from_numpy(x) for x in (q, qv, p, pv)]
+    res = tnb.knn_bruteforce_batched(*t, k=k)
+    ref = _uncounted(*t, k)
+    for a, e in zip(res, ref):
+        assert torch.equal(a, e)
+    if shared:
+        mapped = torch.func.vmap(lambda qq, vv: tnb.knn_bruteforce(qq, vv, t[2], t[3], k=k))(
+            t[0], t[1])
+    else:
+        mapped = torch.func.vmap(lambda qq, vv, pp, ww: tnb.knn_bruteforce(qq, vv, pp, ww, k=k))(
+            *t)
+    for a, e in zip(mapped, ref):
+        assert torch.equal(a, e)
+    for b in range(B):
+        pb, pvb = (p, pv) if shared else (p[b], pv[b])
+        want = jnb.knn_bruteforce(jnp.asarray(q[b]), jnp.asarray(qv[b]), jnp.asarray(pb),
+                                  jnp.asarray(pvb), k=k, backend="xla")
+        bad = knn_mismatch(q[b], pb, res.idx[b].numpy(), res.valid[b].numpy(),
+                           np.asarray(want.idx), np.asarray(want.dist_sq),
+                           np.asarray(want.valid))
+        assert not bad.any(), (b, int(bad.sum()))
+
+
+def test_valid_count_of_a_batch_and_under_vmap():
+    mask = torch.zeros(3, 10, dtype=torch.bool)
+    mask[0, [1, 7]] = True
+    mask[2, :] = True
+    assert tnb.valid_count(mask).tolist() == [8, 0, 10]
+    assert torch.func.vmap(tnb.valid_count)(mask).tolist() == [8, 0, 10]
+    assert tnb.valid_count(torch.zeros(2, 0, dtype=torch.bool)).tolist() == [0, 0]
+
+
+def test_counts_add_four_ops_to_a_front_end_call():
+    """The counts cost two ops per side (a product and an amax, one launch
+    each on the card) once the positions of a capacity are cached, and no
+    host read: the front end's op count rises by exactly four."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    q, qv, p, pv, _ = _problem(50, 70, seed=3)
+    t = [torch.from_numpy(x) for x in (q, qv, p, pv)]
+    tnb.valid_count(t[1]), tnb.valid_count(t[3])  # the positions of both capacities
+    with Count() as one_side:
+        tnb.valid_count(t[1])
+    assert [op.split(".")[1] for op in one_side.ops] == ["mul", "amax"]
+    with Count() as counted:
+        tnb.knn_bruteforce(*t, k=4)
+    with Count() as plain:
+        q_s = torch.where(t[1][:, None], t[0], 1.0e8).contiguous()
+        p_s = torch.where(t[3][:, None], t[2], -1.0e8).contiguous()
+        tnb._result(*tnb._sweep_op(q_s, p_s, 4, tnb.STREAM_BLOCK, None, None), 70, None)
+    assert len(counted.ops) == len(plain.ops) + 4
+    assert not any("item" in op or "_local_scalar" in op for op in counted.ops)
+
+
+def test_count_arguments_are_checked():
+    q = torch.zeros(4, 3)
+    d, i = tnb.knn_sweep(q, q, 2, torch.tensor(9, dtype=torch.int32),
+                         torch.tensor(-3, dtype=torch.int32))  # clamped to [0, rows]
+    assert torch.isinf(d).all() and (i == -1).all()
+    d, i = tnb.knn_sweep_batched(q.expand(2, 4, 3), q, 1,
+                                 torch.tensor([1, 3], dtype=torch.int32))
+    assert (i[0, 1:] == -1).all() and (i[1, :3] == 0).all() and (i[1, 3:] == -1).all()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -296,3 +558,19 @@ def test_kernel_matches_knn_plain_on_card(k):
     assert not bad.any()
     # direct (q - p)² with the same rounding: equal to the plain version
     assert torch.equal(d, d_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 5, 8])
+def test_counted_kernel_matches_counted_knn_plain_on_card(k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kNN kernel has no CPU mode")
+    rng = np.random.RandomState(k)
+    q = torch.from_numpy(rng.randint(0, 6, (777, 3)).astype(np.float32)).cuda()
+    p = torch.from_numpy(rng.randint(0, 6, (3001, 3)).astype(np.float32)).cuda()
+    for n_q, n_p in ((777, 3001), (500, 1234), (1, 1), (0, 77), (300, 0), (33, 3)):
+        counts = (torch.tensor(n_q, dtype=torch.int32, device="cuda"),
+                  torch.tensor(n_p, dtype=torch.int32, device="cuda"))
+        d, i = tnb.knn_sweep(q, p, k, *counts)
+        d_ref, i_ref = tnb.knn_plain(q, p, k, *counts)
+        assert torch.equal(d, d_ref) and torch.equal(i, i_ref), (n_q, n_p)
