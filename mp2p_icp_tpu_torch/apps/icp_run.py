@@ -4,7 +4,8 @@ Port of ``mp2p_icp_tpu/apps/icp_run.py`` (reference:
 apps/icp-run/main.cpp:226-334): load the local and global maps (.mm,
 .mm.npz, KITTI .bin, .xyz[.gz]), run each side's filter pipeline from the
 YAML config, align, print the results; optionally an initial guess, the
-align's time and an .icplog.npz record.
+align's time with the host time of each of its spans (``--profiler``, as
+the reference dumps its CTimeLogger's stats) and an .icplog.npz record.
 
 Usage:
   python -m mp2p_icp_tpu_torch.apps.icp_run \\
@@ -70,7 +71,8 @@ def main(argv=None):
     ap.add_argument("-c", "--config", required=True, help="YAML pipeline file")
     ap.add_argument("--guess", default="0 0 0 0 0 0",
                     help="initial guess: 'x y z yaw pitch roll' (radians)")
-    ap.add_argument("--profiler", action="store_true", help="print the align's time")
+    ap.add_argument("--profiler", action="store_true",
+                    help="print the align's time and its spans' host times")
     ap.add_argument("--out-log", default=None, help="save an .icplog.npz record of the run")
     ap.add_argument("--record-iterations", action="store_true",
                     help="store per-iteration poses in the log")
@@ -96,6 +98,7 @@ def main(argv=None):
     from mp2p_icp_tpu_torch.filters import apply_filter_pipeline
     from mp2p_icp_tpu_torch.icp import IterTermReason
     from mp2p_icp_tpu_torch.pipeline import load_icp_config_file
+    from mp2p_icp_tpu_torch.utils import Profiler
 
     with on_device(args.device) as device:
         icp, params, sections = load_icp_config_file(args.config)
@@ -115,8 +118,10 @@ def main(argv=None):
                 apply_filter_pipeline(pipe, mm)
 
         guess = se3.from_xyz_ypr(*[float(x) for x in args.guess.split()], device=device)
+        prof = Profiler(enabled=args.profiler)
         t0 = time.perf_counter()
-        res = icp.align(local_mm, global_mm, guess, params)
+        with prof.installed():
+            res = icp.align(local_mm, global_mm, guess, params)
         t = res.optimal_tf.t.cpu().numpy()  # the fetch waits for the align
         dt = time.perf_counter() - t0
         q = se3.rot_to_quat(res.optimal_tf.R).cpu().numpy()
@@ -129,6 +134,8 @@ def main(argv=None):
         print(f"  pairings    : {int(res.final_pairings.size())}")
         if args.profiler:
             print(f"  align time  : {dt * 1e3:.1f} ms (host clock, on {device})")
+            print("spans (host clock; a span measures the launches it issues, not the work):")
+            print(prof.report())
         if args.out_log:
             from mp2p_icp_tpu_torch.io.icplog import save_log
 

@@ -35,6 +35,7 @@ from mp2p_icp_tpu_torch.ops.voxel_unique import (
     segment_sums_in_order,
     voxel_segments,
 )
+from mp2p_icp_tpu_torch.utils.profiler import spanned
 
 
 class DecimateMethod(enum.Enum):
@@ -68,6 +69,7 @@ class FilterDecimateVoxels(FilterBase):
     # insertion order, FilterDecimateVoxels.cpp:244-270)
     backend: str = "sort"
 
+    @spanned("filters.decimate")
     def __call__(self, layers: Dict[str, PointCloud], variables=None):
         if self.backend == "hash":
             return self._call_hash(layers)

@@ -29,6 +29,7 @@ import torch
 from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.filters.base import FilterBase
+from mp2p_icp_tpu_torch.utils.profiler import spanned
 
 _TWIST_NAMES = ("vx", "vy", "vz", "wx", "wy", "wz")
 
@@ -48,6 +49,7 @@ class FilterDeskew(FilterBase):
     use_precise_local_velocities: bool = False
     method: str = "constant_twist"  # or "trajectory"
 
+    @spanned("filters.deskew")
     def __call__(self, layers: Dict[str, PointCloud], variables=None):
         pc = layers[self.input_pointcloud_layer]
         if pc.time is None:

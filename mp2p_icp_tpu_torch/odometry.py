@@ -71,6 +71,7 @@ from mp2p_icp_tpu_torch.ops.voxel_hash_map import empty_voxel_hash_map, hash_map
 from mp2p_icp_tpu_torch.parallel.batch import _align_batched, crop_batched, stack_pytrees
 from mp2p_icp_tpu_torch.parallel.mesh import all_gather
 from mp2p_icp_tpu_torch.parallel.spatial import spatial_icp
+from mp2p_icp_tpu_torch.utils.profiler import profile_scope, spanned
 
 _TWIST_NAMES = ("vx", "vy", "vz", "wx", "wy", "wz")
 
@@ -173,6 +174,7 @@ class OdometryMapper:
         )
 
     # ------------------------------------------------------------------
+    @spanned("odometry.step")  # the frame's root span
     def _step(self, map_state, raw_layers, prev_pose, rel_prev, twist,
               twist_prev, do_merge: bool, dt: Optional[float]):
         """One frame -> (new_map_state, ICPResults, rel_new). map_state is
@@ -312,15 +314,20 @@ class OdometryMapper:
             )
             abs_pose = res.optimal_tf
             Rs[i - 1], ts[i - 1], qs[i - 1] = abs_pose.R, abs_pose.t, res.quality
-            its[i - 1] = res.n_iterations
+            with profile_scope("sync.drive_iterations"):
+                # one stream's count is a host int: a copy to the card, which syncs
+                its[i - 1] = res.n_iterations
             counts[i - 1] = self._map_pc(map_state).count
             if progress_every and i % progress_every == 0:
-                float(abs_pose.t.reshape(-1)[0])  # waits for the frame's map update
+                first = abs_pose.t.reshape(-1)[0]
+                with profile_scope("sync.progress"):
+                    float(first)  # waits for the frame's map update
             frame_s.append(time.perf_counter() - t_frame)
         # the fetch, enqueued last, bounds every enqueued step
-        out = {"R": Rs.cpu().numpy(), "t": ts.cpu().numpy(),
-               "qualities": qs.cpu().numpy(), "iterations": its.cpu().numpy(),
-               "map_counts": counts.cpu().numpy()}
+        with profile_scope("sync.drive_fetch"):
+            out = {"R": Rs.cpu().numpy(), "t": ts.cpu().numpy(),
+                   "qualities": qs.cpu().numpy(), "iterations": its.cpu().numpy(),
+                   "map_counts": counts.cpu().numpy()}
         out.update(elapsed=time.perf_counter() - t0, map_state=map_state,
                    frame_seconds=np.asarray(frame_s, np.float64))
         return out
@@ -329,12 +336,14 @@ class OdometryMapper:
         """The per-frame twists as one [n, 6] tensor on the device."""
         if twists is None:
             return None
-        return torch.as_tensor(np.asarray(twists, np.float32), device=device)
+        with profile_scope("sync.twist_table"):
+            return torch.as_tensor(np.asarray(twists, np.float32), device=device)
 
     def _results(self, drive: Dict, pose0: Pose) -> Dict:
         n = len(drive["R"]) + 1
         mats = np.tile(np.eye(4, dtype=np.float64), (n, 1, 1))
-        mats[0, :3, :3], mats[0, :3, 3] = pose0.R.cpu().numpy(), pose0.t.cpu().numpy()
+        with profile_scope("sync.results"):
+            mats[0, :3, :3], mats[0, :3, 3] = pose0.R.cpu().numpy(), pose0.t.cpu().numpy()
         mats[1:, :3, :3], mats[1:, :3, 3] = drive["R"], drive["t"]
         return {
             "poses": mats,
@@ -442,7 +451,9 @@ class BatchedOdometryMapper:
         poses0 = initial_poses or [se3.identity(device=device) for _ in range(B)]
         tw = None
         if twists is not None:
-            tw = torch.as_tensor(np.asarray(twists, np.float32), device=device).transpose(0, 1)
+            with profile_scope("sync.twist_table"):
+                tw = torch.as_tensor(np.asarray(twists, np.float32), device=device)
+            tw = tw.transpose(0, 1)
         maps = stack_pytrees([
             m.seed_map(streams[b][0], poses0[b], None if tw is None else tw[0, b])
             for b in range(B)])
@@ -453,7 +464,8 @@ class BatchedOdometryMapper:
         m = self.mapper
         steps, B = drive["t"].shape[:2]
         mats = np.tile(np.eye(4, dtype=np.float64), (B, steps + 1, 1, 1))
-        mats[:, 0, :3, :3], mats[:, 0, :3, 3] = pose0.R.cpu().numpy(), pose0.t.cpu().numpy()
+        with profile_scope("sync.results"):
+            mats[:, 0, :3, :3], mats[:, 0, :3, 3] = pose0.R.cpu().numpy(), pose0.t.cpu().numpy()
         mats[:, 1:, :3, :3] = drive["R"].transpose(1, 0, 2, 3)
         mats[:, 1:, :3, 3] = drive["t"].transpose(1, 0, 2)
         return {
@@ -541,6 +553,7 @@ class SpatialOdometryMapper:
     def _owned(self, xyz: torch.Tensor) -> torch.Tensor:
         return voxel_owner(xyz, self.ownership_resolution, self._axis.size) == self._axis.rank
 
+    @spanned("odometry.step")
     def _step(self, map_state, raw_layers, prev_pose, rel_prev, twist, twist_prev,
               do_merge: bool, dt: Optional[float]):
         """One frame on this rank's shard -> (new shard state, ICPResults,

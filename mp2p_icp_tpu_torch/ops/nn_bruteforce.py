@@ -57,6 +57,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from mp2p_icp_tpu_torch.ops import cuda_build
+from mp2p_icp_tpu_torch.utils import profiler
+from mp2p_icp_tpu_torch.utils.profiler import profile_scope, spanned
 
 _BIG = 3.0e37
 _FAR = 1.0e8
@@ -238,6 +240,16 @@ def _count_arg(name, count, entries, device):
     if count.numel() not in (1, entries):
         raise ValueError(f"{name} has {count.numel()} entries, want 1 or {entries}")
     return count.reshape(-1).expand(entries).contiguous()
+
+
+def _count_rows(k, B, q, p, q_count, p_count, shared):
+    """The trace's ``knn.rows`` counter of one sweep of B problems: k, B,
+    the query and point rows each problem sweeps (its count tensor, left
+    unread on the device, or the capacity where it takes none) and whether
+    one map is shared by all problems. The front end's ``knn.query`` span
+    around it is paired with it by order."""
+    profiler.count("knn.rows", k, B, q.shape[-2] if q_count is None else q_count,
+                   p.shape[-2] if p_count is None else p_count, shared)
 
 
 _POSITIONS: dict = {}  # (C, device) -> int32 [1, ..., C], for valid_count
@@ -423,6 +435,7 @@ def knn_sweep(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None, p_count=No
     (and raise if it cannot be built or launched — there is no fallback).
     ``knn_sweep.launches`` counts kernel launches (a sweep and the merge of
     its slices count as one)."""
+    _count_rows(k, 1, q, p, q_count, p_count, False)
     if _check(k, q=(q, (2,)), p=(p, (2,))) == "cpu":
         return knn_plain(q, p, k, q_count, p_count)
     out_d, out_i, launched = _launch_split(
@@ -443,7 +456,8 @@ def knn_sweep_streamed(q: torch.Tensor, p: torch.Tensor, k: int,
     tensors the point axis is split across blocks and the partial lists are
     k-merged; CPU tensors run ``knn_plain_streamed`` with superblocks of
     ``stream_block`` points. Same result as ``knn_sweep``; it takes no
-    counts yet and sweeps the whole map.
+    counts yet and sweeps the whole map (the front end's ``_sweep_op``
+    keeps the counts it was handed in the trace's ``knn.rows`` counter).
     ``knn_sweep_streamed.launches`` counts kernel launches (the slice sweep
     and its merge count as one)."""
     if _check(k, q=(q, (2,)), p=(p, (2,))) == "cpu":
@@ -474,6 +488,7 @@ def knn_sweep_batched(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None,
     B = q.shape[0] if q.ndim == 3 else p.shape[0]
     if q.ndim == 3 and p.ndim == 3 and p.shape[0] != B:
         raise ValueError(f"batch sizes differ: q {q.shape[0]}, p {p.shape[0]}")
+    _count_rows(k, B, q, p, q_count, p_count, q.ndim == 3 and p.ndim == 2)
     if _check(k, q=(q, (2, 3)), p=(p, (2, 3))) == "cpu":
         return knn_plain_batched(q, p, k, q_count, p_count)
     if B > _MAX_GRID:
@@ -498,6 +513,7 @@ def _sweep_op(q: torch.Tensor, p: torch.Tensor, k: int, stream_block: int,
               q_count: Optional[torch.Tensor],
               p_count: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     if p.shape[0] > stream_block:
+        _count_rows(k, 1, q, p, q_count, p_count, False)  # K3 takes no counts yet
         return knn_sweep_streamed(q, p, k, stream_block)
     return knn_sweep(q, p, k, q_count, p_count)
 
@@ -562,14 +578,15 @@ def knn_bruteforce(
     if spatial_axis is not None:
         return knn_sharded(queries, query_valid, points, point_valid, spatial_axis, k,
                            max_radius_sq, stream_block, point_payload)
-    q = torch.where(query_valid[:, None], queries, _FAR).contiguous()
-    p = torch.where(point_valid[:, None], points, -_FAR).contiguous()
-    d2, idx = _sweep_op(q, p, k, stream_block, valid_count(query_valid),
-                        valid_count(point_valid))
-    r = max_radius_sq  # a number, or a tensor on d2's device
-    if isinstance(r, torch.Tensor) and r.ndim == 1:
-        r = r[:, None]
-    return _result(d2, idx, points.shape[0], r)
+    with profile_scope("knn.query"):
+        q = torch.where(query_valid[:, None], queries, _FAR).contiguous()
+        p = torch.where(point_valid[:, None], points, -_FAR).contiguous()
+        d2, idx = _sweep_op(q, p, k, stream_block, valid_count(query_valid),
+                            valid_count(point_valid))
+        r = max_radius_sq  # a number, or a tensor on d2's device
+        if isinstance(r, torch.Tensor) and r.ndim == 1:
+            r = r[:, None]
+        return _result(d2, idx, points.shape[0], r)
 
 
 def knn_sharded(queries, query_valid, points, point_valid, axis, k: int = 1,
@@ -650,6 +667,7 @@ class _SpaceGather(torch.autograd.Function):
         return _SpaceGather.apply(vals, ids, axis), (1, 1)
 
 
+@spanned("knn.query")
 def knn_bruteforce_batched(
     queries: torch.Tensor,
     query_valid: torch.Tensor,

@@ -24,8 +24,10 @@ import torch
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud, take_rows
 from mp2p_icp_tpu_torch.ops.eigen import estimate_points_eigen
 from mp2p_icp_tpu_torch.ops.nn_bruteforce import knn_bruteforce, knn_bruteforce_batched
+from mp2p_icp_tpu_torch.utils.profiler import spanned
 
 
+@spanned("normals.fit")
 def estimate_point_normals(
     pc: PointCloud,
     knn: int = 8,

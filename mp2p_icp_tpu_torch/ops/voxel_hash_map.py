@@ -34,6 +34,7 @@ import torch.utils._pytree as pytree
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud, scatter_rows
 from mp2p_icp_tpu_torch.device import resolve
 from mp2p_icp_tpu_torch.ops.voxel_unique import SENTINEL, key_words, voxel_cells
+from mp2p_icp_tpu_torch.utils.profiler import profile_scope, spanned
 
 _HX = 73856093
 _HY = 19349663
@@ -130,6 +131,7 @@ def voxel_keys(xyz: torch.Tensor, valid: torch.Tensor, resolution):
     return k1.to(torch.int32), k2.to(torch.int32), h.to(torch.int32)
 
 
+@spanned("map.insert")
 def hash_map_insert(
     state: VoxelHashMapState,
     new: PointCloud,
@@ -199,8 +201,11 @@ def _insert_batched(state, new, resolution, valid, max_probe):
     exhausted_n = torch.zeros(B, dtype=torch.int32, device=dev)
     for rounds in range(4 * max_probe):
         # one read for the whole batch
-        if rounds >= ROUNDS_BEFORE_CHECK and not bool(pending.any()):
-            break
+        if rounds >= ROUNDS_BEFORE_CHECK:
+            any_pending = pending.any()
+            with profile_scope("sync.map_probe"):
+                if not bool(any_pending):
+                    break
         slot = (slot0 + probe) & smask
         flat = base + slot
         g1 = tk1[flat]

@@ -51,6 +51,7 @@ from mp2p_icp_tpu_torch.icp import (
 )
 from mp2p_icp_tpu_torch.matchers.base import point_layers
 from mp2p_icp_tpu_torch.parallel.spatial import spatial_icp
+from mp2p_icp_tpu_torch.utils.profiler import profile_scope
 
 _RUNNING = int(IterTermReason.UNDEFINED)
 
@@ -170,46 +171,55 @@ def _align_batched(icp: ICP, params: ICPParameters, l_layers: Dict[str, PointClo
     records = [] if params.record_iterations else None
 
     for iteration in range(params.max_iterations):
-        m_active = [m.gate(iteration) > 0 for m in icp.matchers]
-        s_active = [s.gate(iteration) for s in icp.solvers]
+        with profile_scope("icp.iter"):
+            m_active = [m.gate(iteration) > 0 for m in icp.matchers]
+            s_active = [s.gate(iteration) for s in icp.solvers]
 
-        def step(g, l, p, prev, maps, fin):
-            return icp._step(params, None, iteration, m_active, s_active, fin,
-                             g, l, p, prev, maps)
+            def step(g, l, p, prev, maps, fin):
+                return icp._step(params, None, iteration, m_active, s_active, fin,
+                                 g, l, p, prev, maps)
 
-        new_pairs, new_pose, no_pairs, solver_ok, stalled, new_fin = vmap(
-            step, in_dims=(g_dim, 0, 0, 0, 0, 0))(g_layers, l_layers, pose, prev_pose,
-                                                  gidx_maps, finished)
-        prev_pose, pose = _where(running, pose, prev_pose), _where(running, new_pose, pose)
-        pairings = _where(running, new_pairs, pairings)
-        finished = _where(running, new_fin, finished)
-        n_iter = n_iter + running.to(torch.int32)
-        step_reason = torch.where(
-            no_pairs, int(IterTermReason.NO_PAIRINGS),
-            torch.where(~solver_ok, int(IterTermReason.SOLVER_ERROR),
-                        torch.where(stalled, int(IterTermReason.STALLED), _RUNNING)),
-        ).to(torch.int32)
-        if params.iteration_hook is not None:
-            stop = vmap(lambda R, t, n: torch.as_tensor(
-                params.iteration_hook(iteration, R, t, n), dtype=torch.bool, device=device))(
-                    new_pose.R, new_pose.t, vmap(lambda pr: pr.size())(new_pairs))
-            step_reason = torch.where((step_reason == _RUNNING) & stop,
-                                      int(IterTermReason.HOOK_REQUEST), step_reason)
-        reason = torch.where(running, step_reason, reason).to(torch.int32)
-        if iteration + 1 in checkpoints:
-            q = vmap(lambda pr, g, l, p: icp._quality_stack(pr, g, l, p, iteration + 1),
-                     in_dims=(0, g_dim, 0, 0))(pairings, g_layers, l_layers, pose)
-            fail = (reason == _RUNNING) & (q < checkpoints[iteration + 1])
-            reason = torch.where(
-                fail, int(IterTermReason.QUALITY_CHECKPOINT_FAILED), reason
-            ).to(torch.int32)
-        if records is not None:
-            records.append((pose, vmap(lambda pr: pr.size())(pairings),
-                            vmap(lambda pr: pr.decimated(params.record_pairings_capacity))(
-                                pairings) if params.record_pairings else None))
-        running = reason == _RUNNING
-        if not bool(running.any()):  # the iteration's one host sync
-            break
+            new_pairs, new_pose, no_pairs, solver_ok, stalled, new_fin = vmap(
+                step, in_dims=(g_dim, 0, 0, 0, 0, 0))(g_layers, l_layers, pose, prev_pose,
+                                                      gidx_maps, finished)
+            # each problem's own stop, after ICP._step's flags
+            with profile_scope("icp.terminate"):
+                prev_pose, pose = (_where(running, pose, prev_pose),
+                                   _where(running, new_pose, pose))
+                pairings = _where(running, new_pairs, pairings)
+                finished = _where(running, new_fin, finished)
+                n_iter = n_iter + running.to(torch.int32)
+                step_reason = torch.where(
+                    no_pairs, int(IterTermReason.NO_PAIRINGS),
+                    torch.where(~solver_ok, int(IterTermReason.SOLVER_ERROR),
+                                torch.where(stalled, int(IterTermReason.STALLED), _RUNNING)),
+                ).to(torch.int32)
+                if params.iteration_hook is not None:
+                    stop = vmap(lambda R, t, n: torch.as_tensor(
+                        params.iteration_hook(iteration, R, t, n), dtype=torch.bool,
+                        device=device))(
+                            new_pose.R, new_pose.t, vmap(lambda pr: pr.size())(new_pairs))
+                    step_reason = torch.where((step_reason == _RUNNING) & stop,
+                                              int(IterTermReason.HOOK_REQUEST), step_reason)
+                reason = torch.where(running, step_reason, reason).to(torch.int32)
+            if iteration + 1 in checkpoints:
+                with profile_scope("icp.quality"):
+                    q = vmap(lambda pr, g, l, p: icp._quality_stack(pr, g, l, p, iteration + 1),
+                             in_dims=(0, g_dim, 0, 0))(pairings, g_layers, l_layers, pose)
+                    fail = (reason == _RUNNING) & (q < checkpoints[iteration + 1])
+                    reason = torch.where(
+                        fail, int(IterTermReason.QUALITY_CHECKPOINT_FAILED), reason
+                    ).to(torch.int32)
+            if records is not None:
+                records.append((pose, vmap(lambda pr: pr.size())(pairings),
+                                vmap(lambda pr: pr.decimated(params.record_pairings_capacity))(
+                                    pairings) if params.record_pairings else None))
+            running = reason == _RUNNING
+            any_running = running.any()
+            with profile_scope("sync.batch_running"):  # the iteration's one host sync
+                any_running = bool(any_running)
+            if not any_running:
+                break
 
     reason = torch.where(running, int(IterTermReason.MAX_ITERATIONS), reason).to(torch.int32)
     recorded = {}
@@ -219,16 +229,17 @@ def _align_batched(icp: ICP, params: ICPParameters, l_layers: Dict[str, PointClo
         # the loop ends
         records += [records[-1]] * (params.max_iterations - len(records))
         recorded = pytree.tree_map(lambda x: x.movedim(0, 1), stack_records(records))
-    # each problem's quality at its own final iteration (JAX icp.py:762-765)
-    quality = vmap(icp._quality_stack, in_dims=(0, g_dim, 0, 0, 0))(
-        pairings, g_layers, l_layers, pose, n_iter)
-    return ICPResults(
-        optimal_tf=pose,
-        optimal_scale=vmap(icp._optimal_scale)(pairings, pose),
-        n_iterations=n_iter,
-        termination_reason=reason,
-        quality=quality,
-        final_pairings=pairings,
-        covariance=vmap(compute_covariance)(pairings, pose),
-        **recorded,
-    )
+    with profile_scope("icp.results"):
+        # each problem's quality at its own final iteration (JAX icp.py:762-765)
+        quality = vmap(icp._quality_stack, in_dims=(0, g_dim, 0, 0, 0))(
+            pairings, g_layers, l_layers, pose, n_iter)
+        return ICPResults(
+            optimal_tf=pose,
+            optimal_scale=vmap(icp._optimal_scale)(pairings, pose),
+            n_iterations=n_iter,
+            termination_reason=reason,
+            quality=quality,
+            final_pairings=pairings,
+            covariance=vmap(compute_covariance)(pairings, pose),
+            **recorded,
+        )

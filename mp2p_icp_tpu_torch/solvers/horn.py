@@ -24,6 +24,7 @@ from mp2p_icp_tpu_torch.solvers.common import (
     build_vector_pairs,
     translation_from_centroids,
 )
+from mp2p_icp_tpu_torch.utils.profiler import profile_scope
 
 
 def _horn_n_matrix(S: torch.Tensor) -> torch.Tensor:
@@ -47,7 +48,8 @@ def max_eigvec_4x4(N: torch.Tensor, iters: int = 30) -> torch.Tensor:
     symmetry-breaking ramp; canonical sign q_w >= 0."""
     shift = torch.max(torch.sum(torch.abs(N), dim=1))
     A = N + shift * torch.eye(4, dtype=N.dtype, device=N.device)
-    v = torch.tensor([1.0, 1e-3, 2e-3, 3e-3], dtype=N.dtype, device=N.device)
+    with profile_scope("sync.horn_start"):  # a copy from the host, which syncs
+        v = torch.tensor([1.0, 1e-3, 2e-3, 3e-3], dtype=N.dtype, device=N.device)
     v = v / torch.linalg.vector_norm(v)
     for _ in range(iters):
         v = A @ v

@@ -88,6 +88,21 @@ def test_icp_run_matches_jax(inputs, fmt):
     assert sorted(log["local"]) == sorted(jlog["local"]) == ["decimated", "raw"]
 
 
+def test_icp_run_profiler_reports_the_aligns_spans(inputs):
+    """--profiler prints the installed Profiler's report of the align's
+    spans (the reference's CTimeLogger dump): one icp.iter a iteration."""
+    files = inputs["files"]
+    text = _printed(icp_run.main, ["--input-local", files["xyz1"], "--input-global",
+                                   files["xyz0"], "-c", KITTI, "--profiler"])
+    got = cs.icp_run_printed(text)
+    rows = {line.split()[0]: line.split()[1:] for line in text.splitlines()[1:]
+            if line.split() and line.split()[0].startswith("icp.")}
+    assert {"icp.align", "icp.iter", "icp.match", "icp.solve"} <= set(rows)
+    assert int(rows["icp.align"][0]) == 1
+    assert int(rows["icp.iter"][0]) == int(rows["icp.match"][0]) == got["iterations"]
+    assert "align time" in text
+
+
 def test_icp_run_filter_sections_and_debug_log(inputs, tmp_path, monkeypatch):
     """A separate filters file for the local side, the global side's
     section by name, and -d: the same printed results as JAX's, and the
