@@ -91,6 +91,7 @@ from mp2p_icp_tpu_torch.odometry import BatchedOdometryMapper, OdometryMapper
 from mp2p_icp_tpu_torch.ops import cuda_build
 from mp2p_icp_tpu_torch.ops import nn_bruteforce as nnb
 from mp2p_icp_tpu_torch.parallel import make_batched_align, stack_pytrees
+from mp2p_icp_tpu_torch.parallel.ranks import COUNTED  # the kernels whose launches the run counts
 from mp2p_icp_tpu_torch.solvers.gauss_newton import GNParams
 from mp2p_icp_tpu_torch.solvers.robust import RobustKernel
 from mp2p_icp_tpu_torch.solvers.solver import SolverGaussNewton, SolverHorn
@@ -103,8 +104,6 @@ ODO_DT = 0.1
 ERR_LIMIT = 0.1  # an SE(3) error at or above it is a diverged align
 ATE_LIMIT = 0.5  # m: an odometry ATE at or above it is a diverged run
 METRIC = "kitti_style_scan2scan_registrations_per_s_per_chip"
-# the sweeps whose launches the run counts (ops/nn_bruteforce.py)
-SWEEPS = ("knn_sweep", "knn_sweep_streamed", "knn_sweep_batched")
 
 
 # --------------------------------------------------------------- workloads
@@ -638,8 +637,8 @@ def bench(sz, device):
     else:
         name, limit = host_cpu(), None
     log(f"[bench] host CPU (the C++ baselines): {host_cpu()}")
-    for sweep in SWEEPS:
-        getattr(nnb, sweep).launches = 0
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
     with tempfile.TemporaryDirectory(prefix="mp2p_bench_") as tmp:
         cpp = NativeBaselines(tmp)
         s = scan_to_scan(sz, device, cpp)
@@ -648,7 +647,7 @@ def bench(sz, device):
         stage = stage_profile(sz, device, s) if profile else {}
         m = scan_to_map(sz, device, cpp)
         odo = odometry(sz, device, cpp)
-    log(f"[bench] launches {json.dumps({name: getattr(nnb, name).launches for name in SWEEPS})}")
+    log(f"[bench] launches {json.dumps({name: w.launches for name, w in COUNTED.items()})}")
     c, cm, c16 = s["cpp"], m["cpp"], m["cpp_16m"]
     cpp_speed = float(c["aligns_per_s"]) if c else None
     best = max(s["scans_per_s"], batched)

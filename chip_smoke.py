@@ -6,9 +6,10 @@
 Phases (each prints its lines; any failure raises and exits non-zero):
 
 1. name the card (nvidia-smi name and power limit); no CUDA -> fail;
-2. build the three CUDA kernels from mp2p_icp_tpu_torch/csrc, one nvcc
-   each, all at once; print the registers, spills and shared memory of
-   the k = 1 and k = 8 instantiations;
+2. build the CUDA kernels from mp2p_icp_tpu_torch/csrc (the three kNN
+   sweeps and the Gauss-Newton solve), one nvcc each, all at once; print
+   the registers, spills and shared memory of the k = 1 and k = 8
+   instantiations;
 3. hold each kNN kernel against its plain PyTorch version on the card, bit
    for bit (max |d2 - d2_plain| must be 0): K1 on two 8192-point street
    scans for k=1 and k=8, a ragged 777x3001 case with invalid rows for k=4
@@ -48,6 +49,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    calls and as the time of one call between CUDA events (which includes
    the host's part of the call), taken in turns, beside its bound, its
    plain version and the library call (torch.cdist + topk);
+   then the Gauss-Newton kernel (csrc/gn_solve.cu) at the cells' shapes, 1 x
+   6144 pt2pl, 1 x 8192 pt2pt and 8 x 6144 pt2pl (one vmapped launch): each
+   pose within 1 float32 ulp of the plain float64 path's, its time in a
+   CUDA graph of 20 calls and alone, beside its bounds (the card's, one
+   SM's) and the plain path's time ([gn] lines);
 4. the scan-to-scan path: ICP.align with the KITTI configuration on the
    bench street pair at 8192 points, then 8 further pairs served one after
    another; each SE(3) error must be < 0.1 and K1's launch count must equal
@@ -243,8 +249,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    engine cell and the sections of a 3D engine align with a sync around
    each; the profiler's tables go to chiprun_out/profile_tables.txt;
 18. one JSON line with the kernels' numbers (each shape's time, bound,
-   plain version and library call, torch.cdist + topk in a CUDA graph),
-   then the last line {"ok": true, "device": {...}}.
+   plain version and library call, torch.cdist + topk in a CUDA graph;
+   for gn_solve, which replaces no TPU kernel, the [gn] rows, its largest
+   |pose - plain pose| and no library call) and their launches by path
+   (every path zeroes the counts just before its run and reads them just
+   after), then the last line {"ok": true, "device": {...}}.
 
 The workloads and configurations (kitti_icp, street_pair, corridor_scene,
 local_window, sensor_scan, map_icp, odometry_mapper, odometry_frames) are
@@ -310,6 +319,7 @@ from mp2p_icp_tpu_torch.core.metric_map import VoxelGridLayer
 from mp2p_icp_tpu_torch.core.pairings import Pairings
 from mp2p_icp_tpu_torch.core.params import Expression
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
+from mp2p_icp_tpu_torch.eval.gn_problem import gn_problem
 from mp2p_icp_tpu_torch.eval.lidar_sim import (
     make_scene,
     make_street_scene,
@@ -337,19 +347,21 @@ from mp2p_icp_tpu_torch.ops import nn_bruteforce as nnb
 from mp2p_icp_tpu_torch.ops.voxel_hash_map import hash_map_insert
 from mp2p_icp_tpu_torch.ops.voxel_occupancy import update_voxel_map
 from mp2p_icp_tpu_torch.parallel import make_batched_align, stack_pytrees
+from mp2p_icp_tpu_torch.parallel.ranks import COUNTED  # kernel -> the wrapper counting it
 from mp2p_icp_tpu_torch.parity import knn_mismatch
 from mp2p_icp_tpu_torch.quality import (
     QualityPairedRatio,
     QualityRangeImageSimilarity,
     QualityVoxels,
 )
+from mp2p_icp_tpu_torch.solvers import gauss_newton, solver
 from mp2p_icp_tpu_torch.solvers.gauss_newton import GNParams
 from mp2p_icp_tpu_torch.solvers.robust import RobustKernel
 from mp2p_icp_tpu_torch.solvers.solver import SolverGaussNewton, SolverHorn, SolverOLAE
 
 N_REQUESTS = 8
 ERR_LIMIT = 0.1  # the reference's end-to-end bound on ||log(gt^-1 T)||
-# sweep -> (source, the TPU kernel it replaces)
+# kernel -> (source, the TPU kernel it replaces; None: one of the port's own)
 KERNELS = {
     "knn_sweep": ("mp2p_icp_tpu_torch/csrc/knn_bruteforce.cu",
                   "mp2p_icp_tpu/ops/nn_bruteforce.py:154"),  # _nnk_kernel_gridless
@@ -357,9 +369,12 @@ KERNELS = {
                            "mp2p_icp_tpu/ops/nn_bruteforce.py:509"),  # _nnk_kernel_streamed_dbuf
     "knn_sweep_batched": ("mp2p_icp_tpu_torch/csrc/knn_batched.cu",
                           "mp2p_icp_tpu/ops/nn_bruteforce.py:214"),  # _nnk_kernel_gridless_batched
+    # the JAX package solves Gauss-Newton with XLA's ops, not with a kernel
+    "gn_solve": ("mp2p_icp_tpu_torch/csrc/gn_solve.cu", None),
 }
+KNN = ("knn_sweep", "knn_sweep_streamed", "knn_sweep_batched")  # the sweeps among them
 LIBRARY = {"knn_sweep": "knn_bruteforce", "knn_sweep_streamed": "knn_streamed",
-           "knn_sweep_batched": "knn_batched"}
+           "knn_sweep_batched": "knn_batched", "gn_solve": "gn_solve"}
 # the scan-to-map problem of bench.py:367-408 and the JAX package's result
 # for it on the CPU (SE(3) error, iterations, termination)
 MAP_CASES = (("1M", 1 << 20, 1 << 16, (0.00133, 30, "STALLED")),
@@ -1446,11 +1461,26 @@ def planar_range_pairs(n_rays=PLANAR_RAYS, n_pairs=PLANAR_PAIRS):
 
 def reset_counts():
     for name in KERNELS:
-        getattr(nnb, name).launches = 0
+        COUNTED[name].launches = 0
 
 
 def counts():
-    return {name: getattr(nnb, name).launches for name in KERNELS}
+    return {name: COUNTED[name].launches for name in KERNELS}
+
+
+def knn_launches(n):
+    """The kNN sweeps' launches in a ``counts()`` dict."""
+    return sum(n[name] for name in KNN)
+
+
+def count_gn(launches, by_path, n, label):
+    """Adds the Gauss-Newton kernel's launches of one path's counted window
+    (``n``: its ``counts()``, or one per rank) to ``launches`` and
+    ``by_path``. 0 where the path's solves took the plain path: a robust
+    kernel, a prior, or pt2ln / ln2ln / pl2pl pairs."""
+    per = [r["gn_solve"] for r in n] if isinstance(n, list) else n["gn_solve"]
+    launches["gn_solve"] += sum(per) if isinstance(per, list) else per
+    by_path["gn_solve"][label] = per
 
 
 def matcher_calls(icp, n_iterations):
@@ -1567,6 +1597,96 @@ def kernel_row(name, label, B, Q, C, k, run, plain, lq, lp, g_times, smi, plain_
           f"{row['library_ms']:.4f} ms "
           f"{'over query slabs of 8192 rows' if slabs else 'in a CUDA graph'} on {smi}")
     return row
+
+
+# the Gauss-Newton kernel (csrc/gn_solve.cu) at the cells' shapes: (label,
+# problems, pt2pt rows, pt2pl rows)
+GN_SHAPES = (("stream: 1 x 6144 pt2pl", 1, 0, 6144),
+             ("scan: 1 x 8192 pt2pt", 1, 8192, 0),
+             ("fleet: 8 x 6144 pt2pl", 8, 0, 6144))
+GN_FLOPS = {"pt2pt": 90, "pt2pl": 115}  # float64 operations a row an inner step (gn_solve.cu)
+GN_BYTES = {"pt2pt": 28, "pt2pl": 40}  # float32 bytes a row
+FP64_TFLOPS = 34.0  # H100 SXM, float64 outside the tensor cores
+HBM_TBS = 3.35
+N_SMS = 132
+
+
+def gn_bounds_us(B, n_pt, n_pl, iterations):
+    """The fused solve's bounds in us: (the card's: float64 operations over
+    its peak, or each input byte read once over its bandwidth, whichever is
+    larger; "operations" or "bytes", the one that sets it; one SM's: the
+    operations of one problem over 1/132 of the peak, a problem being one
+    block)."""
+    flops = iterations * (n_pt * GN_FLOPS["pt2pt"] + n_pl * GN_FLOPS["pt2pl"])
+    bytes_ = B * (n_pt * GN_BYTES["pt2pt"] + n_pl * GN_BYTES["pt2pl"])
+    ops_us, bytes_us = B * flops / (FP64_TFLOPS * 1e6), bytes_ / (HBM_TBS * 1e6)
+    return (max(ops_us, bytes_us), "operations" if ops_us >= bytes_us else "bytes",
+            flops / (FP64_TFLOPS * 1e6 / N_SMS))
+
+
+def gn_phase(smi):
+    """The Gauss-Newton kernel at the cells' shapes: its build, each
+    problem's pose against the plain float64 path's (within 1 float32 ulp:
+    the two sum in different orders), then its device time per call in a
+    CUDA graph of 20 calls, one call between CUDA events, its bounds and
+    the plain path's time (one call between events: ~400 small kernels an
+    inner iteration, issued from Python). The problems are
+    ``eval.gn_problem``'s, seeds 170 on. Returns (rows, the largest |pose
+    - plain pose| of each shape)."""
+    cuda_build.load_library("gn_solve")
+    rec = cuda_build.build_record("gn_solve")
+    for line in rec["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[gn] build: {line.strip().removeprefix('ptxas info    : ')}")
+    params = GNParams(max_iterations=3)
+    rows, errs, seed = [], [], 170
+    for label, B, n_pt, n_pl in GN_SHAPES:
+        problems = [gn_problem(seed + b, n_pt, n_pl, device="cuda") for b in range(B)]
+        seed += B
+        if B == 1:
+            (pairings, guess), = problems
+
+            def fused():
+                return gauss_newton.gn_solve_fused(pairings, guess, params)
+
+            def plain():
+                return solver.solve_in_f64(
+                    lambda p, g, pr: gauss_newton.optimal_tf_gauss_newton(p, g, params, pr),
+                    pairings, guess)
+        else:
+            P = stack_pytrees([p for p, _ in problems])
+            G = stack_pytrees([g for _, g in problems])
+
+            def fused():
+                return torch.func.vmap(
+                    lambda p, g: gauss_newton.gn_solve_fused(p, g, params))(P, G)
+
+            def plain():
+                return torch.func.vmap(lambda p, g: solver.solve_in_f64(
+                    lambda p2, g2, pr: gauss_newton.optimal_tf_gauss_newton(p2, g2, params, pr),
+                    p, g))(P, G)
+        got, want = fused(), plain()
+        torch.cuda.synchronize()
+        ulps = max(int(ulps_apart(got.R.cpu(), want.R.cpu()).max()),
+                   int(ulps_apart(got.t.cpu(), want.t.cpu()).max()))
+        errs.append(max(float((got.R - want.R).abs().max()), float((got.t - want.t).abs().max())))
+        check(ulps <= 1, f"gn {label}: kernel within 1 float32 ulp of the plain path ({ulps})")
+        g_times = graph_ms(fused)
+        ms, call_ms = statistics.median(g_times), cuda_ms(fused)
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        card_us, by, sm_us = gn_bounds_us(B, n_pt, n_pl, params.max_iterations)
+        row = {"shape": f"{B}x{n_pt}+{n_pl}", "what": label, "ms": ms, "call_ms": call_ms,
+               "bound_ms": card_us * 1e-3, "bound_by": by, "share_of_bound": card_us * 1e-3 / ms,
+               "sm_bound_ms": sm_us * 1e-3, "plain_ms": plain_ms, "library_ms": None,
+               "ulps": ulps}
+        rows.append(row)
+        print(f"[gn] {label}, {params.max_iterations} inner iterations: {ms * 1e3:.2f} us per "
+              f"call in a CUDA graph of {GRAPH_LAUNCHES} calls, {call_ms * 1e3:.2f} us for one "
+              f"call between events; bound {card_us:.3f} us on the card ({by}, "
+              f"{card_us * 1e-3 / ms:.3%}), {sm_us:.2f} us on one SM a problem "
+              f"({sm_us * 1e-3 / ms:.1%}); plain path {plain_ms:.3f} ms; "
+              f"{ulps} ulp from it on {smi}")
+    return rows, errs
 
 
 def work_bound_ms(pairs, queries, points, k):
@@ -2018,6 +2138,7 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
         launches["knn_sweep"] += c["knn_sweep"]
         by_path["knn_sweep_batched"]["fleet"] = c["knn_sweep_batched"]
         by_path["knn_sweep"]["fleet"] = c["knn_sweep"]
+        count_gn(launches, by_path, c, "fleet")
         frame_ms = r["frame_seconds"] * 1e3
         print(f"[fleet] {label}: {BATCH} streams x {n} frames on {kind}: {r['scans_per_s']:.2f} "
               f"scans/s in all, ms per fleet frame median {np.median(frame_ms):.1f} max "
@@ -2056,6 +2177,7 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
     c = counts()
     launches["knn_sweep"] += c["knn_sweep"]
     by_path["knn_sweep"][f"odometry run_offline, {len(frames)} frames"] = c["knn_sweep"]
+    count_gn(launches, by_path, c, f"odometry run_offline, {len(frames)} frames")
     check(c["knn_sweep"] == int(r_off["iterations"].sum()) + len(frames)
           and c["knn_sweep_batched"] == c["knn_sweep_streamed"] == 0,
           f"odometry run_offline: launches {c}")
@@ -2105,6 +2227,7 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
           f"sequential streams: K1 launches {c['knn_sweep']} != {seq_calls}, or K2 ran: {c}")
     launches["knn_sweep"] += c["knn_sweep"]
     by_path["knn_sweep"][f"the fleet's {BATCH} streams one after another"] = c["knn_sweep"]
+    count_gn(launches, by_path, c, f"the fleet's {BATCH} streams one after another")
     print(f"[fleet] aggregate: run {rb['scans_per_s']:.2f} scans/s, run_offline cold "
           f"{fleet_runs[1]['scans_per_s']:.2f}, warm {fleet_runs[2]['scans_per_s']:.2f}; the same "
           f"{BATCH} streams one after another {BATCH * (n - 1) / seq_s:.2f} scans/s on {smi}")
@@ -2148,12 +2271,13 @@ def profile_fleet(bm, streams, kw, smi, tables):
         print(f"[profile]   {label:28s} {secs / steps * 1e3:8.2f} ms per fleet frame")
 
 
-def held_align(icp, loc, glob, guess, params, label, ref, kind, launches, planar=False,
-               tag="engine"):
+def held_align(icp, loc, glob, guess, params, label, ref, kind, launches, by_path,
+               planar=False, tag="engine"):
     """One align on the card held to a JAX CPU reference ``ref``
     (termination, iterations within iterations_agree, pose gap < 5e-3) and
-    K1's launches to the matcher calls; adds them to ``launches``. Returns
-    (result, K1 launches, host seconds)."""
+    K1's launches to the matcher calls; adds them to ``launches``, and the
+    Gauss-Newton kernel's to ``launches`` and ``by_path``. Returns (result,
+    K1 launches, host seconds)."""
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -2166,6 +2290,7 @@ def held_align(icp, loc, glob, guess, params, label, ref, kind, launches, planar
           f"{label}: K1 launches {n['knn_sweep']} != matcher calls {calls}")
     check(n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0, f"{label}: K2/K3 ran: {n}")
     launches["knn_sweep"] += n["knn_sweep"]
+    count_gn(launches, by_path, n, f"{tag} {label}")
     gap = float(se3.error_log_norm(pose_of_log(ref["log"], res.optimal_tf.t.device),
                                    res.optimal_tf))
     print(f"[{tag}] {label} on {kind}: {res.n_iterations} iterations, "
@@ -2208,7 +2333,7 @@ def engine_phase(smi, kind, launches, by_path):
     for label in ENGINE_RUNS:
         ref = ENGINE_JAX["no hook" if label == "passive hook" else label]
         res, n_k1, wall = held_align(icp, loc, glob, se3.identity(), engine_params(
-            out_dir, hooks[label]), f"3D, {label}", ref, kind, launches)
+            out_dir, hooks[label]), f"3D, {label}", ref, kind, launches, by_path)
         err = float(se3.error_log_norm(gt, res.optimal_tf))
         scale = float(res.optimal_scale)
         print(f"[engine] 3D, {label}: SE(3) error {err:.6f}, optimal scale {scale:.7f} "
@@ -2256,7 +2381,7 @@ def engine_phase(smi, kind, launches, by_path):
         res, n_k1, wall = held_align(icp2, planar_layers(l), planar_layers(g),
                                      se3.from_xyz_ypr(*planar_guess(rel)), params2,
                                      f"2D pair {i} ({len(l)} x {len(g)} returns)", ref, kind,
-                                     launches, planar=True)
+                                     launches, by_path, planar=True)
         err = float(se3.error_log_norm(se3.from_xyz_ypr(rel[0], rel[1], 0.0, rel[2], 0.0, 0.0),
                                        res.optimal_tf))
         print(f"[engine] 2D pair {i}: SE(3) error {err:.6f}")
@@ -2381,7 +2506,7 @@ def sm2mm_phase(smi, kind, launches, by_path, gt, twists, scans, tables):
         mm = simplemap_to_metricmap(sm, cfg)  # cold
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        check(sum(counts().values()) == 0, f"sm2mm {label}: a kNN kernel ran: {counts()}")
+        check(knn_launches(counts()) == 0, f"sm2mm {label}: a kNN kernel ran: {counts()}")
         # warm: the keyframes, then the final filters, each timed with a sync
         per_kf = dict(cfg, final_filters=None)
         torch.cuda.synchronize()
@@ -2481,7 +2606,7 @@ def yaml_phase(smi, kind, launches, by_path, scene, scans, engine_planar):
     fl = apply_filter_pipeline(sections["filters"], loc)
     fg = apply_filter_pipeline(sections["filters"], glob)
     res, n_k1, _ = held_align(icp, fl, fg, se3.identity(), params, "kitti YAML",
-                              YAML_JAX["kitti"], kind, launches, tag="yaml")
+                              YAML_JAX["kitti"], kind, launches, by_path, tag="yaml")
     err = float(se3.error_log_norm(se3.from_xyz_ypr(*GT), res.optimal_tf))
     print(f"[yaml] icp-settings-kitti.yaml equals kitti_icp() module for module (its matchers "
           f"pair the 'decimated' layers its filter section makes, kitti_icp()'s 'raw'); FirstPoint "
@@ -2496,7 +2621,7 @@ def yaml_phase(smi, kind, launches, by_path, scene, scans, engine_planar):
     fl = apply_filter_pipeline(sections["filters_local_map"], {"raw": PointCloud.from_numpy(l1)})
     fg = apply_filter_pipeline(sections["filters_global_map"], {"raw": PointCloud.from_numpy(g1)})
     res, n_k1, _ = held_align(icp, fl, fg, se3.identity(), params, "example1 YAML",
-                              YAML_JAX["example1"], kind, launches, tag="yaml")
+                              YAML_JAX["example1"], kind, launches, by_path, tag="yaml")
     err = float(se3.error_log_norm(se3.from_xyz_ypr(*EXAMPLE1_GT), res.optimal_tf))
     check(err < ERR_LIMIT, f"example1 YAML: SE(3) error {err}")
     for side, f in (("local", fl), ("global", fg)):
@@ -2527,7 +2652,7 @@ def yaml_phase(smi, kind, launches, by_path, scene, scans, engine_planar):
         check(all(int(m.layers["2d_lidar"].count) == len(pts) for m, pts in zip(maps, (lp, gp))),
               f"2D pair {i}: decoded rows != the rendered returns")
         res, n_k1, _ = held_align(icp, maps[0], maps[1], se3.from_xyz_ypr(*planar_guess(rel)),
-                                  params, f"2D YAML pair {i}", ref, kind, launches,
+                                  params, f"2D YAML pair {i}", ref, kind, launches, by_path,
                                   planar=True, tag="yaml")
         k1 += n_k1
         same = gap == 0.0 and torch.equal(res.optimal_tf.t, engine_planar[i].optimal_tf.t)
@@ -2690,11 +2815,12 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
         poses = load_kitti_poses(str(poses_path))
         ate, rt, rr = trajectory_errors(poses, gt)
         calls = sum(got["batch_iterations"]) if mode == "batched" else got["iterations"]
-        others = {k: v for k, v in n.items() if k != kernel}
+        others = {k: n[k] for k in KNN if k != kernel}
         check(n[kernel] == calls and calls > 0 and not any(others.values()),
               f"kitti-odometry {mode}: launches {n}, matcher calls {calls} of {kernel}")
         launches[kernel] += n[kernel]
         by_path[kernel][f"kitti-odometry {mode}, {APPS_FRAMES} frames"] = n[kernel]
+        count_gn(launches, by_path, n, f"kitti-odometry {mode}, {APPS_FRAMES} frames")
         check(poses.shape == (APPS_FRAMES, 4, 4) and np.isfinite(poses).all(),
               f"kitti-odometry {mode}: poses {poses.shape} not finite")
         ms = 1e3 / got["scans_per_s"]
@@ -2814,6 +2940,7 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
               f"icp-run {fmt}: launches {n}, matcher calls {calls}")
         launches["knn_sweep"] += n["knn_sweep"]
         by_path["knn_sweep"][f"icp-run, {what}"] = n["knn_sweep"]
+        count_gn(launches, by_path, n, f"icp-run, {what}")
         dev = default_device()
         pose = pose_of_printed(got, dev)
         gap = float(se3.error_log_norm(pose_of_printed(r, dev), pose))
@@ -2841,7 +2968,7 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
     reset_counts()
     _, seconds = printed(mm_filter.main, ["-i", files["npz0"], "-o", out_path,
                                           "-p", files["filters"]])
-    check(sum(counts().values()) == 0, f"mm-filter: a kNN kernel ran: {counts()}")
+    check(knn_launches(counts()) == 0, f"mm-filter: a kNN kernel ran: {counts()}")
     out_mm = load_mm_file(out_path)
     got = mm_filter_summary(out_mm)
     raw = load_mm_file(files["npz0"]).layers["raw"]
@@ -2877,7 +3004,7 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
     reset_counts()
     _, seconds = printed(sm2mm_app.main, ["-i", sm_path, "-o", mm_path, "-p",
                                           DEMOS / "sm2mm_voxelmap_static_dynamic.yaml"])
-    check(sum(counts().values()) == 0, f"sm2mm: a kNN kernel ran: {counts()}")
+    check(knn_launches(counts()) == 0, f"sm2mm: a kNN kernel ran: {counts()}")
     got = sm2mm_summary(sm2mm_numpy(load_mm_file(mm_path).layers))
     want = pass1["summary"]
     keys = ("map_points", "voxels", "voxel_key_sum", "static", "dynamic")
@@ -3170,7 +3297,7 @@ def tools_phase(smi, kind, launches, by_path, errs, shapes, scans, pass1):
         rb = nnb.knn_bruteforce(q, qv, p, pv, k=k, max_radius_sq=NN_GRID_RADIUS_SQ)
         torch.cuda.synchronize()
         n = counts()
-        check(n["knn_sweep"] == 1 and sum(n.values()) == 1, f"nn_search's reference: {n}")
+        check(n["knn_sweep"] == 1 and knn_launches(n) == 1, f"nn_search's reference: {n}")
         launches["knn_sweep"] += 1
         by_path["knn_sweep"][f"nn_search against K1, k={k}"] = 1
         a = {f: getattr(rg, f).cpu().numpy() for f in rg._fields}
@@ -3357,6 +3484,8 @@ def loop_closure_phase(smi, kind, launches, by_path):
     launches["knn_sweep"] += n["knn_sweep"]
     by_path["knn_sweep"][f"kitti-odometry --mapping --loop-closure, {LOOP_FRAMES} frames"] = \
         n["knn_sweep"]
+    count_gn(launches, by_path, n,
+             f"kitti-odometry --mapping --loop-closure, {LOOP_FRAMES} frames")
     poses = load_kitti_poses(str(poses_path))
     res = seen["result"]
     cands = loop_closure.propose_loop_candidates(seen["poses"], min_frame_gap=LOOP_MIN_GAP,
@@ -3490,7 +3619,7 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
               f"{knn[0][k]['ms']:.3f} ms per sharded call (4 sweeps at once, the all_gather and "
               f"the merge) against {one_ms:.3f} ms for the one sweep of the whole map on {smi}")
         check(same, f"sharded kNN k={k}: not equal to one sweep of the whole map")
-        check(all(n[shard_kernel] == 1 and sum(n.values()) == 1 for n in per_rank),
+        check(all(n[shard_kernel] == 1 and knn_launches(n) == 1 for n in per_rank),
               f"sharded kNN k={k}: launches {per_rank}")
         launches[shard_kernel] += sum(n[shard_kernel] for n in per_rank)
         by_path[shard_kernel][f"sharded kNN k={k}, {SHARDS} ranks"] = \
@@ -3528,11 +3657,12 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
         else:
             check(t_gap == 0.0 and R_gap == 0.0 and same_its,
                   f"spatial align {label}: not the one-process align to the bit")
-        check(all(n[kernel] == calls and sum(n.values()) == calls for n in per_rank),
+        check(all(n[kernel] == calls and knn_launches(n) == calls for n in per_rank),
               f"spatial align {label}: launches {per_rank}, matcher calls {calls}")
         launches[kernel] += sum(n[kernel] for n in per_rank)
         by_path[kernel][f"spatial align, {label} map, {SHARDS} ranks"] = \
             [n[kernel] for n in per_rank]
+        count_gn(launches, by_path, per_rank, f"spatial align, {label} map, {SHARDS} ranks")
 
     # the sharded pose graph against one rank
     for t_i, which in ((1 + len(align_cases), "dense"), (2 + len(align_cases), "cg")):
@@ -3597,11 +3727,13 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
     check(np.array_equal(sm[0]["poses"], sm[1]["poses"]), "spatial mapper: the ranks' poses differ")
     check(ate <= max(1.5 * ref["ate_m"], ref["ate_m"] + 0.01),
           f"spatial mapper: ATE {ate} m outside max(1.5x, +0.01 m) of JAX's {ref['ate_m']}")
-    check(all(n["knn_sweep"] == calls and sum(n.values()) == calls for n in per_rank),
+    check(all(n["knn_sweep"] == calls and knn_launches(n) == calls for n in per_rank),
           f"spatial mapper: launches {per_rank}, expected {calls} K1")
     launches["knn_sweep"] += sum(n["knn_sweep"] for n in per_rank)
     by_path["knn_sweep"][f"SpatialOdometryMapper, {len(frames_np)} frames, "
                          f"{SPATIAL_RANKS} ranks"] = [n["knn_sweep"] for n in per_rank]
+    count_gn(launches, by_path, per_rank,
+             f"SpatialOdometryMapper, {len(frames_np)} frames, {SPATIAL_RANKS} ranks")
 
     per_rank = [r["launches"] for r in db]
     R, t = rb.optimal_tf.R.cpu().numpy(), rb.optimal_tf.t.cpu().numpy()
@@ -3617,11 +3749,12 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
     rows = len(guesses) // SPATIAL_RANKS
     for r_, n in enumerate(per_rank):
         calls = matcher_calls(icp_b, int(its[r_ * rows:(r_ + 1) * rows].max()))
-        check(n["knn_sweep_batched"] == calls and sum(n.values()) == calls,
+        check(n["knn_sweep_batched"] == calls and knn_launches(n) == calls,
               f"data-parallel batch rank {r_}: launches {n}, matcher calls {calls}")
     launches["knn_sweep_batched"] += sum(n["knn_sweep_batched"] for n in per_rank)
     by_path["knn_sweep_batched"][f"data-parallel batch, {SPATIAL_RANKS} ranks"] = \
         [n["knn_sweep_batched"] for n in per_rank]
+    count_gn(launches, by_path, per_rank, f"data-parallel batch, {SPATIAL_RANKS} ranks")
 
 
 MESH_RANKS, MESH_SPACE = 4, 2  # the data x space phase's 2 x 2 mesh
@@ -3734,12 +3867,13 @@ def mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, proble
     check(all(n <= crop for r in full for n in r["in_box"]["map"]),
           f"mesh: a rank's shard holds more in-box rows than its crop of {crop} keeps")
     for i, n in enumerate(per_rank):
-        check(n["knn_sweep_batched"] == calls[i] and sum(n.values()) == calls[i]
+        check(n["knn_sweep_batched"] == calls[i] and knn_launches(n) == calls[i]
               and full[i]["gathers"] == calls[i],
               f"mesh rank {i}: launches {n}, gathers {full[i]['gathers']}, calls {calls[i]}")
     launches["knn_sweep_batched"] += sum(n["knn_sweep_batched"] for n in per_rank)
     by_path["knn_sweep_batched"][f"data x space batch, 8 x 1M map, {MESH_RANKS} ranks"] = \
         [n["knn_sweep_batched"] for n in per_rank]
+    count_gn(launches, by_path, per_rank, f"data x space batch, 8 x 1M map, {MESH_RANKS} ranks")
 
     want = PARALLEL_JAX["data_space"]
     n_b = len(d_guesses)
@@ -3762,6 +3896,8 @@ def mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, proble
     launches["knn_sweep_batched"] += sum(n["knn_sweep_batched"] for n in per_rank)
     by_path["knn_sweep_batched"][f"data x space batch, the dry run's problems, "
                                  f"{MESH_RANKS} ranks"] = [n["knn_sweep_batched"] for n in per_rank]
+    count_gn(launches, by_path, per_rank,
+             f"data x space batch, the dry run's problems, {MESH_RANKS} ranks")
 
     # (c) K2 at the shape rank 0 launches on its first iteration: its 4 scans
     # at their guesses against its shard, cropped at each guess
@@ -4183,6 +4319,8 @@ def main():
     del maps_b, map_64k, timed, q16, p16
 
     phase_done("kernels against their plain versions, times")
+    shapes["gn_solve"], errs["gn_solve"] = gn_phase(smi)
+    phase_done("Gauss-Newton kernel")
     launches = {name: 0 for name in KERNELS}
     by_path = {name: {} for name in KERNELS}  # launches of each path's last counted window
 
@@ -4209,6 +4347,7 @@ def main():
     check(n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0, f"other kernels ran: {n}")
     launches["knn_sweep"] += n["knn_sweep"]
     by_path["knn_sweep"][f"scan to scan, {len(pairs)} aligns"] = n["knn_sweep"]
+    count_gn(launches, by_path, n, f"scan to scan, {len(pairs)} aligns")
 
     res, err = results[0]
     print(f"[align] KITTI config, bench pair {N_POINTS} pts on {kind}: SE(3) error "
@@ -4261,9 +4400,10 @@ def main():
         calls = (1 + MAP_TIMED[label]) * matcher_calls(micp, res.n_iterations)
         check(n[kernel] == calls and calls > 0,
               f"{label}: {kernel} launches {n[kernel]} != matcher calls {calls}")
-        check(sum(n.values()) == n[kernel], f"{label}: other kernels ran: {n}")
+        check(knn_launches(n) == n[kernel], f"{label}: other kernels ran: {n}")
         launches[kernel] += n[kernel]
         by_path[kernel][f"scan to the {label} map, {1 + MAP_TIMED[label]} aligns"] = n[kernel]
+        count_gn(launches, by_path, n, f"scan to the {label} map, {1 + MAP_TIMED[label]} aligns")
         err = float(se3.error_log_norm(gt_map, res.optimal_tf))
         warm = walls[1:]
         print(f"[map] {label} map, crop {crop} ({n_kept} points kept, crop {crop_ms:.1f} ms) "
@@ -4307,6 +4447,7 @@ def main():
               f"batched: K1/K3 launched during the batched call: {n}")
         launches["knn_sweep_batched"] += n["knn_sweep_batched"]
         by_path["knn_sweep_batched"]["batched call"] = n["knn_sweep_batched"]
+        count_gn(launches, by_path, n, "batched call")
     print(f"[count] batched: K2 launches {n['knn_sweep_batched']} == matcher calls {calls} "
           f"per call, K1 and K3 launches 0")
     seq_walls = []
@@ -4355,6 +4496,7 @@ def main():
               f"B = 16 pairs: K1/K3 launched during the batched call: {n}")
         launches["knn_sweep_batched"] += n["knn_sweep_batched"]
         by_path["knn_sweep_batched"][f"B = {PAIR_BATCH} scan-to-scan call"] = n["knn_sweep_batched"]
+        count_gn(launches, by_path, n, f"B = {PAIR_BATCH} scan-to-scan call")
     print(f"[count] B = {PAIR_BATCH} pairs: K2 launches {n['knn_sweep_batched']} == matcher "
           f"calls {calls} per call, K1 and K3 launches 0")
     seq16 = [r for r, _ in results[1:]]
@@ -4400,6 +4542,11 @@ def main():
               f"odometry: K2/K3 launched: {n}")
         launches["knn_sweep"] += n["knn_sweep"]
         by_path["knn_sweep"][f"odometry, one run of {ODO_FRAMES} frames"] = n["knn_sweep"]
+        count_gn(launches, by_path, n, f"odometry, one run of {ODO_FRAMES} frames")
+        # every solve of the mapper's ICP (Point2Plane, plain GNParams) takes the kernel
+        check(n["gn_solve"] == int(r["iterations"].sum()),
+              f"odometry: Gauss-Newton kernel launches {n['gn_solve']} != ICP iterations "
+              f"{int(r['iterations'].sum())}")
         ate = ate_rmse(r["poses"], gt_o)
         n_map = int(r["map"].count)
         frame_ms = r["frame_seconds"] * 1e3

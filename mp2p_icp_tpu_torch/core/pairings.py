@@ -5,6 +5,12 @@ blocks (pt2pt, pt2ln, pt2pl, ln2ln, pl2pl) plus the potential-pairings
 counter. Invalid rows carry zero weight (and index -1), so every solver
 reduction is a masked weighted sum over the whole capacity. The blocks and
 ``Pairings`` are pytree nodes, so ``torch.func.vmap`` maps over them.
+
+``Pairings.live`` names the block types that may hold valid rows: the
+types some matcher of the align emits (``ICP._run_matchers``); every other
+block is a one-row placeholder of zero weight. It is static data, the
+pytree's context and not a leaf, so ``vmap``, ``tree_map``, ``decimated``
+and the loop's stacking keep it, and a solver may read it on the host.
 """
 
 from __future__ import annotations
@@ -109,6 +115,7 @@ BLOCK_TYPES = {
     "ln2ln": PairsLn2Ln,
     "pl2pl": PairsPl2Pl,
 }
+ALL_BLOCKS = frozenset(BLOCK_TYPES)
 
 
 def concat_blocks(blocks, cls, device=None):
@@ -162,6 +169,8 @@ class Pairings:
     ln2ln: PairsLn2Ln
     pl2pl: PairsPl2Pl
     potential_pairings: torch.Tensor  # scalar i32
+    # block types that may hold valid rows (static; the rest are placeholders)
+    live: frozenset = ALL_BLOCKS
 
     @staticmethod
     def empty(
@@ -203,10 +212,33 @@ class Pairings:
         return Pairings(
             **{name: _decimate_block(getattr(self, name), capacity) for name in BLOCK_TYPES},
             potential_pairings=self.potential_pairings,
+            live=self.live,
         )
 
 
-for _cls in (*BLOCK_TYPES.values(), Pairings):
+for _cls in BLOCK_TYPES.values():
     pytree.register_dataclass(
         _cls, serialized_type_name=f"mp2p_icp_tpu_torch.{_cls.__name__}"
     )
+
+_LEAVES = (*BLOCK_TYPES, "potential_pairings")  # Pairings' pytree children
+
+
+def _pairings_with_keys(p: Pairings):
+    return [(pytree.GetAttrKey(n), getattr(p, n)) for n in _LEAVES], p.live
+
+
+def _flatten_pairings(p: Pairings):
+    keyed, live = _pairings_with_keys(p)
+    return [value for _, value in keyed], live
+
+
+pytree.register_pytree_node(
+    Pairings,
+    _flatten_pairings,
+    lambda values, live: Pairings(**dict(zip(_LEAVES, values)), live=live),
+    serialized_type_name="mp2p_icp_tpu_torch.Pairings",
+    to_dumpable_context=sorted,
+    from_dumpable_context=frozenset,
+    flatten_with_keys_fn=_pairings_with_keys,
+)

@@ -154,8 +154,9 @@ class ICP:
         """Run the iteration's active matchers and concatenate their blocks
         into one Pairings (reference: run_matchers, Matcher.cpp:35-87).
         Inactive matchers contribute empty blocks of the same capacity, so
-        the Pairings layout is the same on every iteration. The paired
-        masks are only kept when several matchers run together.
+        the Pairings layout is the same on every iteration, and so is its
+        ``live`` set: the block types of every matcher's ``out_blocks``.
+        The paired masks are only kept when several matchers run together.
         ``gidx_maps``: the crop's index maps (see _crop_globals)."""
         device = pose.t.device
         # on a map split over ranks the global masks span every shard
@@ -179,6 +180,7 @@ class ICP:
         return Pairings(
             **{k: concat_blocks(acc[k], cls, device) for k, cls in BLOCK_TYPES.items()},
             potential_pairings=potential,
+            live=frozenset(k for k, blocks in acc.items() if blocks),
         )
 
     # -------------------------------------------------------------- solvers

@@ -12,6 +12,7 @@ module on a machine without nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,6 +32,7 @@ LIBRARIES = {
     "knn_bruteforce": ("knn_bruteforce.cu",),
     "knn_streamed": ("knn_streamed.cu",),
     "knn_batched": ("knn_batched.cu",),
+    "gn_solve": ("gn_solve.cu",),
 }
 
 # name -> (ctypes.CDLL, build record); one load per process
@@ -106,6 +108,17 @@ def load_library(name: str) -> ctypes.CDLL:
         build((name,))
         _LOADED[name] = ctypes.CDLL(_BUILT[name]["path"])
     return _LOADED[name]
+
+
+@functools.lru_cache(maxsize=None)
+def entry_point(name: str, symbol: str, argtypes: tuple):
+    """The C function ``symbol`` of library ``name``, built and loaded on
+    first use, its argument types set once; it returns an int (a CUDA
+    error code, 0 on success)."""
+    fn = getattr(load_library(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def build_record(name: str) -> dict:

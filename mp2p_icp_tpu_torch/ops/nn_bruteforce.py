@@ -172,16 +172,6 @@ def knn_plain_batched(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None,
 
 
 # ------------------------------------------------------------------ kernels
-@functools.lru_cache(maxsize=None)
-def _entry(lib: str, symbol: str, argtypes: tuple):
-    """A kernel library's C entry point, built on first use and configured
-    once."""
-    fn = getattr(cuda_build.load_library(lib), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
-
-
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # r, groups, slice, S, nq, np, part_d, part_i, part_th, out_d, out_i, stream:
 # the tail of every entry point
@@ -190,20 +180,20 @@ _SPLIT_ARGS = (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P)
 
 def load_kernel():
     """The K1 entry point (``csrc/knn_bruteforce.cu``)."""
-    return _entry("knn_bruteforce", "mp2p_knn_sweep_f32",
-                  (_P, _I, _P, _I, _I) + _SPLIT_ARGS)
+    return cuda_build.entry_point("knn_bruteforce", "mp2p_knn_sweep_f32",
+                                  (_P, _I, _P, _I, _I) + _SPLIT_ARGS)
 
 
 def load_streamed_kernel():
     """The K3 entry point (``csrc/knn_streamed.cu``)."""
-    return _entry("knn_streamed", "mp2p_knn_sweep_streamed_f32",
-                  (_P, _I, _P, _I, _I) + _SPLIT_ARGS)
+    return cuda_build.entry_point("knn_streamed", "mp2p_knn_sweep_streamed_f32",
+                                  (_P, _I, _P, _I, _I) + _SPLIT_ARGS)
 
 
 def load_batched_kernel():
     """The K2 entry point (``csrc/knn_batched.cu``)."""
-    return _entry("knn_batched", "mp2p_knn_sweep_batched_f32",
-                  (_P, _I, _L, _P, _I, _L, _I, _I) + _SPLIT_ARGS)
+    return cuda_build.entry_point("knn_batched", "mp2p_knn_sweep_batched_f32",
+                                  (_P, _I, _L, _P, _I, _L, _I, _I) + _SPLIT_ARGS)
 
 
 def _check(k, **arrays):
@@ -292,7 +282,8 @@ def kernel_launch_dims(Q: int, B: int, r: int, groups: int, slices: int):
     """(grid x, grid y, grid z, threads per block) of the sweep kernel for
     these arguments (r: the register tile), answered by the built library
     from the functions its launch uses. Launches nothing."""
-    fn = _entry("knn_bruteforce", "mp2p_knn_sweep_launch_dims", (_I, _I, _I, _I, _I, _P))
+    fn = cuda_build.entry_point("knn_bruteforce", "mp2p_knn_sweep_launch_dims",
+                                (_I, _I, _I, _I, _I, _P))
     out = (ctypes.c_int * 4)()
     fn(Q, B, r, groups, slices, out)
     return tuple(out)

@@ -31,11 +31,14 @@ from mp2p_icp_tpu_torch.solvers.common import WeightParameters
 from mp2p_icp_tpu_torch.solvers.gauss_newton import (
     GNParams,
     SE3Prior,
+    gn_solve_fused,
     optimal_tf_gauss_newton,
+    takes_kernel,
 )
 from mp2p_icp_tpu_torch.solvers.horn import horn_scale, optimal_tf_horn
 from mp2p_icp_tpu_torch.solvers.olae import optimal_tf_olae
 from mp2p_icp_tpu_torch.solvers.pt2_conversions import pt2ln_pl_to_pt2pt
+from mp2p_icp_tpu_torch.utils import profiler
 
 
 def f64(tree):
@@ -115,7 +118,12 @@ class SolverOLAE(Solver):
 
 @dataclasses.dataclass(frozen=True)
 class SolverGaussNewton(Solver):
-    """Reference: Solver_GaussNewton.cpp:29-67."""
+    """Reference: Solver_GaussNewton.cpp:29-67. A solve on the card of the
+    live pt2pt / pt2pl blocks, with no robust kernel and no prior, is one
+    launch of the fused kernel; every other solve takes the plain float64
+    path (``gauss_newton.takes_kernel``). The trace's ``gn.solve`` counter
+    records each: (path, problems, rows), problems None on the plain path,
+    whose batch under vmap the host does not see."""
 
     gn_params: GNParams = dataclasses.field(default_factory=GNParams)
 
@@ -124,6 +132,10 @@ class SolverGaussNewton(Solver):
         # kernel_param may be an Expression over ICP_ITERATION
         gp = dataclasses.replace(self.gn_params, kernel_param=static_value(
             self.gn_params.kernel_param, "kernel_param", iteration or 0))
+        if takes_kernel(pairings.live, guess.t.device, gp.kernel, prior):
+            return gn_solve_fused(pairings, guess, gp)
+        profiler.count("gn.solve", "plain", None,
+                       sum(getattr(pairings, name).capacity for name in pairings.live))
         return solve_in_f64(
             lambda p, g, pr: optimal_tf_gauss_newton(p, g, gp, pr),
             pairings, guess, prior)

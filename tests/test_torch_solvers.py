@@ -9,6 +9,9 @@ entry (the inverse of a well-conditioned 6x6 normal matrix).
 """
 
 import dataclasses
+import json
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -286,3 +289,21 @@ def test_olae_large_rotation_near_pi(seed):
     Ms, _ = tolae.olae_systems(tcommon.build_vector_pairs(
         tsolver.f64(pt), WeightParameters(), normalize_point_vectors=True))
     assert int(torch.argmax(torch.abs(torch.linalg.det(Ms)))) != 0  # an alternate won
+
+
+def test_gn_reference_file_is_the_jax_package_s():
+    """scripts/torch_gn_reference.json, the JAX package's poses that the
+    Gauss-Newton kernel's card test (tests/test_torch_gn_kernel.py, which
+    imports no JAX) holds the kernel to, is what the JAX package computes
+    on those inputs here (within 1e-6 relative: a few float32 ulps)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    import torch_gn_reference as gref
+
+    ref = json.loads(gref.REFERENCE.read_text())
+    assert ref["params"] == gref.PARAMS
+    assert [(c["n_pt"], c["n_pl"], c["seed"]) for c in ref["cases"]] == [
+        (*shape, seed) for shape in gref.SHAPES for seed in gref.SEEDS]
+    for c in ref["cases"]:
+        R, t = gref.jax_pose(c["n_pt"], c["n_pl"], c["seed"])
+        np.testing.assert_allclose(R.ravel(), c["R"], rtol=1e-6, atol=0)
+        np.testing.assert_allclose(t, c["t"], rtol=1e-6, atol=0)

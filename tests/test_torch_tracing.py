@@ -5,7 +5,8 @@ Under a CPU ``torch.profiler`` trace, ``ICP.align``, the batched align and
 (``icp.align``, ``odometry.step``), the stages, one ``icp.iter`` per ICP
 iteration holding ``icp.match`` (with ``knn.query`` inside), ``icp.solve``,
 ``icp.terminate`` and the ``sync.<site>`` host reads, then ``icp.results``.
-The ``knn.rows`` counter records one entry per ``knn.query`` span. The
+The ``knn.rows`` counter records one entry per ``knn.query`` span, the
+``gn.solve`` counter one per Gauss-Newton solve (the plain path here). The
 poses are bit-equal with tracing on and off; with tracing off a span is
 one shared no-op that opens no ``record_function`` and costs at most a
 microsecond. One ``cuda`` case (skipped without a card) checks on the
@@ -120,6 +121,15 @@ def _traced(fn):
     return out, nested, records
 
 
+def _split(records):
+    """The values of the ``knn.rows`` and of the ``gn.solve`` records; no
+    other counter records anything."""
+    knn = [v for n, v in records if n == "knn.rows"]
+    gn = [v for n, v in records if n == "gn.solve"]
+    assert len(knn) + len(gn) == len(records)
+    return knn, gn
+
+
 def _children(spans, parent):
     return [n for _, _, n, p in spans if p == parent]
 
@@ -141,10 +151,13 @@ def test_align_spans_nest_under_the_root():
     assert _parents(spans, "sync.icp_flags") == {"icp.iter"}
     for name in LOOP:
         assert sum(n == name for _, _, n, _ in spans) == res.n_iterations, name
-    # one counter record per kNN call, in order
-    assert len(records) == sum(n == "knn.query" for _, _, n, _ in spans) == res.n_iterations
-    assert all(name == "knn.rows" and vals[0] == 1 and vals[1] == 1 for name, vals in records)
-    assert int(records[0][1][2]) == 512 and int(records[0][1][3]) == 512
+    # one counter record per kNN call, in order, and one per Gauss-Newton
+    # solve (iterations 3 on; the CPU's plain path, 512 pt2pt rows)
+    knn, gn = _split(records)
+    assert len(knn) == sum(n == "knn.query" for _, _, n, _ in spans) == res.n_iterations
+    assert all(vals[0] == 1 and vals[1] == 1 for vals in knn)
+    assert int(knn[0][2]) == 512 and int(knn[0][3]) == 512
+    assert gn == [("plain", None, 512)] * (res.n_iterations - 3)
 
     plain = icp.align(local, glob, guess, params)
     assert torch.equal(plain.optimal_tf.R, res.optimal_tf.R)
@@ -174,9 +187,11 @@ def test_batched_align_spans_under_vmap():
     # ICP._step's termination under vmap, and each problem's stop after it
     assert sum(n == "icp.terminate" for _, _, n, _ in spans) == 2 * loops
     assert _parents(spans, "icp.results") == {None}
-    assert len(records) == sum(n == "knn.query" for _, _, n, _ in spans) == loops
+    knn, gn = _split(records)
+    assert len(knn) == sum(n == "knn.query" for _, _, n, _ in spans) == loops
+    assert gn == [("plain", None, 512)] * (loops - 3)  # one record per vmapped solve
     # under vmap the sweep gets one count per problem
-    k, B, q, p, shared = records[0][1]
+    k, B, q, p, shared = knn[0]
     assert (k, B, shared) == (1, 2, False) and q.tolist() == p.tolist() == [512, 512]
 
     plain = run(local, glob, guess)
@@ -207,7 +222,9 @@ def test_odometry_frames_are_rooted_at_their_step(drive):
     assert roots == (["odometry.step", "sync.drive_iterations", "sync.progress"] * 2
                      + ["sync.drive_fetch", "sync.results"])
     assert sum(n == "icp.iter" for _, _, n, _ in spans) == int(np.sum(res["iterations"]))
-    assert len(records) == sum(n == "knn.query" for _, _, n, _ in spans)
+    knn, gn = _split(records)
+    assert len(knn) == sum(n == "knn.query" for _, _, n, _ in spans)
+    assert len(gn) == int(np.sum(res["iterations"]))
 
     plain = mapper.run(frames[:3], twists=twists[:3], dt=0.1, progress_every=1)
     np.testing.assert_array_equal(plain["poses"], res["poses"])
@@ -225,8 +242,10 @@ def test_fleet_frames_are_rooted_at_their_step(drive):
         assert _parents(frame_spans, name) == {"odometry.step"}, name
     assert sum(n == "icp.iter" for _, _, n, _ in spans) == int(
         np.sum(res["iterations"].max(axis=0)))
-    assert len(records) == sum(n == "knn.query" for _, _, n, _ in spans)
-    assert {r[1][1] for r in records} == {1, 2}  # the seeds' fits, then the fleet's sweeps
+    knn, gn = _split(records)
+    assert len(knn) == sum(n == "knn.query" for _, _, n, _ in spans)
+    assert {r[1] for r in knn} == {1, 2}  # the seeds' fits, then the fleet's sweeps
+    assert len(gn) == sum(n == "icp.iter" for _, _, n, _ in spans)
 
     plain = fleet.run(streams, twists=tws, dt=0.1)
     np.testing.assert_array_equal(plain["poses"], res["poses"])
