@@ -7,7 +7,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 
 1. name the card (nvidia-smi name and power limit); no CUDA -> fail;
 2. build the CUDA kernels from mp2p_icp_tpu_torch/csrc (the three kNN
-   sweeps and the Gauss-Newton solve), one nvcc each, all at once; print
+   sweeps, the Gauss-Newton solve and the ICP loop's termination test),
+   one nvcc each, all at once; print
    the registers, spills and shared memory of the k = 1 and k = 8
    instantiations;
 3. hold each kNN kernel against its plain PyTorch version on the card, bit
@@ -53,7 +54,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    6144 pt2pl, 1 x 8192 pt2pt and 8 x 6144 pt2pl (one vmapped launch): each
    pose within 1 float32 ulp of the plain float64 path's, its time in a
    CUDA graph of 20 calls and alone, beside its bounds (the card's, one
-   SM's) and the plain path's time ([gn] lines);
+   SM's) and the plain path's time ([gn] lines); then the termination
+   kernel (csrc/icp_terminate.cu) at the cells' shapes, 1 x 6144 pt2pl,
+   1 x 8192 pt2pt and 8 x 6144 pt2pl (one vmapped launch): flags, kept
+   pose and step norms bit-equal to the plain path's, its time in a CUDA
+   graph of 20 calls and alone, beside its bound (the bytes it reads and
+   writes) and the plain path's time ([term] lines);
 4. the scan-to-scan path: ICP.align with the KITTI configuration on the
    bench street pair at 8192 points, then 8 further pairs served one after
    another; each SE(3) error must be < 0.1 and K1's launch count must equal
@@ -80,7 +86,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    once cold and once warm. ATE < 0.1 m and within max(1.5x, +0.01 m) of
    the JAX CPU reference, map count within 2% of it, every quality finite,
    K1 launches == matcher calls + one normals fit per frame + the seed's,
-   no K2/K3 launch; the map insert run twice on the same input gives equal
+   no K2/K3 launch, one Gauss-Newton and one termination launch per ICP
+   iteration; the map insert run twice on the same input gives equal
    states;
 8. the fleet path (bench.py:738-776): 8 streams of 20 frames, stream b =
    frames [2b, 2b+20) of the street drive with its twists and its true
@@ -250,8 +257,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    each; the profiler's tables go to chiprun_out/profile_tables.txt;
 18. one JSON line with the kernels' numbers (each shape's time, bound,
    plain version and library call, torch.cdist + topk in a CUDA graph;
-   for gn_solve, which replaces no TPU kernel, the [gn] rows, its largest
-   |pose - plain pose| and no library call) and their launches by path
+   for gn_solve and icp_terminate, which replace no TPU kernel, the [gn]
+   and [term] rows, the largest gap to the plain path and no library
+   call) and their launches by path
    (every path zeroes the counts just before its run and reads them just
    after), then the last line {"ok": true, "device": {...}}.
 
@@ -342,7 +350,7 @@ from mp2p_icp_tpu_torch.matchers import (
     MatcherPointsInlierRatio,
 )
 from mp2p_icp_tpu_torch.odometry import BatchedOdometryMapper
-from mp2p_icp_tpu_torch.ops import cuda_build
+from mp2p_icp_tpu_torch.ops import cuda_build, icp_terminate
 from mp2p_icp_tpu_torch.ops import nn_bruteforce as nnb
 from mp2p_icp_tpu_torch.ops.voxel_hash_map import hash_map_insert
 from mp2p_icp_tpu_torch.ops.voxel_occupancy import update_voxel_map
@@ -369,12 +377,16 @@ KERNELS = {
                            "mp2p_icp_tpu/ops/nn_bruteforce.py:509"),  # _nnk_kernel_streamed_dbuf
     "knn_sweep_batched": ("mp2p_icp_tpu_torch/csrc/knn_batched.cu",
                           "mp2p_icp_tpu/ops/nn_bruteforce.py:214"),  # _nnk_kernel_gridless_batched
-    # the JAX package solves Gauss-Newton with XLA's ops, not with a kernel
+    # the JAX package solves Gauss-Newton and tests termination with XLA's
+    # ops, not with a kernel
     "gn_solve": ("mp2p_icp_tpu_torch/csrc/gn_solve.cu", None),
+    "icp_terminate": ("mp2p_icp_tpu_torch/csrc/icp_terminate.cu", None),
 }
 KNN = ("knn_sweep", "knn_sweep_streamed", "knn_sweep_batched")  # the sweeps among them
+OWN = ("gn_solve", "icp_terminate")  # the port's own kernels, which replace none
 LIBRARY = {"knn_sweep": "knn_bruteforce", "knn_sweep_streamed": "knn_streamed",
-           "knn_sweep_batched": "knn_batched", "gn_solve": "gn_solve"}
+           "knn_sweep_batched": "knn_batched", "gn_solve": "gn_solve",
+           "icp_terminate": "icp_terminate"}
 # the scan-to-map problem of bench.py:367-408 and the JAX package's result
 # for it on the CPU (SE(3) error, iterations, termination)
 MAP_CASES = (("1M", 1 << 20, 1 << 16, (0.00133, 30, "STALLED")),
@@ -1473,14 +1485,18 @@ def knn_launches(n):
     return sum(n[name] for name in KNN)
 
 
-def count_gn(launches, by_path, n, label):
-    """Adds the Gauss-Newton kernel's launches of one path's counted window
-    (``n``: its ``counts()``, or one per rank) to ``launches`` and
-    ``by_path``. 0 where the path's solves took the plain path: a robust
-    kernel, a prior, or pt2ln / ln2ln / pl2pl pairs."""
-    per = [r["gn_solve"] for r in n] if isinstance(n, list) else n["gn_solve"]
-    launches["gn_solve"] += sum(per) if isinstance(per, list) else per
-    by_path["gn_solve"][label] = per
+def count_own(launches, by_path, n, label):
+    """Adds the launches of the port's own kernels (``OWN``) in one path's
+    counted window (``n``: its ``counts()``, or one per rank) to
+    ``launches`` and ``by_path``. The Gauss-Newton kernel's are 0 where the
+    path's solves took the plain path (a robust kernel, a prior, or pt2ln /
+    ln2ln / pl2pl pairs); the termination kernel's are one per ICP
+    iteration of an align on the card (a batched align's: one per
+    iteration of the batch)."""
+    for name in OWN:
+        per = [r[name] for r in n] if isinstance(n, list) else n[name]
+        launches[name] += sum(per) if isinstance(per, list) else per
+        by_path[name][label] = per
 
 
 def matcher_calls(icp, n_iterations):
@@ -1686,6 +1702,106 @@ def gn_phase(smi):
               f"{card_us * 1e-3 / ms:.3%}), {sm_us:.2f} us on one SM a problem "
               f"({sm_us * 1e-3 / ms:.1%}); plain path {plain_ms:.3f} ms; "
               f"{ulps} ulp from it on {smi}")
+    return rows, errs
+
+
+# the termination kernel (csrc/icp_terminate.cu) at the cells' shapes: (label,
+# problems, the live block, its rows)
+TERM_SHAPES = (("stream: 1 x 6144 pt2pl", 1, "pt2pl", 6144),
+               ("scan: 1 x 8192 pt2pt", 1, "pt2pt", 8192),
+               ("fleet: 8 x 6144 pt2pl", 8, "pt2pl", 6144))
+TERM_POSE_BYTES = 48  # a float32 pose: R (36) and t (12)
+TERM_OUT_BYTES = TERM_POSE_BYTES + 3 + 16  # the kept pose, the flags, the four norms
+
+
+def term_bound_us(B, rows):
+    """The termination test's bound in us: each byte it needs read once
+    (the live block's weights, three poses) and written once (the kept
+    pose, the flags, the norms) at the card's bandwidth. Its few hundred
+    float32 operations a problem weigh nothing beside that."""
+    return B * (4 * rows + 3 * TERM_POSE_BYTES + TERM_OUT_BYTES) / (HBM_TBS * 1e6)
+
+
+def terminate_problems(seed, B, block, rows):
+    """B termination tests on the card, stacked: the live block's weights
+    (60% valid), a random pose, the one before it 0.05 rad and 0.3 m away
+    and the solver's ~5e-4 m and ~1e-4 rad from it, so about half stall."""
+    rng = np.random.RandomState(seed)
+    pairings = Pairings.empty(**{f"{block}_cap": rows})
+    pairings = dataclasses.replace(pairings, live=frozenset({block}))
+    weights = np.where(rng.rand(B, rows) < 0.6, rng.uniform(0.1, 2.0, (B, rows)), 0.0)
+    stacked = stack_pytrees([pairings] * B)
+    stacked = dataclasses.replace(stacked, **{block: dataclasses.replace(
+        getattr(stacked, block), weight=torch.as_tensor(weights, dtype=torch.float32,
+                                                        device=default_device()))})
+    poses = []
+    for b in range(B):
+        pose = se3.from_xyz_ypr(*rng.uniform(-50, 50, 3), *rng.uniform(-3, 3, 3))
+        prev = se3.compose(pose, se3.from_xyz_ypr(*rng.normal(0, 0.3, 3),
+                                                  *rng.normal(0, 0.05, 3)))
+        new = se3.compose(pose, se3.from_xyz_ypr(*rng.normal(0, 3e-4, 3),
+                                                 *rng.normal(0, 6e-5, 3)))
+        poses.append((pose, prev, new))
+    return stacked, [stack_pytrees([p[i] for p in poses]) for i in range(3)]
+
+
+def terminate_phase(smi):
+    """The termination kernel at the cells' shapes: its build, each
+    problem's flags, kept pose and step norms against the plain path's (bit
+    for bit), then its device time per call in a CUDA graph of 20 calls,
+    one call between CUDA events, its bound and the plain path's time (one
+    call between events: ~264 small kernels, issued from Python). Returns
+    (rows, the largest |output - plain output| of each shape)."""
+    rec = cuda_build.build_record("icp_terminate")
+    for line in rec["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[term] build: {line.strip().removeprefix('ptxas info    : ')}")
+    eps = (5e-4, 1e-4)
+    rows, errs, seed = [], [], 190
+    for label, B, block, n_rows in TERM_SHAPES:
+        P, poses = terminate_problems(seed, B, block, n_rows)
+        seed += 1
+
+        if B == 1:  # one problem as the ICP loop hands it, unbatched
+            one = [torch.utils._pytree.tree_map(lambda x: x[0], v) for v in (P, *poses)]
+
+            def fused():
+                return icp_terminate.terminate_fused(*one, *eps)
+        else:
+            def fused():
+                return torch.func.vmap(lambda p, a, pr, n: icp_terminate.terminate_fused(
+                    p, a, pr, n, *eps))(P, *poses)
+
+        def plain():
+            kept, flags = torch.func.vmap(lambda p, a, pr, n: icp_terminate.terminate_plain(
+                p, a, pr, n, *eps))(P, *poses)
+            a, prev, new = poses
+            return kept, flags, torch.stack([*se3.delta_norms(a, new),
+                                             *se3.delta_norms(prev, new)], dim=-1)
+
+        got, want = fused(), plain()
+        torch.cuda.synchronize()
+        same = all(torch.equal(g.reshape(w.shape), w) for g, w in zip(
+            (got[0].R, got[0].t, got[1], got[2]), (want[0].R, want[0].t, want[1], want[2])))
+        err = max(float((got[0].R.reshape(want[0].R.shape) - want[0].R).abs().max()),
+                  float((got[0].t.reshape(want[0].t.shape) - want[0].t).abs().max()),
+                  float((got[2].reshape(want[2].shape) - want[2]).abs().max()))
+        errs.append(err)
+        check(same, f"term {label}: kernel equals the plain path bit for bit (max |d| {err})")
+        g_times = graph_ms(fused)
+        ms, call_ms = statistics.median(g_times), cuda_ms(fused)
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        bound_us = term_bound_us(B, n_rows)
+        rows.append({"shape": f"{B}x{n_rows} {block}", "what": label, "ms": ms,
+                     "call_ms": call_ms, "bound_ms": bound_us * 1e-3, "bound_by": "bytes",
+                     "share_of_bound": bound_us * 1e-3 / ms, "plain_ms": plain_ms,
+                     "library_ms": None, "stalled": int(want[1][..., 2].sum()),
+                     "no_pairs": int(want[1][..., 0].sum())})
+        print(f"[term] {label}: {ms * 1e3:.2f} us per call in a CUDA graph of "
+              f"{GRAPH_LAUNCHES} calls, {call_ms * 1e3:.2f} us for one call between events; "
+              f"bound {bound_us:.4f} us (bytes, {bound_us * 1e-3 / ms:.3%}); plain path "
+              f"{plain_ms:.3f} ms; {rows[-1]['stalled']} of {B} stalled; bit-equal to it "
+              f"on {smi}")
     return rows, errs
 
 
@@ -2138,7 +2254,7 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
         launches["knn_sweep"] += c["knn_sweep"]
         by_path["knn_sweep_batched"]["fleet"] = c["knn_sweep_batched"]
         by_path["knn_sweep"]["fleet"] = c["knn_sweep"]
-        count_gn(launches, by_path, c, "fleet")
+        count_own(launches, by_path, c, "fleet")
         frame_ms = r["frame_seconds"] * 1e3
         print(f"[fleet] {label}: {BATCH} streams x {n} frames on {kind}: {r['scans_per_s']:.2f} "
               f"scans/s in all, ms per fleet frame median {np.median(frame_ms):.1f} max "
@@ -2177,7 +2293,7 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
     c = counts()
     launches["knn_sweep"] += c["knn_sweep"]
     by_path["knn_sweep"][f"odometry run_offline, {len(frames)} frames"] = c["knn_sweep"]
-    count_gn(launches, by_path, c, f"odometry run_offline, {len(frames)} frames")
+    count_own(launches, by_path, c, f"odometry run_offline, {len(frames)} frames")
     check(c["knn_sweep"] == int(r_off["iterations"].sum()) + len(frames)
           and c["knn_sweep_batched"] == c["knn_sweep_streamed"] == 0,
           f"odometry run_offline: launches {c}")
@@ -2227,7 +2343,7 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
           f"sequential streams: K1 launches {c['knn_sweep']} != {seq_calls}, or K2 ran: {c}")
     launches["knn_sweep"] += c["knn_sweep"]
     by_path["knn_sweep"][f"the fleet's {BATCH} streams one after another"] = c["knn_sweep"]
-    count_gn(launches, by_path, c, f"the fleet's {BATCH} streams one after another")
+    count_own(launches, by_path, c, f"the fleet's {BATCH} streams one after another")
     print(f"[fleet] aggregate: run {rb['scans_per_s']:.2f} scans/s, run_offline cold "
           f"{fleet_runs[1]['scans_per_s']:.2f}, warm {fleet_runs[2]['scans_per_s']:.2f}; the same "
           f"{BATCH} streams one after another {BATCH * (n - 1) / seq_s:.2f} scans/s on {smi}")
@@ -2290,7 +2406,7 @@ def held_align(icp, loc, glob, guess, params, label, ref, kind, launches, by_pat
           f"{label}: K1 launches {n['knn_sweep']} != matcher calls {calls}")
     check(n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0, f"{label}: K2/K3 ran: {n}")
     launches["knn_sweep"] += n["knn_sweep"]
-    count_gn(launches, by_path, n, f"{tag} {label}")
+    count_own(launches, by_path, n, f"{tag} {label}")
     gap = float(se3.error_log_norm(pose_of_log(ref["log"], res.optimal_tf.t.device),
                                    res.optimal_tf))
     print(f"[{tag}] {label} on {kind}: {res.n_iterations} iterations, "
@@ -2820,7 +2936,7 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
               f"kitti-odometry {mode}: launches {n}, matcher calls {calls} of {kernel}")
         launches[kernel] += n[kernel]
         by_path[kernel][f"kitti-odometry {mode}, {APPS_FRAMES} frames"] = n[kernel]
-        count_gn(launches, by_path, n, f"kitti-odometry {mode}, {APPS_FRAMES} frames")
+        count_own(launches, by_path, n, f"kitti-odometry {mode}, {APPS_FRAMES} frames")
         check(poses.shape == (APPS_FRAMES, 4, 4) and np.isfinite(poses).all(),
               f"kitti-odometry {mode}: poses {poses.shape} not finite")
         ms = 1e3 / got["scans_per_s"]
@@ -2940,7 +3056,7 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
               f"icp-run {fmt}: launches {n}, matcher calls {calls}")
         launches["knn_sweep"] += n["knn_sweep"]
         by_path["knn_sweep"][f"icp-run, {what}"] = n["knn_sweep"]
-        count_gn(launches, by_path, n, f"icp-run, {what}")
+        count_own(launches, by_path, n, f"icp-run, {what}")
         dev = default_device()
         pose = pose_of_printed(got, dev)
         gap = float(se3.error_log_norm(pose_of_printed(r, dev), pose))
@@ -3484,7 +3600,7 @@ def loop_closure_phase(smi, kind, launches, by_path):
     launches["knn_sweep"] += n["knn_sweep"]
     by_path["knn_sweep"][f"kitti-odometry --mapping --loop-closure, {LOOP_FRAMES} frames"] = \
         n["knn_sweep"]
-    count_gn(launches, by_path, n,
+    count_own(launches, by_path, n,
              f"kitti-odometry --mapping --loop-closure, {LOOP_FRAMES} frames")
     poses = load_kitti_poses(str(poses_path))
     res = seen["result"]
@@ -3662,7 +3778,7 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
         launches[kernel] += sum(n[kernel] for n in per_rank)
         by_path[kernel][f"spatial align, {label} map, {SHARDS} ranks"] = \
             [n[kernel] for n in per_rank]
-        count_gn(launches, by_path, per_rank, f"spatial align, {label} map, {SHARDS} ranks")
+        count_own(launches, by_path, per_rank, f"spatial align, {label} map, {SHARDS} ranks")
 
     # the sharded pose graph against one rank
     for t_i, which in ((1 + len(align_cases), "dense"), (2 + len(align_cases), "cg")):
@@ -3732,7 +3848,7 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
     launches["knn_sweep"] += sum(n["knn_sweep"] for n in per_rank)
     by_path["knn_sweep"][f"SpatialOdometryMapper, {len(frames_np)} frames, "
                          f"{SPATIAL_RANKS} ranks"] = [n["knn_sweep"] for n in per_rank]
-    count_gn(launches, by_path, per_rank,
+    count_own(launches, by_path, per_rank,
              f"SpatialOdometryMapper, {len(frames_np)} frames, {SPATIAL_RANKS} ranks")
 
     per_rank = [r["launches"] for r in db]
@@ -3754,7 +3870,7 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
     launches["knn_sweep_batched"] += sum(n["knn_sweep_batched"] for n in per_rank)
     by_path["knn_sweep_batched"][f"data-parallel batch, {SPATIAL_RANKS} ranks"] = \
         [n["knn_sweep_batched"] for n in per_rank]
-    count_gn(launches, by_path, per_rank, f"data-parallel batch, {SPATIAL_RANKS} ranks")
+    count_own(launches, by_path, per_rank, f"data-parallel batch, {SPATIAL_RANKS} ranks")
 
 
 MESH_RANKS, MESH_SPACE = 4, 2  # the data x space phase's 2 x 2 mesh
@@ -3873,7 +3989,7 @@ def mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, proble
     launches["knn_sweep_batched"] += sum(n["knn_sweep_batched"] for n in per_rank)
     by_path["knn_sweep_batched"][f"data x space batch, 8 x 1M map, {MESH_RANKS} ranks"] = \
         [n["knn_sweep_batched"] for n in per_rank]
-    count_gn(launches, by_path, per_rank, f"data x space batch, 8 x 1M map, {MESH_RANKS} ranks")
+    count_own(launches, by_path, per_rank, f"data x space batch, 8 x 1M map, {MESH_RANKS} ranks")
 
     want = PARALLEL_JAX["data_space"]
     n_b = len(d_guesses)
@@ -3896,7 +4012,7 @@ def mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, proble
     launches["knn_sweep_batched"] += sum(n["knn_sweep_batched"] for n in per_rank)
     by_path["knn_sweep_batched"][f"data x space batch, the dry run's problems, "
                                  f"{MESH_RANKS} ranks"] = [n["knn_sweep_batched"] for n in per_rank]
-    count_gn(launches, by_path, per_rank,
+    count_own(launches, by_path, per_rank,
              f"data x space batch, the dry run's problems, {MESH_RANKS} ranks")
 
     # (c) K2 at the shape rank 0 launches on its first iteration: its 4 scans
@@ -4321,6 +4437,8 @@ def main():
     phase_done("kernels against their plain versions, times")
     shapes["gn_solve"], errs["gn_solve"] = gn_phase(smi)
     phase_done("Gauss-Newton kernel")
+    shapes["icp_terminate"], errs["icp_terminate"] = terminate_phase(smi)
+    phase_done("termination kernel")
     launches = {name: 0 for name in KERNELS}
     by_path = {name: {} for name in KERNELS}  # launches of each path's last counted window
 
@@ -4347,7 +4465,7 @@ def main():
     check(n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0, f"other kernels ran: {n}")
     launches["knn_sweep"] += n["knn_sweep"]
     by_path["knn_sweep"][f"scan to scan, {len(pairs)} aligns"] = n["knn_sweep"]
-    count_gn(launches, by_path, n, f"scan to scan, {len(pairs)} aligns")
+    count_own(launches, by_path, n, f"scan to scan, {len(pairs)} aligns")
 
     res, err = results[0]
     print(f"[align] KITTI config, bench pair {N_POINTS} pts on {kind}: SE(3) error "
@@ -4403,7 +4521,7 @@ def main():
         check(knn_launches(n) == n[kernel], f"{label}: other kernels ran: {n}")
         launches[kernel] += n[kernel]
         by_path[kernel][f"scan to the {label} map, {1 + MAP_TIMED[label]} aligns"] = n[kernel]
-        count_gn(launches, by_path, n, f"scan to the {label} map, {1 + MAP_TIMED[label]} aligns")
+        count_own(launches, by_path, n, f"scan to the {label} map, {1 + MAP_TIMED[label]} aligns")
         err = float(se3.error_log_norm(gt_map, res.optimal_tf))
         warm = walls[1:]
         print(f"[map] {label} map, crop {crop} ({n_kept} points kept, crop {crop_ms:.1f} ms) "
@@ -4447,7 +4565,7 @@ def main():
               f"batched: K1/K3 launched during the batched call: {n}")
         launches["knn_sweep_batched"] += n["knn_sweep_batched"]
         by_path["knn_sweep_batched"]["batched call"] = n["knn_sweep_batched"]
-        count_gn(launches, by_path, n, "batched call")
+        count_own(launches, by_path, n, "batched call")
     print(f"[count] batched: K2 launches {n['knn_sweep_batched']} == matcher calls {calls} "
           f"per call, K1 and K3 launches 0")
     seq_walls = []
@@ -4496,7 +4614,7 @@ def main():
               f"B = 16 pairs: K1/K3 launched during the batched call: {n}")
         launches["knn_sweep_batched"] += n["knn_sweep_batched"]
         by_path["knn_sweep_batched"][f"B = {PAIR_BATCH} scan-to-scan call"] = n["knn_sweep_batched"]
-        count_gn(launches, by_path, n, f"B = {PAIR_BATCH} scan-to-scan call")
+        count_own(launches, by_path, n, f"B = {PAIR_BATCH} scan-to-scan call")
     print(f"[count] B = {PAIR_BATCH} pairs: K2 launches {n['knn_sweep_batched']} == matcher "
           f"calls {calls} per call, K1 and K3 launches 0")
     seq16 = [r for r, _ in results[1:]]
@@ -4542,11 +4660,13 @@ def main():
               f"odometry: K2/K3 launched: {n}")
         launches["knn_sweep"] += n["knn_sweep"]
         by_path["knn_sweep"][f"odometry, one run of {ODO_FRAMES} frames"] = n["knn_sweep"]
-        count_gn(launches, by_path, n, f"odometry, one run of {ODO_FRAMES} frames")
-        # every solve of the mapper's ICP (Point2Plane, plain GNParams) takes the kernel
-        check(n["gn_solve"] == int(r["iterations"].sum()),
-              f"odometry: Gauss-Newton kernel launches {n['gn_solve']} != ICP iterations "
-              f"{int(r['iterations'].sum())}")
+        count_own(launches, by_path, n, f"odometry, one run of {ODO_FRAMES} frames")
+        # every solve of the mapper's ICP (Point2Plane, plain GNParams) takes the
+        # kernel, and every termination test the other
+        for name in OWN:
+            check(n[name] == int(r["iterations"].sum()),
+                  f"odometry: {name} kernel launches {n[name]} != ICP iterations "
+                  f"{int(r['iterations'].sum())}")
         ate = ate_rmse(r["poses"], gt_o)
         n_map = int(r["map"].count)
         frame_ms = r["frame_seconds"] * 1e3

@@ -34,7 +34,6 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.utils._pytree as pytree
 
-from mp2p_icp_tpu_torch.core import se3
 from mp2p_icp_tpu_torch.core.pairings import BLOCK_TYPES, Pairings, concat_blocks
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.core.se3 import Pose
@@ -47,6 +46,7 @@ from mp2p_icp_tpu_torch.matchers.base import (
     spatial_scale,
     transformed_local,
 )
+from mp2p_icp_tpu_torch.ops import icp_terminate
 from mp2p_icp_tpu_torch.quality.paired_ratio import QualityPairedRatio
 from mp2p_icp_tpu_torch.solvers.gauss_newton import SE3Prior
 from mp2p_icp_tpu_torch.utils.profiler import profile_scope, spanned
@@ -383,9 +383,10 @@ class ICP:
     def _step(self, params, prior, iteration, m_active, s_active, finished,
               g_layers, l_layers, pose, prev_pose, gidx_maps):
         """One ICP iteration on the device, without host syncs: matchers,
-        solvers, and the termination flags. Returns (pairings, kept pose,
-        no_pairs, solver_ok, stalled, finished); the kept pose is the
-        solver's unless it failed or there were no pairs."""
+        solvers, and the termination test (``ops/icp_terminate.py``: one
+        kernel on the card). Returns (pairings, kept pose, flags, finished):
+        flags is a bool [3], [no_pairs, solver_ok, stalled]; the kept pose
+        is the solver's unless it failed or there were no pairs."""
         with profile_scope("icp.match"):
             pairings = self._run_matchers(m_active, g_layers, l_layers, pose,
                                           iteration, gidx_maps)
@@ -394,17 +395,10 @@ class ICP:
                 pairings, pose, prev_pose, iteration, prior, s_active, finished
             )
         with profile_scope("icp.terminate"):
-            no_pairs = pairings.size() == 0
-            solver_ok = torch.isfinite(new_pose.t).all() & torch.isfinite(new_pose.R).all()
-            # step-size + oscillation termination (ICP.cpp:191-229)
-            eps_t, eps_r = params.min_abs_step_trans, params.min_abs_step_rot
-            dt1, dr1 = se3.delta_norms(pose, new_pose)
-            dt2, dr2 = se3.delta_norms(prev_pose, new_pose)
-            stalled = ((dt1 < eps_t) & (dr1 < eps_r)) | ((dt2 < eps_t) & (dr2 < eps_r))
-            keep_new = solver_ok & ~no_pairs
-            pose_out = Pose(torch.where(keep_new, new_pose.R, pose.R),
-                            torch.where(keep_new, new_pose.t, pose.t))
-        return pairings, pose_out, no_pairs, solver_ok, stalled, finished
+            pose_out, flags = icp_terminate.terminate(
+                pairings, pose, prev_pose, new_pose, params.min_abs_step_trans,
+                params.min_abs_step_rot)
+        return pairings, pose_out, flags, finished
 
     def _align_core(self, params, g_layers, l_layers, guess, prior, gidx_maps=None):
         device = guess.t.device
@@ -422,16 +416,14 @@ class ICP:
             with profile_scope("icp.iter"):
                 m_active = [m.gate(iteration) > 0 for m in self.matchers]
                 s_active = [s.gate(iteration) for s in self.solvers]
-                pairings, pose_out, no_pairs, solver_ok, stalled, finished = self._step(
+                pairings, pose_out, flags, finished = self._step(
                     params, prior, iteration, m_active, s_active, finished,
                     g_layers, l_layers, pose, prev_pose, gidx_maps,
                 )
-                flags = [no_pairs, solver_ok, stalled]
                 if params.iteration_hook is not None:
-                    flags.append(torch.as_tensor(
+                    flags = torch.cat([flags, torch.as_tensor(
                         params.iteration_hook(iteration, pose_out.R, pose_out.t, pairings.size()),
-                        dtype=torch.bool, device=device))
-                flags = torch.stack(flags)
+                        dtype=torch.bool, device=device).reshape(1)])
                 with profile_scope("sync.icp_flags"):  # the iteration's one host sync
                     no_pairs, solver_ok, stalled, *stop = flags.tolist()
                 prev_pose, pose = pose, pose_out

@@ -33,6 +33,7 @@ LIBRARIES = {
     "knn_streamed": ("knn_streamed.cu",),
     "knn_batched": ("knn_batched.cu",),
     "gn_solve": ("gn_solve.cu",),
+    "icp_terminate": ("icp_terminate.cu",),
 }
 
 # name -> (ctypes.CDLL, build record); one load per process

@@ -179,9 +179,10 @@ def _align_batched(icp: ICP, params: ICPParameters, l_layers: Dict[str, PointClo
                 return icp._step(params, None, iteration, m_active, s_active, fin,
                                  g, l, p, prev, maps)
 
-            new_pairs, new_pose, no_pairs, solver_ok, stalled, new_fin = vmap(
+            new_pairs, new_pose, flags, new_fin = vmap(
                 step, in_dims=(g_dim, 0, 0, 0, 0, 0))(g_layers, l_layers, pose, prev_pose,
                                                       gidx_maps, finished)
+            no_pairs, solver_ok, stalled = flags.unbind(-1)
             # each problem's own stop, after ICP._step's flags
             with profile_scope("icp.terminate"):
                 prev_pose, pose = (_where(running, pose, prev_pose),

@@ -25,13 +25,15 @@ import torch
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.core.se3 import Pose
 from mp2p_icp_tpu_torch.device import default_device
+from mp2p_icp_tpu_torch.ops import icp_terminate
 from mp2p_icp_tpu_torch.ops import nn_bruteforce as nnb
 from mp2p_icp_tpu_torch.parallel.mesh import make_mesh, shard_batch, world
 from mp2p_icp_tpu_torch.solvers import gauss_newton
 
 # the kernels whose launches a run counts: name -> the wrapper that counts them
 COUNTED = {"knn_sweep": nnb.knn_sweep, "knn_sweep_streamed": nnb.knn_sweep_streamed,
-           "knn_sweep_batched": nnb.knn_sweep_batched, "gn_solve": gauss_newton.gn_solve_fused}
+           "knn_sweep_batched": nnb.knn_sweep_batched, "gn_solve": gauss_newton.gn_solve_fused,
+           "icp_terminate": icp_terminate.terminate_fused}
 
 
 def _sync():

@@ -6,7 +6,9 @@ Under a CPU ``torch.profiler`` trace, ``ICP.align``, the batched align and
 iteration holding ``icp.match`` (with ``knn.query`` inside), ``icp.solve``,
 ``icp.terminate`` and the ``sync.<site>`` host reads, then ``icp.results``.
 The ``knn.rows`` counter records one entry per ``knn.query`` span, the
-``gn.solve`` counter one per Gauss-Newton solve (the plain path here). The
+``gn.solve`` counter one per Gauss-Newton solve and the ``icp.terminate``
+counter one per termination test (the plain paths here; a ``cuda`` case
+sees the termination kernel's ``fused`` records on the card). The
 poses are bit-equal with tracing on and off; with tracing off a span is
 one shared no-op that opens no ``record_function`` and costs at most a
 microsecond. One ``cuda`` case (skipped without a card) checks on the
@@ -122,12 +124,13 @@ def _traced(fn):
 
 
 def _split(records):
-    """The values of the ``knn.rows`` and of the ``gn.solve`` records; no
-    other counter records anything."""
+    """The values of the ``knn.rows``, the ``gn.solve`` and the
+    ``icp.terminate`` records; no other counter records anything."""
     knn = [v for n, v in records if n == "knn.rows"]
     gn = [v for n, v in records if n == "gn.solve"]
-    assert len(knn) + len(gn) == len(records)
-    return knn, gn
+    term = [v for n, v in records if n == "icp.terminate"]
+    assert len(knn) + len(gn) + len(term) == len(records)
+    return knn, gn, term
 
 
 def _children(spans, parent):
@@ -153,11 +156,12 @@ def test_align_spans_nest_under_the_root():
         assert sum(n == name for _, _, n, _ in spans) == res.n_iterations, name
     # one counter record per kNN call, in order, and one per Gauss-Newton
     # solve (iterations 3 on; the CPU's plain path, 512 pt2pt rows)
-    knn, gn = _split(records)
+    knn, gn, term = _split(records)
     assert len(knn) == sum(n == "knn.query" for _, _, n, _ in spans) == res.n_iterations
     assert all(vals[0] == 1 and vals[1] == 1 for vals in knn)
     assert int(knn[0][2]) == 512 and int(knn[0][3]) == 512
     assert gn == [("plain", None, 512)] * (res.n_iterations - 3)
+    assert term == [("plain", None)] * res.n_iterations  # one per termination test
 
     plain = icp.align(local, glob, guess, params)
     assert torch.equal(plain.optimal_tf.R, res.optimal_tf.R)
@@ -187,9 +191,10 @@ def test_batched_align_spans_under_vmap():
     # ICP._step's termination under vmap, and each problem's stop after it
     assert sum(n == "icp.terminate" for _, _, n, _ in spans) == 2 * loops
     assert _parents(spans, "icp.results") == {None}
-    knn, gn = _split(records)
+    knn, gn, term = _split(records)
     assert len(knn) == sum(n == "knn.query" for _, _, n, _ in spans) == loops
     assert gn == [("plain", None, 512)] * (loops - 3)  # one record per vmapped solve
+    assert term == [("plain", None)] * loops  # one per vmapped test
     # under vmap the sweep gets one count per problem
     k, B, q, p, shared = knn[0]
     assert (k, B, shared) == (1, 2, False) and q.tolist() == p.tolist() == [512, 512]
@@ -222,9 +227,9 @@ def test_odometry_frames_are_rooted_at_their_step(drive):
     assert roots == (["odometry.step", "sync.drive_iterations", "sync.progress"] * 2
                      + ["sync.drive_fetch", "sync.results"])
     assert sum(n == "icp.iter" for _, _, n, _ in spans) == int(np.sum(res["iterations"]))
-    knn, gn = _split(records)
+    knn, gn, term = _split(records)
     assert len(knn) == sum(n == "knn.query" for _, _, n, _ in spans)
-    assert len(gn) == int(np.sum(res["iterations"]))
+    assert len(gn) == len(term) == int(np.sum(res["iterations"]))
 
     plain = mapper.run(frames[:3], twists=twists[:3], dt=0.1, progress_every=1)
     np.testing.assert_array_equal(plain["poses"], res["poses"])
@@ -242,10 +247,10 @@ def test_fleet_frames_are_rooted_at_their_step(drive):
         assert _parents(frame_spans, name) == {"odometry.step"}, name
     assert sum(n == "icp.iter" for _, _, n, _ in spans) == int(
         np.sum(res["iterations"].max(axis=0)))
-    knn, gn = _split(records)
+    knn, gn, term = _split(records)
     assert len(knn) == sum(n == "knn.query" for _, _, n, _ in spans)
     assert {r[1] for r in knn} == {1, 2}  # the seeds' fits, then the fleet's sweeps
-    assert len(gn) == sum(n == "icp.iter" for _, _, n, _ in spans)
+    assert len(gn) == len(term) == sum(n == "icp.iter" for _, _, n, _ in spans)
 
     plain = fleet.run(streams, twists=tws, dt=0.1)
     np.testing.assert_array_equal(plain["poses"], res["poses"])
@@ -330,3 +335,20 @@ def test_sweeps_launch_inside_the_match_span_on_card(tmp_path):
     for ts in sweeps:
         for name in ("icp.match", "knn.query"):
             assert any(s <= ts <= e for s, e in spans[name]), (name, ts)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_terminate_counter_names_its_path(device):
+    """One ``icp.terminate`` record per ICP iteration: ("plain", None) on
+    the CPU, ("fused", 1) on the card, where the termination test is one
+    kernel launch (``ops/icp_terminate.py``)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the termination kernel has no CPU mode")
+    local, glob, guess = _pair(8, device=device)
+    icp, params = _icp(), ICPParameters(max_iterations=8)
+    icp.align(local, glob, guess, params)  # builds the card's kernels
+    res, spans, records = _traced(lambda: icp.align(local, glob, guess, params))
+    _, _, term = _split(records)
+    want = ("fused", 1) if device == "cuda" else ("plain", None)
+    assert term == [want] * res.n_iterations
+    assert sum(n == "icp.terminate" for _, _, n, _ in spans) == res.n_iterations
