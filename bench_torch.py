@@ -91,7 +91,6 @@ from mp2p_icp_tpu_torch.odometry import BatchedOdometryMapper, OdometryMapper
 from mp2p_icp_tpu_torch.ops import cuda_build
 from mp2p_icp_tpu_torch.ops import nn_bruteforce as nnb
 from mp2p_icp_tpu_torch.parallel import make_batched_align, stack_pytrees
-from mp2p_icp_tpu_torch.parallel.ranks import COUNTED  # the kernels whose launches the run counts
 from mp2p_icp_tpu_torch.solvers.gauss_newton import GNParams
 from mp2p_icp_tpu_torch.solvers.robust import RobustKernel
 from mp2p_icp_tpu_torch.solvers.solver import SolverGaussNewton, SolverHorn
@@ -637,8 +636,7 @@ def bench(sz, device):
     else:
         name, limit = host_cpu(), None
     log(f"[bench] host CPU (the C++ baselines): {host_cpu()}")
-    for wrapper in COUNTED.values():
-        wrapper.launches = 0
+    cuda_build.reset_launches()
     with tempfile.TemporaryDirectory(prefix="mp2p_bench_") as tmp:
         cpp = NativeBaselines(tmp)
         s = scan_to_scan(sz, device, cpp)
@@ -647,7 +645,7 @@ def bench(sz, device):
         stage = stage_profile(sz, device, s) if profile else {}
         m = scan_to_map(sz, device, cpp)
         odo = odometry(sz, device, cpp)
-    log(f"[bench] launches {json.dumps({name: w.launches for name, w in COUNTED.items()})}")
+    log(f"[bench] launches {json.dumps(cuda_build.launches)}")
     c, cm, c16 = s["cpp"], m["cpp"], m["cpp_16m"]
     cpp_speed = float(c["aligns_per_s"]) if c else None
     best = max(s["scans_per_s"], batched)

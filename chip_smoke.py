@@ -355,7 +355,6 @@ from mp2p_icp_tpu_torch.ops import nn_bruteforce as nnb
 from mp2p_icp_tpu_torch.ops.voxel_hash_map import hash_map_insert
 from mp2p_icp_tpu_torch.ops.voxel_occupancy import update_voxel_map
 from mp2p_icp_tpu_torch.parallel import make_batched_align, stack_pytrees
-from mp2p_icp_tpu_torch.parallel.ranks import COUNTED  # kernel -> the wrapper counting it
 from mp2p_icp_tpu_torch.parity import knn_mismatch
 from mp2p_icp_tpu_torch.quality import (
     QualityPairedRatio,
@@ -369,24 +368,23 @@ from mp2p_icp_tpu_torch.solvers.solver import SolverGaussNewton, SolverHorn, Sol
 
 N_REQUESTS = 8
 ERR_LIMIT = 0.1  # the reference's end-to-end bound on ||log(gt^-1 T)||
-# kernel -> (source, the TPU kernel it replaces; None: one of the port's own)
-KERNELS = {
-    "knn_sweep": ("mp2p_icp_tpu_torch/csrc/knn_bruteforce.cu",
-                  "mp2p_icp_tpu/ops/nn_bruteforce.py:154"),  # _nnk_kernel_gridless
-    "knn_sweep_streamed": ("mp2p_icp_tpu_torch/csrc/knn_streamed.cu",
-                           "mp2p_icp_tpu/ops/nn_bruteforce.py:509"),  # _nnk_kernel_streamed_dbuf
-    "knn_sweep_batched": ("mp2p_icp_tpu_torch/csrc/knn_batched.cu",
-                          "mp2p_icp_tpu/ops/nn_bruteforce.py:214"),  # _nnk_kernel_gridless_batched
-    # the JAX package solves Gauss-Newton and tests termination with XLA's
-    # ops, not with a kernel
-    "gn_solve": ("mp2p_icp_tpu_torch/csrc/gn_solve.cu", None),
-    "icp_terminate": ("mp2p_icp_tpu_torch/csrc/icp_terminate.cu", None),
+# kernel (its library in cuda_build.LIBRARIES) -> the TPU kernel of the JAX
+# package it replaces; None: one of the port's own (the JAX package solves
+# Gauss-Newton and tests termination with XLA's ops, not with a kernel)
+REPLACES = {
+    "knn_bruteforce": "mp2p_icp_tpu/ops/nn_bruteforce.py:154",  # _nnk_kernel_gridless
+    "knn_streamed": "mp2p_icp_tpu/ops/nn_bruteforce.py:509",  # _nnk_kernel_streamed_dbuf
+    "knn_batched": "mp2p_icp_tpu/ops/nn_bruteforce.py:214",  # _nnk_kernel_gridless_batched
+    "gn_solve": None,
+    "icp_terminate": None,
 }
-KNN = ("knn_sweep", "knn_sweep_streamed", "knn_sweep_batched")  # the sweeps among them
-OWN = ("gn_solve", "icp_terminate")  # the port's own kernels, which replace none
-LIBRARY = {"knn_sweep": "knn_bruteforce", "knn_sweep_streamed": "knn_streamed",
-           "knn_sweep_batched": "knn_batched", "gn_solve": "gn_solve",
-           "icp_terminate": "icp_terminate"}
+
+
+def source(name):
+    """A kernel's CUDA source, from the repository's root."""
+    return f"mp2p_icp_tpu_torch/csrc/{cuda_build.LIBRARIES[name][0]}"
+
+
 # the scan-to-map problem of bench.py:367-408 and the JAX package's result
 # for it on the CPU (SE(3) error, iterations, termination)
 MAP_CASES = (("1M", 1 << 20, 1 << 16, (0.00133, 30, "STALLED")),
@@ -1472,28 +1470,27 @@ def planar_range_pairs(n_rays=PLANAR_RAYS, n_pairs=PLANAR_PAIRS):
 
 
 def reset_counts():
-    for name in KERNELS:
-        COUNTED[name].launches = 0
+    cuda_build.reset_launches()
 
 
 def counts():
-    return {name: COUNTED[name].launches for name in KERNELS}
+    return dict(cuda_build.launches)
 
 
 def knn_launches(n):
     """The kNN sweeps' launches in a ``counts()`` dict."""
-    return sum(n[name] for name in KNN)
+    return sum(v for name, v in n.items() if name.startswith("knn_"))
 
 
 def count_own(launches, by_path, n, label):
-    """Adds the launches of the port's own kernels (``OWN``) in one path's
-    counted window (``n``: its ``counts()``, or one per rank) to
+    """Adds the launches of the port's own kernels (``REPLACES`` None) in
+    one path's counted window (``n``: its ``counts()``, or one per rank) to
     ``launches`` and ``by_path``. The Gauss-Newton kernel's are 0 where the
     path's solves took the plain path (a robust kernel, a prior, or pt2ln /
     ln2ln / pl2pl pairs); the termination kernel's are one per ICP
     iteration of an align on the card (a batched align's: one per
     iteration of the batch)."""
-    for name in OWN:
+    for name in (name for name, jax in REPLACES.items() if jax is None):
         per = [r[name] for r in n] if isinstance(n, list) else n[name]
         launches[name] += sum(per) if isinstance(per, list) else per
         by_path[name][label] = per
@@ -1955,7 +1952,7 @@ def counted_cases(errs, dev, q_src, p_src, rng):
         ps = torch.where(pv[:, None], p, -1.0e8).contiguous()
         n = (nnb.valid_count(qv), nnb.valid_count(pv))
         for k in (1, 5, 8):
-            errs["knn_sweep"].append(compare(
+            errs["knn_bruteforce"].append(compare(
                 f"K1 777x3001 k={k} counted, {kind} ({int(n[0])} x {int(n[1])} rows)",
                 nnb.knn_sweep, nnb.knn_plain, qs, ps, k, *n))
             got = nnb.knn_bruteforce(q, qv, p, pv, k=k)
@@ -1968,7 +1965,7 @@ def counted_cases(errs, dev, q_src, p_src, rng):
             qg, pg = grid_points(rng, Q).to(dev), grid_points(rng, C).to(dev)
             n = (torch.tensor(Q * 2 // 3 + 1, dtype=torch.int32, device=dev),
                  torch.tensor(C * 3 // 5 + 2, dtype=torch.int32, device=dev))
-            errs["knn_sweep"].append(compare(
+            errs["knn_bruteforce"].append(compare(
                 f"K1 {Q}x{C} k={k} integer grid (ties), counted {int(n[0])} x {int(n[1])}",
                 nnb.knn_sweep, nnb.knn_plain, qg, pg, k, *n))
         for shared in (False, True):
@@ -1979,7 +1976,7 @@ def counted_cases(errs, dev, q_src, p_src, rng):
                  torch.from_numpy(rng.randint(0, C + 1, 1 if shared else B).astype(np.int32)
                                   ).to(dev))
             n[0][0], n[1][-1] = 0, C  # a problem without a query, a map swept whole
-            errs["knn_sweep_batched"].append(compare(
+            errs["knn_batched"].append(compare(
                 f"K2 {B}x{Q}x{C} k={k} integer grid (ties), per-problem counts "
                 f"{n[0].tolist()} x {n[1].tolist()}{', shared map' if shared else ''}",
                 nnb.knn_sweep_batched, nnb.knn_plain_batched, qg, pg, k, *n))
@@ -2245,15 +2242,15 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
         c = counts()
         slowest = r["iterations"].max(axis=0)  # a fleet frame runs its slowest stream's
         calls = sum(matcher_calls(mapper.icp, int(it)) for it in slowest) + (n - 1)
-        check(c["knn_sweep_batched"] == calls,
-              f"fleet {label}: K2 launches {c['knn_sweep_batched']} != fleet ICP iterations "
+        check(c["knn_batched"] == calls,
+              f"fleet {label}: K2 launches {c['knn_batched']} != fleet ICP iterations "
               f"+ normals fits {calls}")
-        check(c["knn_sweep"] == BATCH and c["knn_sweep_streamed"] == 0,
+        check(c["knn_bruteforce"] == BATCH and c["knn_streamed"] == 0,
               f"fleet {label}: K1 launches must be the {BATCH} seeds, K3 none: {c}")
-        launches["knn_sweep_batched"] += c["knn_sweep_batched"]
-        launches["knn_sweep"] += c["knn_sweep"]
-        by_path["knn_sweep_batched"]["fleet"] = c["knn_sweep_batched"]
-        by_path["knn_sweep"]["fleet"] = c["knn_sweep"]
+        launches["knn_batched"] += c["knn_batched"]
+        launches["knn_bruteforce"] += c["knn_bruteforce"]
+        by_path["knn_batched"]["fleet"] = c["knn_batched"]
+        by_path["knn_bruteforce"]["fleet"] = c["knn_bruteforce"]
         count_own(launches, by_path, c, "fleet")
         frame_ms = r["frame_seconds"] * 1e3
         print(f"[fleet] {label}: {BATCH} streams x {n} frames on {kind}: {r['scans_per_s']:.2f} "
@@ -2261,8 +2258,8 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
               f"{frame_ms.max():.1f} (sensor period {SENSOR_PERIOD_MS:.0f} ms per robot); ICP "
               f"iterations per fleet frame mean {slowest.mean():.2f} max {slowest.max()} "
               f"(the streams' own mean {r['iterations'].mean():.2f}); K2 launches "
-              f"{c['knn_sweep_batched']} = {int(slowest.sum())} iterations + {n - 1} fits "
-              f"({c['knn_sweep_batched'] / (n - 1):.2f} per fleet frame), K1 {c['knn_sweep']} "
+              f"{c['knn_batched']} = {int(slowest.sum())} iterations + {n - 1} fits "
+              f"({c['knn_batched'] / (n - 1):.2f} per fleet frame), K1 {c['knn_bruteforce']} "
               f"(the seeds), K3 0 on {smi}")
         check(r["poses"].shape == (BATCH, n, 4, 4) and np.isfinite(r["poses"]).all(),
               f"fleet {label}: poses not finite")
@@ -2291,11 +2288,11 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
     r_off = mapper.run_offline(frames, twists=twists, dt=ODO_DT, initial_pose=pose_of(gt[0]))
     torch.cuda.synchronize()
     c = counts()
-    launches["knn_sweep"] += c["knn_sweep"]
-    by_path["knn_sweep"][f"odometry run_offline, {len(frames)} frames"] = c["knn_sweep"]
+    launches["knn_bruteforce"] += c["knn_bruteforce"]
+    by_path["knn_bruteforce"][f"odometry run_offline, {len(frames)} frames"] = c["knn_bruteforce"]
     count_own(launches, by_path, c, f"odometry run_offline, {len(frames)} frames")
-    check(c["knn_sweep"] == int(r_off["iterations"].sum()) + len(frames)
-          and c["knn_sweep_batched"] == c["knn_sweep_streamed"] == 0,
+    check(c["knn_bruteforce"] == int(r_off["iterations"].sum()) + len(frames)
+          and c["knn_batched"] == c["knn_streamed"] == 0,
           f"odometry run_offline: launches {c}")
     same = all(np.array_equal(run_36[key], r_off[key])
                for key in ("poses", "qualities", "iterations", "map_counts"))
@@ -2339,10 +2336,10 @@ def fleet_phase(mapper, frames, twists, gt, run_36, launches, by_path, smi, kind
         check(abs(n_map - ref["map_points"]) <= 0.02 * ref["map_points"],
               f"fleet stream {b}: {n_map} map points, not within 2% of {ref['map_points']}")
     c = counts()
-    check(c["knn_sweep"] == seq_calls and c["knn_sweep_batched"] == 0,
-          f"sequential streams: K1 launches {c['knn_sweep']} != {seq_calls}, or K2 ran: {c}")
-    launches["knn_sweep"] += c["knn_sweep"]
-    by_path["knn_sweep"][f"the fleet's {BATCH} streams one after another"] = c["knn_sweep"]
+    check(c["knn_bruteforce"] == seq_calls and c["knn_batched"] == 0,
+          f"sequential streams: K1 launches {c['knn_bruteforce']} != {seq_calls}, or K2 ran: {c}")
+    launches["knn_bruteforce"] += c["knn_bruteforce"]
+    by_path["knn_bruteforce"][f"the fleet's {BATCH} streams one after another"] = c["knn_bruteforce"]
     count_own(launches, by_path, c, f"the fleet's {BATCH} streams one after another")
     print(f"[fleet] aggregate: run {rb['scans_per_s']:.2f} scans/s, run_offline cold "
           f"{fleet_runs[1]['scans_per_s']:.2f}, warm {fleet_runs[2]['scans_per_s']:.2f}; the same "
@@ -2402,23 +2399,23 @@ def held_align(icp, loc, glob, guess, params, label, ref, kind, launches, by_pat
     wall = time.perf_counter() - t0
     n = counts()
     calls = matcher_calls(icp, res.n_iterations)
-    check(n["knn_sweep"] == calls and calls > 0,
-          f"{label}: K1 launches {n['knn_sweep']} != matcher calls {calls}")
-    check(n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0, f"{label}: K2/K3 ran: {n}")
-    launches["knn_sweep"] += n["knn_sweep"]
+    check(n["knn_bruteforce"] == calls and calls > 0,
+          f"{label}: K1 launches {n['knn_bruteforce']} != matcher calls {calls}")
+    check(n["knn_streamed"] == n["knn_batched"] == 0, f"{label}: K2/K3 ran: {n}")
+    launches["knn_bruteforce"] += n["knn_bruteforce"]
     count_own(launches, by_path, n, f"{tag} {label}")
     gap = float(se3.error_log_norm(pose_of_log(ref["log"], res.optimal_tf.t.device),
                                    res.optimal_tf))
     print(f"[{tag}] {label} on {kind}: {res.n_iterations} iterations, "
           f"{res.termination_reason.name}, quality {float(res.quality):.6f}, pose gap to "
           f"JAX {gap:.3g} [JAX CPU reference: {ref['iterations']}, {ref['termination']}, "
-          f"{ref['quality']:.6f}]; {n['knn_sweep']} K1 launches, {wall * 1e3:.1f} ms")
+          f"{ref['quality']:.6f}]; {n['knn_bruteforce']} K1 launches, {wall * 1e3:.1f} ms")
     check(res.termination_reason.name == ref["termination"],
           f"{label}: {res.termination_reason.name}, JAX {ref['termination']}")
     check(iterations_agree(res.n_iterations, ref["iterations"], planar),
           f"{label}: {res.n_iterations} iterations, JAX {ref['iterations']}")
     check(gap < 5e-3, f"{label}: pose {gap} from the JAX reference's")
-    return res, n["knn_sweep"], wall
+    return res, n["knn_bruteforce"], wall
 
 
 def engine_phase(smi, kind, launches, by_path):
@@ -2462,7 +2459,7 @@ def engine_phase(smi, kind, launches, by_path):
         runs[label] = res
         walls.append(wall)
         k1 += n_k1
-    by_path["knn_sweep"]["engine 3D, 3 aligns"] = k1
+    by_path["knn_bruteforce"]["engine 3D, 3 aligns"] = k1
     per_align["engine 3D"] = (k1 / len(ENGINE_RUNS), statistics.median(walls) * 1e3)
     a, b = runs["passive hook"], runs["no hook"]
     check(torch.equal(a.optimal_tf.R, b.optimal_tf.R) and torch.equal(a.optimal_tf.t, b.optimal_tf.t)
@@ -2505,7 +2502,7 @@ def engine_phase(smi, kind, launches, by_path):
         check(err < ERR_LIMIT, f"2D pair {i}: SE(3) error {err} >= {ERR_LIMIT}")
         walls.append(wall)
         k1 += n_k1
-    by_path["knn_sweep"][f"engine 2D, {PLANAR_PAIRS} aligns"] = k1
+    by_path["knn_bruteforce"][f"engine 2D, {PLANAR_PAIRS} aligns"] = k1
     per_align["engine 2D"] = (k1 / PLANAR_PAIRS, statistics.median(walls) * 1e3)
     for label, (n_k1, ms) in per_align.items():
         print(f"[engine] {label}: {n_k1:.1f} K1 launches per align, median "
@@ -2695,7 +2692,7 @@ def sm2mm_phase(smi, kind, launches, by_path, gt, twists, scans, tables):
               and mean_gap <= band, f"sm2mm {label}: deskewed rows {desk_gap} / {mean_gap} m "
               f"from JAX's (band {band})")
         last[label] = mm.layers["deskewed"]
-        by_path["knn_sweep"][f"sm2mm {label}"] = 0
+        by_path["knn_bruteforce"][f"sm2mm {label}"] = 0
         if label == "pass 1":
             pass1 = {"simple_map": sm, "summary": got, "raw_rows": n_raw}
     d = (last["pass 1"].xyz - last["pass 2"].xyz)[: int(last["pass 1"].count)].abs().max()
@@ -2729,7 +2726,7 @@ def yaml_phase(smi, kind, launches, by_path, scene, scans, engine_planar):
           f"2 m kept {int(fl['decimated'].count)} + {int(fg['decimated'].count)} points; SE(3) "
           f"error {err:.6f}")
     check(err < ERR_LIMIT, f"kitti YAML: SE(3) error {err}")
-    by_path["knn_sweep"]["yaml kitti align"] = n_k1
+    by_path["knn_bruteforce"]["yaml kitti align"] = n_k1
 
     # example1: two ClosestToAverage sections on a bunny-sized pair
     icp, params, sections = load_icp_config_file(DEMOS / "icp-settings-example1.yaml")
@@ -2747,7 +2744,7 @@ def yaml_phase(smi, kind, launches, by_path, scene, scans, engine_planar):
               f"{YAML_JAX['example1'][side + '_decimated']}")
     print(f"[yaml] example1: ClosestToAverage 0.01 m kept {int(fl['decimated'].count)} + "
           f"{int(fg['decimated'].count)} rows (as JAX); SE(3) error {err:.6f}")
-    by_path["knn_sweep"]["yaml example1 align"] = n_k1
+    by_path["knn_bruteforce"]["yaml example1 align"] = n_k1
 
     # 2D: the demo's generators decode the planar pairs' range scans
     icp, params, sections = load_icp_config_file(DEMOS / "icp-settings-2d-lidar-point2line.yaml")
@@ -2777,7 +2774,7 @@ def yaml_phase(smi, kind, launches, by_path, scene, scans, engine_planar):
               + ("the align equals the engine phase's to the bit" if gap == 0.0 else
                  "held to the align band of YAML_JAX instead of the engine phase's bits"))
         check(gap > 0.0 or same, f"2D pair {i}: equal layers, aligns differ")
-    by_path["knn_sweep"][f"yaml 2D, {PLANAR_PAIRS} aligns"] = k1
+    by_path["knn_bruteforce"][f"yaml 2D, {PLANAR_PAIRS} aligns"] = k1
 
     # one street frame through a YAML pipeline of every filter
     frame = {"raw": scan_to_pointcloud(scans[0], capacity=1 << 16)}
@@ -2790,10 +2787,10 @@ def yaml_phase(smi, kind, launches, by_path, scene, scans, engine_planar):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = counts()
-    check(n["knn_sweep"] == 1 and n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0,
+    check(n["knn_bruteforce"] == 1 and n["knn_streamed"] == n["knn_batched"] == 0,
           f"filter pipeline: one K1 launch (the normals fit) expected, got {n}")
-    launches["knn_sweep"] += n["knn_sweep"]
-    by_path["knn_sweep"]["yaml filter pipeline (normals k=8)"] = n["knn_sweep"]
+    launches["knn_bruteforce"] += n["knn_bruteforce"]
+    by_path["knn_bruteforce"]["yaml filter pipeline (normals k=8)"] = n["knn_bruteforce"]
     ref = YAML_JAX["filters"]
     check(sorted(out) == sorted(ref), f"filter pipeline layers {sorted(out)}, JAX {sorted(ref)}")
     for name in sorted(ref):
@@ -2910,11 +2907,11 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
     # scan-to-scan and scan-to-map modes with the ground-cropped YAML
     map_path = APPS_DIR / "map.mm.npz"
     mapping = ["--mapping", "--map-capacity", APPS_MAP_CAPACITY, "--out-map"]
-    runs = (("sequential", KITTI_YAML, "knn_sweep", []),
-            ("batched", KITTI_YAML, "knn_sweep_batched", ["-B", APPS_BATCH]),
-            ("mapping", KITTI_YAML, "knn_sweep", mapping + [map_path]),
-            ("cropped_sequential", files["cropped"], "knn_sweep", []),
-            ("cropped_mapping", files["cropped"], "knn_sweep",
+    runs = (("sequential", KITTI_YAML, "knn_bruteforce", []),
+            ("batched", KITTI_YAML, "knn_batched", ["-B", APPS_BATCH]),
+            ("mapping", KITTI_YAML, "knn_bruteforce", mapping + [map_path]),
+            ("cropped_sequential", files["cropped"], "knn_bruteforce", []),
+            ("cropped_mapping", files["cropped"], "knn_bruteforce",
              mapping + [APPS_DIR / "map_cropped.mm.npz"]))
     true_step = np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1)
     motion = {}
@@ -2931,7 +2928,7 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
         poses = load_kitti_poses(str(poses_path))
         ate, rt, rr = trajectory_errors(poses, gt)
         calls = sum(got["batch_iterations"]) if mode == "batched" else got["iterations"]
-        others = {k: n[k] for k in KNN if k != kernel}
+        others = {k: v for k, v in n.items() if k.startswith("knn_") and k != kernel}
         check(n[kernel] == calls and calls > 0 and not any(others.values()),
               f"kitti-odometry {mode}: launches {n}, matcher calls {calls} of {kernel}")
         launches[kernel] += n[kernel]
@@ -3015,13 +3012,15 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
                               {"decimated": dec_last}, pose_last)[0]["map"]
     qm, pm = sentinel_padded(dec_last, 1.0e8), sentinel_padded(crop, -1.0e8)
     # the last field: the plain version's timed calls (K2's takes 8 x 1.7 s)
+    k1, k2 = (nnb.knn_sweep, nnb.knn_plain), (nnb.knn_sweep_batched, nnb.knn_plain_batched)
     new_rows = (
-        ("knn_sweep", "kitti-odometry / icp-run: the decimated KITTI layer", 1, q1, p1, 3),
-        ("knn_sweep", "kitti-odometry --mapping: against the map's crop", 1, qm, pm, 3),
-        ("knn_sweep_batched", f"kitti-odometry -B {APPS_BATCH}", APPS_BATCH, qb, pb, 1),
+        ("knn_bruteforce", *k1, "kitti-odometry / icp-run: the decimated KITTI layer", 1, q1,
+         p1, 3),
+        ("knn_bruteforce", *k1, "kitti-odometry --mapping: against the map's crop", 1, qm, pm,
+         3),
+        ("knn_batched", *k2, f"kitti-odometry -B {APPS_BATCH}", APPS_BATCH, qb, pb, 1),
     )
-    for name, label, B, q, p, plain_reps in new_rows:
-        kernel, plain = getattr(nnb, name), getattr(nnb, name.replace("sweep", "plain"))
+    for name, kernel, plain, label, B, q, p, plain_reps in new_rows:
         Q, C = q.shape[-2], p.shape[-2]
         errs[name].append(compare(f"{name} {B}x{Q}x{C} k=1 ({label}, "
                                   f"{int((q[..., 0].abs() < 1e7).sum())} valid queries, "
@@ -3052,10 +3051,10 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
         n = counts()
         got = icp_run_printed(text)
         calls = matcher_calls(icp, got["iterations"])
-        check(n["knn_sweep"] == calls and n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0,
+        check(n["knn_bruteforce"] == calls and n["knn_streamed"] == n["knn_batched"] == 0,
               f"icp-run {fmt}: launches {n}, matcher calls {calls}")
-        launches["knn_sweep"] += n["knn_sweep"]
-        by_path["knn_sweep"][f"icp-run, {what}"] = n["knn_sweep"]
+        launches["knn_bruteforce"] += n["knn_bruteforce"]
+        by_path["knn_bruteforce"][f"icp-run, {what}"] = n["knn_bruteforce"]
         count_own(launches, by_path, n, f"icp-run, {what}")
         dev = default_device()
         pose = pose_of_printed(got, dev)
@@ -3064,7 +3063,7 @@ def apps_phase(smi, kind, launches, by_path, errs, shapes, pass1):
         log_gap = float((log["result"].t - pose.t).abs().max())
         print(f"[apps] icp-run from {what} on {kind}: {got['iterations']} iterations, "
               f"{got['termination']}, quality {got['quality']}, {got['pairings']} pairings, "
-              f"pose gap to JAX {gap:.3g}, {n['knn_sweep']} K1 launches, {seconds:.2f} s for "
+              f"pose gap to JAX {gap:.3g}, {n['knn_bruteforce']} K1 launches, {seconds:.2f} s for "
               f"the call [JAX CPU reference: {r['iterations']}, {r['termination']}, "
               f"{r['quality']}]; --out-log loads, its pose within {log_gap:.2g} m of the printed")
         check(got["termination"] == r["termination"]
@@ -3230,10 +3229,10 @@ def tools_phase(smi, kind, launches, by_path, errs, shapes, scans, pass1):
                                                   d / "out.rawlog.npz", "-p", d / "tools.yaml",
                                                   "-v", "QUIET"])
     n = counts()
-    check(n["knn_sweep"] == APPS_FRAMES and n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0,
+    check(n["knn_bruteforce"] == APPS_FRAMES and n["knn_streamed"] == n["knn_batched"] == 0,
           f"rawlog-filter: launches {n}, want one K1 a frame ({APPS_FRAMES})")
-    launches["knn_sweep"] += n["knn_sweep"]
-    by_path["knn_sweep"][f"rawlog-filter, {APPS_FRAMES} frames (normals k=8)"] = n["knn_sweep"]
+    launches["knn_bruteforce"] += n["knn_bruteforce"]
+    by_path["knn_bruteforce"][f"rawlog-filter, {APPS_FRAMES} frames (normals k=8)"] = n["knn_bruteforce"]
     got = rawlog_summary(Rawlog.load(str(d / "out.rawlog.npz")))
     want = ref["rawlog"]
     check(len(got) == len(want) == APPS_FRAMES, f"rawlog-filter: {len(got)} frames")
@@ -3267,7 +3266,7 @@ def tools_phase(smi, kind, launches, by_path, errs, shapes, scans, pass1):
           f"ms a frame (host clock: load, generator, range, FirstPoint 0.5 m, normals, save; "
           f"{seconds:.1f} s the call), 4 entries a frame (the observation, out_decimated, "
           f"out_ranged, out_raw), rows exact and sums {gap:.3g} apart (relative) as JAX's; "
-          f"decimated {min(decimated)}-{max(decimated)} rows; {n['knn_sweep']} K1 launches, no "
+          f"decimated {min(decimated)}-{max(decimated)} rows; {n['knn_bruteforce']} K1 launches, no "
           f"K2/K3; rows with a normal minus JAX's per frame in [{min(wn)}, {max(wn)}]; "
           + ", ".join(f"frame {k}: {a} of {b} normals beyond {NORMALS_BAND} of JAX's"
                       for k, (a, b) in rows_far.items()) + f" on {smi}")
@@ -3278,16 +3277,16 @@ def tools_phase(smi, kind, launches, by_path, errs, shapes, scans, pass1):
                         count=torch.from_numpy(record[0]["count"]).to(dev))
     q, p = sentinel_padded(layer0, 1.0e8), sentinel_padded(layer0, -1.0e8)
     Q = q.shape[0]
-    errs["knn_sweep"].append(compare(
+    errs["knn_bruteforce"].append(compare(
         f"K1 {Q}x{Q} k=8 (rawlog-filter normals, {int(layer0.count)} valid)", nnb.knn_sweep,
         nnb.knn_plain, q, p, 8))
     n = (row_counts(q), row_counts(p))  # as the normals filter's front end passes them
     launch_line(1, Q, Q, 8, n)
-    errs["knn_sweep"].append(compare(f"K1 {Q}x{Q} k=8 (rawlog-filter normals) counted",
+    errs["knn_bruteforce"].append(compare(f"K1 {Q}x{Q} k=8 (rawlog-filter normals) counted",
                                      nnb.knn_sweep, nnb.knn_plain, q, p, 8, *n))
     g_times = graph_ms(lambda: nnb.knn_sweep(q, p, 8, *n), replays=3)
-    shapes["knn_sweep"].append(kernel_row(
-        "knn_sweep", "rawlog-filter normals", 1, Q, Q, 8,
+    shapes["knn_bruteforce"].append(kernel_row(
+        "knn_bruteforce", "rawlog-filter normals", 1, Q, Q, 8,
         lambda: nnb.knn_sweep(q, p, 8, *n), lambda: nnb.knn_plain(q, p, 8, *n), q, p, g_times,
         smi, plain_reps=1, counts=n))
     del q, p
@@ -3303,10 +3302,10 @@ def tools_phase(smi, kind, launches, by_path, errs, shapes, scans, pass1):
                                                  TOOLS_LAYER])
     n = counts()
     n_kf = len(pass1["simple_map"].keyframes)
-    check(n["knn_sweep"] == n_kf and n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0,
+    check(n["knn_bruteforce"] == n_kf and n["knn_streamed"] == n["knn_batched"] == 0,
           f"sm-filter: launches {n}, want one K1 a keyframe ({n_kf})")
-    launches["knn_sweep"] += n["knn_sweep"]
-    by_path["knn_sweep"][f"sm-filter, {n_kf} keyframes (normals k=8)"] = n["knn_sweep"]
+    launches["knn_bruteforce"] += n["knn_bruteforce"]
+    by_path["knn_bruteforce"][f"sm-filter, {n_kf} keyframes (normals k=8)"] = n["knn_bruteforce"]
     points = simplemap_summary(SimpleMap.load(str(d / "out.sm.npz")))
     check(points == ref["sm_filter"]["points"],
           f"sm-filter: keyframe points {points}, JAX {ref['sm_filter']['points']}")
@@ -3314,7 +3313,7 @@ def tools_phase(smi, kind, launches, by_path, errs, shapes, scans, pass1):
           f"sm-filter printed {text!r}, JAX {ref['sm_filter']['line']!r}")
     print(f"[tools] sm-filter on {kind}: {n_kf} keyframes, {seconds * 1e3 / n_kf:.1f} ms a "
           f"keyframe (host clock, load and save included), decimated rows per keyframe as "
-          f"JAX's ({min(points)}-{max(points)}), the output loads; {n['knn_sweep']} K1 launches")
+          f"JAX's ({min(points)}-{max(points)}), the output loads; {n['knn_bruteforce']} K1 launches")
 
     # (c) mm-georef on the apps phase's map
     src, geo, enu = APPS_DIR / "map.mm.npz", d / "geo.mm.npz", d / "enu.mm.npz"
@@ -3413,9 +3412,9 @@ def tools_phase(smi, kind, launches, by_path, errs, shapes, scans, pass1):
         rb = nnb.knn_bruteforce(q, qv, p, pv, k=k, max_radius_sq=NN_GRID_RADIUS_SQ)
         torch.cuda.synchronize()
         n = counts()
-        check(n["knn_sweep"] == 1 and knn_launches(n) == 1, f"nn_search's reference: {n}")
-        launches["knn_sweep"] += 1
-        by_path["knn_sweep"][f"nn_search against K1, k={k}"] = 1
+        check(n["knn_bruteforce"] == 1 and knn_launches(n) == 1, f"nn_search's reference: {n}")
+        launches["knn_bruteforce"] += 1
+        by_path["knn_bruteforce"][f"nn_search against K1, k={k}"] = 1
         a = {f: getattr(rg, f).cpu().numpy() for f in rg._fields}
         b = {f: getattr(rb, f).cpu().numpy() for f in ("idx", "dist_sq", "valid")}
         same = (a["idx"] == b["idx"]) & a["valid"] & b["valid"]
@@ -3594,12 +3593,12 @@ def loop_closure_phase(smi, kind, launches, by_path):
         loop_closure.close_and_optimize, ICP.align = close, align
     got = kitti_odometry_printed(text)
     calls = got["iterations"] + seen["iterations"]
-    check(n["knn_sweep"] == calls and n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0,
+    check(n["knn_bruteforce"] == calls and n["knn_streamed"] == n["knn_batched"] == 0,
           f"loop closure: launches {n}, matcher calls {got['iterations']} (mapping) + "
           f"{seen['iterations']} (closure)")
-    launches["knn_sweep"] += n["knn_sweep"]
-    by_path["knn_sweep"][f"kitti-odometry --mapping --loop-closure, {LOOP_FRAMES} frames"] = \
-        n["knn_sweep"]
+    launches["knn_bruteforce"] += n["knn_bruteforce"]
+    by_path["knn_bruteforce"][f"kitti-odometry --mapping --loop-closure, {LOOP_FRAMES} frames"] = \
+        n["knn_bruteforce"]
     count_own(launches, by_path, n,
              f"kitti-odometry --mapping --loop-closure, {LOOP_FRAMES} frames")
     poses = load_kitti_poses(str(poses_path))
@@ -3615,7 +3614,7 @@ def loop_closure_phase(smi, kind, launches, by_path):
           f"the closure, {after[0]:.4f} m after [JAX CPU reference: {ref['ate_before_m']:.4f} "
           f"-> {ref['ate_m']:.4f} m]; {1e3 / got['scans_per_s']:.1f} ms per frame (the app's "
           f"timer), the closure {seen['seconds']:.2f} s ({len(cands)} aligns, "
-          f"{seen['iterations']} iterations, and the pose graph); {n['knn_sweep']} K1 launches "
+          f"{seen['iterations']} iterations, and the pose graph); {n['knn_bruteforce']} K1 launches "
           f"== {got['iterations']} + {seen['iterations']} matcher calls; {seconds:.1f} s for "
           f"the call on {smi}")
     # the same pairs; their order (closest first) follows distances of a
@@ -3718,15 +3717,15 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
         whole = nnb.knn_bruteforce(qd, ones(len(q), dtype=torch.bool, device=dev), pd,
                                    ones(len(points), dtype=torch.bool, device=dev), k=k)
         torch.cuda.synchronize()
-        kernel = "knn_sweep_streamed" if len(points) > nnb.STREAM_BLOCK else "knn_sweep"
+        kernel = "knn_streamed" if len(points) > nnb.STREAM_BLOCK else "knn_bruteforce"
         check(counts()[kernel] == 1, "the one sweep of the whole map: not one launch")
         one_ms = cuda_ms(lambda: nnb.knn_bruteforce(
             qd, ones(len(q), dtype=torch.bool, device=dev), pd,
             ones(len(points), dtype=torch.bool, device=dev), k=k), reps=5)
         same = all(np.array_equal(r[k]["idx"], whole.idx.cpu().numpy())
                    and np.array_equal(r[k]["dist_sq"], whole.dist_sq.cpu().numpy()) for r in knn)
-        shard_kernel = ("knn_sweep_streamed" if knn[0]["shard_rows"] > nnb.STREAM_BLOCK
-                        else "knn_sweep")
+        shard_kernel = ("knn_streamed" if knn[0]["shard_rows"] > nnb.STREAM_BLOCK
+                        else "knn_bruteforce")
         per_rank = [r[k]["launches"] for r in knn]
         print(f"[parallel] sharded kNN, {len(q)} scan points against the {len(points)}-point "
               f"corridor map in {SHARDS} shards of {knn[0]['shard_rows']} rows, k={k}: d2 and "
@@ -3750,7 +3749,7 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
         whole_box = int(icp.in_crop_box(params, gmap[name], scan, guess).sum())
         boxes = [r["in_box"][name] for r in got]
         overflow = whole_box > crop or any(b > crop for b in boxes)
-        kernel = "knn_sweep_streamed" if crop > nnb.STREAM_BLOCK else "knn_sweep"
+        kernel = "knn_streamed" if crop > nnb.STREAM_BLOCK else "knn_bruteforce"
         calls = matcher_calls(icp, got[0]["iterations"])
         per_rank = [r["launches"] for r in got]
         t_gap = max(float(np.abs(r["pose"][1] - ref.optimal_tf.t.cpu().numpy()).max())
@@ -3835,7 +3834,7 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
           f"voxels {len(union)} against the one-process map's {len(one)}: Jaccard {jac:.4f}; "
           f"every rank the same poses: {np.array_equal(sm[0]['poses'], sm[1]['poses'])}; "
           f"dropped {[r['dropped'] for r in sm]}; K1 launches per rank "
-          f"{[n['knn_sweep'] for n in per_rank]} == {calls} (matcher calls + normals fits + "
+          f"{[n['knn_bruteforce'] for n in per_rank]} == {calls} (matcher calls + normals fits + "
           f"the seed's); {frame_ms:.1f} ms per frame (median) against "
           f"{np.median(run_1['frame_seconds']) * 1e3:.1f} in one process on {smi}")
     check(shared == 0 and jac >= 0.97 and all(r["dropped"] == 0 for r in sm),
@@ -3843,11 +3842,11 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
     check(np.array_equal(sm[0]["poses"], sm[1]["poses"]), "spatial mapper: the ranks' poses differ")
     check(ate <= max(1.5 * ref["ate_m"], ref["ate_m"] + 0.01),
           f"spatial mapper: ATE {ate} m outside max(1.5x, +0.01 m) of JAX's {ref['ate_m']}")
-    check(all(n["knn_sweep"] == calls and knn_launches(n) == calls for n in per_rank),
+    check(all(n["knn_bruteforce"] == calls and knn_launches(n) == calls for n in per_rank),
           f"spatial mapper: launches {per_rank}, expected {calls} K1")
-    launches["knn_sweep"] += sum(n["knn_sweep"] for n in per_rank)
-    by_path["knn_sweep"][f"SpatialOdometryMapper, {len(frames_np)} frames, "
-                         f"{SPATIAL_RANKS} ranks"] = [n["knn_sweep"] for n in per_rank]
+    launches["knn_bruteforce"] += sum(n["knn_bruteforce"] for n in per_rank)
+    by_path["knn_bruteforce"][f"SpatialOdometryMapper, {len(frames_np)} frames, "
+                         f"{SPATIAL_RANKS} ranks"] = [n["knn_bruteforce"] for n in per_rank]
     count_own(launches, by_path, per_rank,
              f"SpatialOdometryMapper, {len(frames_np)} frames, {SPATIAL_RANKS} ranks")
 
@@ -3858,18 +3857,18 @@ def parallel_phase(smi, kind, launches, by_path, one_rank, knn_case, align_cases
     print(f"[parallel] data-parallel batch: {len(guesses)} scans against the shared 1M map, "
           f"{db[0]['rows']} per rank over {SPATIAL_RANKS} ranks: every rank's fetched poses "
           f"and iterations equal to the one-process batch to the bit: {same}; K2 launches per "
-          f"rank {[n['knn_sweep_batched'] for n in per_rank]}; {db[0]['ms']:.1f} ms per call "
+          f"rank {[n['knn_batched'] for n in per_rank]}; {db[0]['ms']:.1f} ms per call "
           f"against {b_ms:.1f} ms for all {len(guesses)} in one process on {smi}")
     check(same, "data-parallel batch: not the one-process batch")
     its = rb.n_iterations.cpu().numpy()
     rows = len(guesses) // SPATIAL_RANKS
     for r_, n in enumerate(per_rank):
         calls = matcher_calls(icp_b, int(its[r_ * rows:(r_ + 1) * rows].max()))
-        check(n["knn_sweep_batched"] == calls and knn_launches(n) == calls,
+        check(n["knn_batched"] == calls and knn_launches(n) == calls,
               f"data-parallel batch rank {r_}: launches {n}, matcher calls {calls}")
-    launches["knn_sweep_batched"] += sum(n["knn_sweep_batched"] for n in per_rank)
-    by_path["knn_sweep_batched"][f"data-parallel batch, {SPATIAL_RANKS} ranks"] = \
-        [n["knn_sweep_batched"] for n in per_rank]
+    launches["knn_batched"] += sum(n["knn_batched"] for n in per_rank)
+    by_path["knn_batched"][f"data-parallel batch, {SPATIAL_RANKS} ranks"] = \
+        [n["knn_batched"] for n in per_rank]
     count_own(launches, by_path, per_rank, f"data-parallel batch, {SPATIAL_RANKS} ranks")
 
 
@@ -3974,8 +3973,8 @@ def mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, proble
           f"{[IterTermReason(int(x)).name for x in full[0]['termination']]} on every rank "
           f"equal to {what} to the bit: {same} (max |R, t difference| {gap:.3g}); in-box rows "
           f"of each rank's shard per scan {[r['in_box']['map'] for r in full]}")
-    print(f"[mesh] K2 launches per rank {[n['knn_sweep_batched'] for n in per_rank]} == matcher "
-          f"calls {calls}, K1 / K3 {[n['knn_sweep'] + n['knn_sweep_streamed'] for n in per_rank]}; "
+    print(f"[mesh] K2 launches per rank {[n['knn_batched'] for n in per_rank]} == matcher "
+          f"calls {calls}, K1 / K3 {[n['knn_bruteforce'] + n['knn_streamed'] for n in per_rank]}; "
           f"all_gathers over space per rank {[r['gathers'] for r in full]} (one per matcher call "
           f"for the rank's {rows} scans); {full[0]['ms']:.1f} ms per call on the mesh against "
           f"{ref_ms:.1f} ms for all {len(problems)} in one process on {smi}")
@@ -3983,12 +3982,12 @@ def mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, proble
     check(all(n <= crop for r in full for n in r["in_box"]["map"]),
           f"mesh: a rank's shard holds more in-box rows than its crop of {crop} keeps")
     for i, n in enumerate(per_rank):
-        check(n["knn_sweep_batched"] == calls[i] and knn_launches(n) == calls[i]
+        check(n["knn_batched"] == calls[i] and knn_launches(n) == calls[i]
               and full[i]["gathers"] == calls[i],
               f"mesh rank {i}: launches {n}, gathers {full[i]['gathers']}, calls {calls[i]}")
-    launches["knn_sweep_batched"] += sum(n["knn_sweep_batched"] for n in per_rank)
-    by_path["knn_sweep_batched"][f"data x space batch, 8 x 1M map, {MESH_RANKS} ranks"] = \
-        [n["knn_sweep_batched"] for n in per_rank]
+    launches["knn_batched"] += sum(n["knn_batched"] for n in per_rank)
+    by_path["knn_batched"][f"data x space batch, 8 x 1M map, {MESH_RANKS} ranks"] = \
+        [n["knn_batched"] for n in per_rank]
     count_own(launches, by_path, per_rank, f"data x space batch, 8 x 1M map, {MESH_RANKS} ranks")
 
     want = PARALLEL_JAX["data_space"]
@@ -4009,9 +4008,9 @@ def mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, proble
     check(d_same and (d_errs < 1e-3).all(), "mesh: the dry run's batch")
     check(j_gap < 5e-3 and j_its <= 1 and j_term, "mesh: outside the align band of JAX's")
     per_rank = [r["launches"] for r in tiny]
-    launches["knn_sweep_batched"] += sum(n["knn_sweep_batched"] for n in per_rank)
-    by_path["knn_sweep_batched"][f"data x space batch, the dry run's problems, "
-                                 f"{MESH_RANKS} ranks"] = [n["knn_sweep_batched"] for n in per_rank]
+    launches["knn_batched"] += sum(n["knn_batched"] for n in per_rank)
+    by_path["knn_batched"][f"data x space batch, the dry run's problems, "
+                                 f"{MESH_RANKS} ranks"] = [n["knn_batched"] for n in per_rank]
     count_own(launches, by_path, per_rank,
              f"data x space batch, the dry run's problems, {MESH_RANKS} ranks")
 
@@ -4028,15 +4027,15 @@ def mesh_phase(smi, kind, launches, by_path, errs, shapes, micp, bparams, proble
     C = p.shape[-2]
     label = (f"K2 {rows}x{q.shape[1]}x{C} k=1 (a mesh rank's sweep"
              f"{', its cropped shards' if g_dim == 0 else ', its shard shared by the rows'})")
-    errs["knn_sweep_batched"].append(compare(label, nnb.knn_sweep_batched,
+    errs["knn_batched"].append(compare(label, nnb.knn_sweep_batched,
                                              nnb.knn_plain_batched, q, p, 1))
     # as the rank's matcher calls it: with the counts of the front end
     n = (nnb.valid_count(l4["raw"].valid_mask()), nnb.valid_count(pc.valid_mask()))
     launch_line(rows, q.shape[1], C, 1, n)
-    errs["knn_sweep_batched"].append(compare(label + " counted", nnb.knn_sweep_batched,
+    errs["knn_batched"].append(compare(label + " counted", nnb.knn_sweep_batched,
                                              nnb.knn_plain_batched, q, p, 1, *n))
-    shapes["knn_sweep_batched"].append(kernel_row(
-        "knn_sweep_batched", "a data x space rank's sweep", rows, q.shape[1], C, 1,
+    shapes["knn_batched"].append(kernel_row(
+        "knn_batched", "a data x space rank's sweep", rows, q.shape[1], C, 1,
         lambda: nnb.knn_sweep_batched(q, p, 1, *n),
         lambda: nnb.knn_plain_batched(q, p, 1, *n),
         q, p, graph_ms(lambda: nnb.knn_sweep_batched(q, p, 1, *n)), smi, plain_reps=1,
@@ -4104,8 +4103,9 @@ def bench_phase(smi, launches, by_path):
     counted = [ln for ln in out.stderr.splitlines() if ln.startswith("[bench] launches ")]
     check(len(counted) == 1, "bench_torch.py printed no launch count")
     n = json.loads(counted[0].removeprefix("[bench] launches "))
-    check(all(n[name] > 0 for name in KERNELS), f"bench_torch.py: a kernel never ran: {n}")
-    for name in KERNELS:
+    check(all(n[name] > 0 for name in cuda_build.LIBRARIES),
+          f"bench_torch.py: a kernel never ran: {n}")
+    for name in cuda_build.LIBRARIES:
         launches[name] += n[name]
         by_path[name]["bench_torch.py (its own process)"] = n[name]
     print(f"[bench] ok: {len(want)} keys, errors {errs} < {ERR_LIMIT}, {extra['iters']} "
@@ -4143,10 +4143,10 @@ def main():
     # ---- 2. build: one nvcc per kernel library, all started together
     t0 = time.perf_counter()
     cuda_build.build()
-    for name in KERNELS:
-        cuda_build.load_library(LIBRARY[name])
-        rec = cuda_build.build_record(LIBRARY[name])
-        print(f"[build] {KERNELS[name][0]} -> {rec['path']} for sm_90a: "
+    for name in cuda_build.LIBRARIES:
+        cuda_build.load_library(name)
+        rec = cuda_build.build_record(name)
+        print(f"[build] {source(name)} -> {rec['path']} for sm_90a: "
               f"{'compiled' if rec['built'] else 'cached'} in {rec['seconds']:.1f} s")
         entry = None
         for line in rec["log"].splitlines():
@@ -4166,7 +4166,7 @@ def main():
 
     phase_done("build and street drive")
     # ---- 3. kernels against their plain versions
-    errs = {name: [] for name in KERNELS}
+    errs = {name: [] for name in cuda_build.LIBRARIES}
     scene = make_scene(np.random.RandomState(0))
     loc, glob = street_pair(scene, 1, 2)
     made = [loc["raw"].xyz, loc["raw"].count, se3.identity().t, se3.from_xyz_ypr(*GT).R,
@@ -4179,7 +4179,7 @@ def main():
     q = loc["raw"].xyz.contiguous()
     p = glob["raw"].xyz.contiguous()
     for k in (1, 8):
-        errs["knn_sweep"].append(compare(f"K1 {N_POINTS}x{N_POINTS} k={k}",
+        errs["knn_bruteforce"].append(compare(f"K1 {N_POINTS}x{N_POINTS} k={k}",
                                          nnb.knn_sweep, nnb.knn_plain, q, p, k))
 
     rng = np.random.RandomState(7)
@@ -4191,7 +4191,7 @@ def main():
     qs = torch.where(qv[:, None], qr, 1.0e8).to(dev)  # the front end's sentinels
     ps = torch.where(pv[:, None], pr, -1.0e8).to(dev)
     for k in (4, 5):  # Point2Line's default and the 2D demo's k
-        errs["knn_sweep"].append(compare(f"K1 777x3001 k={k} invalid rows",
+        errs["knn_bruteforce"].append(compare(f"K1 777x3001 k={k} invalid rows",
                                          nnb.knn_sweep, nnb.knn_plain, qs, ps, k))
     # the 2D demo's sweeps: one planar scan against the other, both padded
     # to PLANAR_RAYS rows as the align gives them to the kernel
@@ -4201,7 +4201,7 @@ def main():
     p2d = torch.where(planar_layers(g2d)["2d_lidar"].valid_mask()[:, None],
                       planar_layers(g2d)["2d_lidar"].xyz, -1.0e8).contiguous()
     for k in (4, 5):
-        errs["knn_sweep"].append(compare(f"K1 {PLANAR_RAYS}x{PLANAR_RAYS} k={k} (2D demo)",
+        errs["knn_bruteforce"].append(compare(f"K1 {PLANAR_RAYS}x{PLANAR_RAYS} k={k} (2D demo)",
                                          nnb.knn_sweep, nnb.knn_plain, q2d, p2d, k))
     # the YAML phase's new shapes: the 2D demo's generator layers (capacity
     # 1024), and the filter pipeline's normals fit (a decimated layer of
@@ -4209,11 +4209,11 @@ def main():
     q1k, p1k = (sentinel_padded(generated_2d_layer(r), far)
                 for r, far in zip(planar_range_pairs(n_pairs=1)[0][1::-1], (1.0e8, -1.0e8)))
     for k in (1, 5):
-        errs["knn_sweep"].append(compare(f"K1 {q1k.shape[0]}x{p1k.shape[0]} k={k} (2D YAML)",
+        errs["knn_bruteforce"].append(compare(f"K1 {q1k.shape[0]}x{p1k.shape[0]} k={k} (2D YAML)",
                                          nnb.knn_sweep, nnb.knn_plain, q1k, p1k, k))
     dec = yaml_pipeline_input_layer(scans_o[0])
     q64k, p64k = sentinel_padded(dec, 1.0e8), sentinel_padded(dec, -1.0e8)
-    errs["knn_sweep"].append(compare(f"K1 {q64k.shape[0]}x{p64k.shape[0]} k=8 (YAML pipeline "
+    errs["knn_bruteforce"].append(compare(f"K1 {q64k.shape[0]}x{p64k.shape[0]} k=8 (YAML pipeline "
                                      f"normals, {int(dec.count)} valid)", nnb.knn_sweep,
                                      nnb.knn_plain, q64k, p64k, 8))
     res_gpu = nnb.knn_bruteforce(qr.to(dev), qv.to(dev), pr.to(dev), pv.to(dev), k=4,
@@ -4233,7 +4233,7 @@ def main():
     scan_q = torch.from_numpy(local_window(corridor, 200.0, np.random.RandomState(34))).to(dev)
     map_p = torch.from_numpy(corridor[: 1 << 18]).to(dev)
     for k in (1, 8):
-        errs["knn_sweep_streamed"].append(compare(
+        errs["knn_streamed"].append(compare(
             f"K3 8192x262144 k={k} corridor", nnb.knn_sweep_streamed,
             nnb.knn_plain_streamed, scan_q, map_p, k))
     n_rag = 200_003  # > STREAM_BLOCK, not a multiple of a slice
@@ -4241,7 +4241,7 @@ def main():
                         scan_q[:5000], 1.0e8).contiguous()
     p_rag = torch.where(torch.from_numpy(rng.rand(n_rag) > 0.1)[:, None].to(dev),
                         map_p[:n_rag], -1.0e8).contiguous()
-    errs["knn_sweep_streamed"].append(compare(
+    errs["knn_streamed"].append(compare(
         f"K3 5000x{n_rag} k=3 invalid rows ({tuple(nnb.sweep_split(5000, n_rag, nnb._sm_count(0), 3))})",
         nnb.knn_sweep_streamed, nnb.knn_plain_streamed, q_rag, p_rag, 3))
 
@@ -4251,16 +4251,16 @@ def main():
         corridor, 60.0 + 40.0 * b, np.random.RandomState(100 + b))) for b in range(BATCH)]).to(dev)
     maps_b = torch.stack([torch.from_numpy(corridor[(b << 16):((b + 1) << 16)])
                           for b in range(BATCH)]).to(dev)
-    errs["knn_sweep_batched"].append(compare(
+    errs["knn_batched"].append(compare(
         f"K2 {BATCH}x8192x65536 k=1 batched maps", nnb.knn_sweep_batched,
         nnb.knn_plain_batched, scans_b, maps_b, 1))
-    errs["knn_sweep_batched"].append(compare(
+    errs["knn_batched"].append(compare(
         f"K2 {BATCH}x8192x65536 k=1 shared map", nnb.knn_sweep_batched,
         nnb.knn_plain_batched, scans_b, maps_b[0], 1))
     # the launch a data-parallel rank makes with its half of the batch (the
     # split of the point axis depends on B)
     b_rank = BATCH // SPATIAL_RANKS
-    errs["knn_sweep_batched"].append(compare(
+    errs["knn_batched"].append(compare(
         f"K2 {b_rank}x8192x65536 k=1 (a data-parallel rank's share)", nnb.knn_sweep_batched,
         nnb.knn_plain_batched, scans_b[:b_rank], maps_b[:b_rank], 1))
     # the B = 16 scan-to-scan batch (bench.py:219-253): each pair's local
@@ -4268,10 +4268,10 @@ def main():
     pairs16 = [street_pair(scene, 100 + 2 * b, 101 + 2 * b) for b in range(PAIR_BATCH)]
     q16 = torch.stack([pl["raw"].xyz for pl, _ in pairs16]).contiguous()
     p16 = torch.stack([pg["raw"].xyz for _, pg in pairs16]).contiguous()
-    errs["knn_sweep_batched"].append(compare(
+    errs["knn_batched"].append(compare(
         f"K2 {PAIR_BATCH}x{N_POINTS}x{N_POINTS} k=1 (the B = 16 scan-to-scan batch, each pair "
         f"its own map)", nnb.knn_sweep_batched, nnb.knn_plain_batched, q16, p16, 1))
-    errs["knn_sweep_batched"].append(compare(
+    errs["knn_batched"].append(compare(
         f"K2 {BATCH}x777x3001 k=4 invalid rows", nnb.knn_sweep_batched,
         nnb.knn_plain_batched, qs.expand(BATCH, -1, -1).contiguous(),
         torch.stack([ps.roll(b, 0) for b in range(BATCH)]), 4))
@@ -4281,33 +4281,33 @@ def main():
     n_sm = nnb._sm_count(0)
     for k in (1, 8):
         for Q, C in ((5000, 20011), (1, 3001), (777, 100), (777, 3)):
-            errs["knn_sweep"].append(compare(
+            errs["knn_bruteforce"].append(compare(
                 f"K1 {Q}x{C} k={k} integer grid (ties), (warps, slices, slice) "
                 f"{tuple(nnb.sweep_split(Q, C, n_sm, k))}", nnb.knn_sweep, nnb.knn_plain,
                 grid_points(rng, Q).to(dev), grid_points(rng, C).to(dev), k))
         for Q, C in ((5000, n_rag), (1, 140_000), (777, 100)):
-            errs["knn_sweep_streamed"].append(compare(
+            errs["knn_streamed"].append(compare(
                 f"K3 {Q}x{C} k={k} integer grid (ties), (warps, slices, slice) "
                 f"{tuple(nnb.sweep_split(Q, C, n_sm, k))}", nnb.knn_sweep_streamed,
                 nnb.knn_plain_streamed, grid_points(rng, Q).to(dev),
                 grid_points(rng, C).to(dev), k))
         for B, Q, C, shared in ((BATCH, 777, 3001, False), (2, 5000, 20011, True),
                                 (3, 1, 100, False), (BATCH, 777, 3, False)):
-            errs["knn_sweep_batched"].append(compare(
+            errs["knn_batched"].append(compare(
                 f"K2 {B}x{Q}x{C} k={k} integer grid (ties){' shared map' if shared else ''}, "
                 f"(warps, slices, slice) {tuple(nnb.sweep_split(Q, C, n_sm, k, B))}",
                 nnb.knn_sweep_batched,
                 nnb.knn_plain_batched, grid_points(rng, B, Q).to(dev),
                 grid_points(rng, *(() if shared else (B,)), C).to(dev), k))
     odo_q, odo_p = scan_q[:6144].contiguous(), map_p[: 1 << 14].contiguous()
-    errs["knn_sweep"].append(compare("K1 6144x16384 k=1 (odometry step)", nnb.knn_sweep,
+    errs["knn_bruteforce"].append(compare("K1 6144x16384 k=1 (odometry step)", nnb.knn_sweep,
                                      nnb.knn_plain, odo_q, odo_p, 1))
     # the normals fit of a frame: 2048 new voxels against the crop + the
     # scan; of the seed: the first scan against itself
     fit_q, fit_p = odo_q[:2048].contiguous(), torch.cat([odo_p, odo_q]).contiguous()
-    errs["knn_sweep"].append(compare("K1 2048x22528 k=8 (odometry normals fit)", nnb.knn_sweep,
+    errs["knn_bruteforce"].append(compare("K1 2048x22528 k=8 (odometry normals fit)", nnb.knn_sweep,
                                      nnb.knn_plain, fit_q, fit_p, 8))
-    errs["knn_sweep"].append(compare("K1 6144x6144 k=8 (odometry seed's normals fit)",
+    errs["knn_bruteforce"].append(compare("K1 6144x6144 k=8 (odometry seed's normals fit)",
                                      nnb.knn_sweep, nnb.knn_plain, odo_q, odo_q, 8))
     # the fleet step: stream b's queries are returns of street frame 2b, its
     # map the returns of the next frame; the fit takes 2048 of the queries
@@ -4317,10 +4317,10 @@ def main():
     fleet_p = torch.stack([returns[2 * b + 1][: 1 << 14] for b in range(BATCH)]).to(dev)
     fleet_fq = fleet_q[:, :2048].contiguous()
     fleet_fp = torch.cat([fleet_p, fleet_q], dim=1).contiguous()
-    errs["knn_sweep_batched"].append(compare(
+    errs["knn_batched"].append(compare(
         f"K2 {BATCH}x6144x16384 k=1 (fleet step, street scans)", nnb.knn_sweep_batched,
         nnb.knn_plain_batched, fleet_q, fleet_p, 1))
-    errs["knn_sweep_batched"].append(compare(
+    errs["knn_batched"].append(compare(
         f"K2 {BATCH}x2048x22528 k=8 (fleet normals fit, street scans)", nnb.knn_sweep_batched,
         nnb.knn_plain_batched, fleet_fq, fleet_fp, 8))
     n_before = dict(COMPARED)
@@ -4328,7 +4328,7 @@ def main():
     # the YAML pipeline's normals fit as its front end calls it: with the counts
     n64k = (row_counts(q64k), row_counts(p64k))
     launch_line(1, q64k.shape[0], p64k.shape[0], 8, n64k)
-    errs["knn_sweep"].append(compare(
+    errs["knn_bruteforce"].append(compare(
         f"K1 {q64k.shape[0]}x{p64k.shape[0]} k=8 (YAML pipeline normals) counted "
         f"{int(n64k[0])} x {int(n64k[1])}", nnb.knn_sweep, nnb.knn_plain, q64k, p64k, 8, *n64k))
     print(f"[kernel] phase 3: {n_before['without counts']} compare cases without counts (as "
@@ -4353,59 +4353,59 @@ def main():
     # ---- times, in turns: (kernel, label, B, Q, C, k, kernel call, plain call)
     map_64k = maps_b[1]
     timed = [
-        ("knn_sweep", "scan to scan", 1, N_POINTS, N_POINTS, 1,
+        ("knn_bruteforce", "scan to scan", 1, N_POINTS, N_POINTS, 1,
          lambda: nnb.knn_sweep(q, p, 1), lambda: nnb.knn_plain(q, p, 1)),
-        ("knn_sweep", "scan to scan k=8, Adaptive's plane stage", 1, N_POINTS, N_POINTS, 8,
+        ("knn_bruteforce", "scan to scan k=8, Adaptive's plane stage", 1, N_POINTS, N_POINTS, 8,
          lambda: nnb.knn_sweep(q, p, 8), lambda: nnb.knn_plain(q, p, 8)),
-        ("knn_sweep", "2D demo, Point2Line", 1, PLANAR_RAYS, PLANAR_RAYS, 5,
+        ("knn_bruteforce", "2D demo, Point2Line", 1, PLANAR_RAYS, PLANAR_RAYS, 5,
          lambda: nnb.knn_sweep(q2d, p2d, 5), lambda: nnb.knn_plain(q2d, p2d, 5)),
-        ("knn_sweep", "Point2Line's default k", 1, PLANAR_RAYS, PLANAR_RAYS, 4,
+        ("knn_bruteforce", "Point2Line's default k", 1, PLANAR_RAYS, PLANAR_RAYS, 4,
          lambda: nnb.knn_sweep(q2d, p2d, 4), lambda: nnb.knn_plain(q2d, p2d, 4)),
-        ("knn_sweep", "2D demo, DistanceThreshold", 1, PLANAR_RAYS, PLANAR_RAYS, 1,
+        ("knn_bruteforce", "2D demo, DistanceThreshold", 1, PLANAR_RAYS, PLANAR_RAYS, 1,
          lambda: nnb.knn_sweep(q2d, p2d, 1), lambda: nnb.knn_plain(q2d, p2d, 1)),
-        ("knn_sweep", "odometry step", 1, 6144, 1 << 14, 1,
+        ("knn_bruteforce", "odometry step", 1, 6144, 1 << 14, 1,
          lambda: nnb.knn_sweep(odo_q, odo_p, 1), lambda: nnb.knn_plain(odo_q, odo_p, 1)),
-        ("knn_sweep", "odometry normals fit", 1, 2048, 22528, 8,
+        ("knn_bruteforce", "odometry normals fit", 1, 2048, 22528, 8,
          lambda: nnb.knn_sweep(fit_q, fit_p, 8), lambda: nnb.knn_plain(fit_q, fit_p, 8)),
-        ("knn_sweep", "odometry seed's normals fit", 1, 6144, 6144, 8,
+        ("knn_bruteforce", "odometry seed's normals fit", 1, 6144, 6144, 8,
          lambda: nnb.knn_sweep(odo_q, odo_q, 8), lambda: nnb.knn_plain(odo_q, odo_q, 8)),
-        ("knn_sweep", "1M-map crop", 1, N_POINTS, 1 << 16, 1,
+        ("knn_bruteforce", "1M-map crop", 1, N_POINTS, 1 << 16, 1,
          lambda: nnb.knn_sweep(scan_q, map_64k, 1), lambda: nnb.knn_plain(scan_q, map_64k, 1)),
-        ("knn_sweep", "K1 on K3's shape", 1, N_POINTS, 1 << 18, 1,
+        ("knn_bruteforce", "K1 on K3's shape", 1, N_POINTS, 1 << 18, 1,
          lambda: nnb.knn_sweep(scan_q, map_p, 1), lambda: nnb.knn_plain(scan_q, map_p, 1)),
-        ("knn_sweep_streamed", "2M-map crop", 1, N_POINTS, 1 << 18, 1,
+        ("knn_streamed", "2M-map crop", 1, N_POINTS, 1 << 18, 1,
          lambda: nnb.knn_sweep_streamed(scan_q, map_p, 1),
          lambda: nnb.knn_plain_streamed(scan_q, map_p, 1)),
-        ("knn_sweep_streamed", "2M-map crop k=8", 1, N_POINTS, 1 << 18, 8,
+        ("knn_streamed", "2M-map crop k=8", 1, N_POINTS, 1 << 18, 8,
          lambda: nnb.knn_sweep_streamed(scan_q, map_p, 8),
          lambda: nnb.knn_plain_streamed(scan_q, map_p, 8)),
-        ("knn_sweep_batched", "batched", BATCH, N_POINTS, 1 << 16, 1,
+        ("knn_batched", "batched", BATCH, N_POINTS, 1 << 16, 1,
          lambda: nnb.knn_sweep_batched(scans_b, maps_b, 1),
          lambda: nnb.knn_plain_batched(scans_b, maps_b, 1)),
-        ("knn_sweep_batched", "batched, shared map", BATCH, N_POINTS, 1 << 16, 1,
+        ("knn_batched", "batched, shared map", BATCH, N_POINTS, 1 << 16, 1,
          lambda: nnb.knn_sweep_batched(scans_b, map_64k, 1),
          lambda: nnb.knn_plain_batched(scans_b, map_64k, 1)),
-        ("knn_sweep_batched", "the B = 16 scan-to-scan batch, each pair its own map",
+        ("knn_batched", "the B = 16 scan-to-scan batch, each pair its own map",
          PAIR_BATCH, N_POINTS, N_POINTS, 1,
          lambda: nnb.knn_sweep_batched(q16, p16, 1),
          lambda: nnb.knn_plain_batched(q16, p16, 1)),
-        ("knn_sweep_batched", "batched B=2", 2, N_POINTS, 1 << 16, 1,
+        ("knn_batched", "batched B=2", 2, N_POINTS, 1 << 16, 1,
          lambda: nnb.knn_sweep_batched(scans_b[:2], maps_b[:2], 1),
          lambda: nnb.knn_plain_batched(scans_b[:2], maps_b[:2], 1)),
-        ("knn_sweep_batched", "B=4, a data-parallel rank's half of the batch", 4, N_POINTS,
+        ("knn_batched", "B=4, a data-parallel rank's half of the batch", 4, N_POINTS,
          1 << 16, 1, lambda: nnb.knn_sweep_batched(scans_b[:4], maps_b[:4], 1),
          lambda: nnb.knn_plain_batched(scans_b[:4], maps_b[:4], 1)),
-        ("knn_sweep_batched", "fleet step", BATCH, 6144, 1 << 14, 1,
+        ("knn_batched", "fleet step", BATCH, 6144, 1 << 14, 1,
          lambda: nnb.knn_sweep_batched(fleet_q, fleet_p, 1),
          lambda: nnb.knn_plain_batched(fleet_q, fleet_p, 1)),
-        ("knn_sweep_batched", "fleet normals fit", BATCH, 2048, 22528, 8,
+        ("knn_batched", "fleet normals fit", BATCH, 2048, 22528, 8,
          lambda: nnb.knn_sweep_batched(fleet_fq, fleet_fp, 8),
          lambda: nnb.knn_plain_batched(fleet_fq, fleet_fp, 8)),
-        ("knn_sweep", "2D YAML, Point2Line (a generator's layer)", 1, 1024, 1024, 5,
+        ("knn_bruteforce", "2D YAML, Point2Line (a generator's layer)", 1, 1024, 1024, 5,
          lambda: nnb.knn_sweep(q1k, p1k, 5), lambda: nnb.knn_plain(q1k, p1k, 5)),
-        ("knn_sweep", "2D YAML, DistanceThreshold", 1, 1024, 1024, 1,
+        ("knn_bruteforce", "2D YAML, DistanceThreshold", 1, 1024, 1024, 1,
          lambda: nnb.knn_sweep(q1k, p1k, 1), lambda: nnb.knn_plain(q1k, p1k, 1)),
-        ("knn_sweep", "YAML filter pipeline, normals", 1, 1 << 16, 1 << 16, 8,
+        ("knn_bruteforce", "YAML filter pipeline, normals", 1, 1 << 16, 1 << 16, 8,
          lambda: nnb.knn_sweep(q64k, p64k, 8, *n64k),
          lambda: nnb.knn_plain(q64k, p64k, 8, *n64k)),
     ]
@@ -4420,7 +4420,7 @@ def main():
     for _ in range(2):  # two turns over all shapes
         for at, case in enumerate(timed):
             graph_times[at] += graph_ms(case[6])
-    shapes = {name: [] for name in KERNELS}
+    shapes = {name: [] for name in cuda_build.LIBRARIES}
     for (name, label, B, Q, C, k, run, plain), g_times, (lq, lp, *n) in zip(timed, graph_times,
                                                                              operands):
         shapes[name].append(kernel_row(name, label, B, Q, C, k, run, plain, lq, lp, g_times,
@@ -4439,8 +4439,8 @@ def main():
     phase_done("Gauss-Newton kernel")
     shapes["icp_terminate"], errs["icp_terminate"] = terminate_phase(smi)
     phase_done("termination kernel")
-    launches = {name: 0 for name in KERNELS}
-    by_path = {name: {} for name in KERNELS}  # launches of each path's last counted window
+    launches = {name: 0 for name in cuda_build.LIBRARIES}
+    by_path = {name: {} for name in cuda_build.LIBRARIES}  # launches of each path's last counted window
 
     # ---- 4. the scan-to-scan path
     icp = kitti_icp()
@@ -4460,11 +4460,11 @@ def main():
         results.append((res, err))
         expected += matcher_calls(icp, res.n_iterations)
     n = counts()
-    check(n["knn_sweep"] == expected and expected > 0,
-          f"K1 launches {n['knn_sweep']} != matcher calls {expected}")
-    check(n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0, f"other kernels ran: {n}")
-    launches["knn_sweep"] += n["knn_sweep"]
-    by_path["knn_sweep"][f"scan to scan, {len(pairs)} aligns"] = n["knn_sweep"]
+    check(n["knn_bruteforce"] == expected and expected > 0,
+          f"K1 launches {n['knn_bruteforce']} != matcher calls {expected}")
+    check(n["knn_streamed"] == n["knn_batched"] == 0, f"other kernels ran: {n}")
+    launches["knn_bruteforce"] += n["knn_bruteforce"]
+    by_path["knn_bruteforce"][f"scan to scan, {len(pairs)} aligns"] = n["knn_bruteforce"]
     count_own(launches, by_path, n, f"scan to scan, {len(pairs)} aligns")
 
     res, err = results[0]
@@ -4481,7 +4481,7 @@ def main():
     median_ms = statistics.median(wall[1:]) * 1e3
     print(f"[serve] {N_REQUESTS} pairs in {serve_s:.3f} s: "
           f"{N_REQUESTS / serve_s:.2f} aligns/s, median {median_ms:.1f} ms/align on {smi}")
-    print(f"[count] K1 launches {n['knn_sweep']} == matcher calls {expected}")
+    print(f"[count] K1 launches {n['knn_bruteforce']} == matcher calls {expected}")
 
     loc_c = {"raw": PointCloud(loc["raw"].xyz.cpu(), loc["raw"].count.cpu())}
     glob_c = {"raw": PointCloud(glob["raw"].xyz.cpu(), glob["raw"].count.cpu())}
@@ -4504,7 +4504,7 @@ def main():
     for label, n_map, crop, (j_err, j_it, j_reason) in MAP_CASES:
         gmap = {"map": PointCloud.from_numpy(corridor[:n_map], capacity=n_map)}
         mparams = ICPParameters(max_iterations=40, crop_capacity=crop, crop_extra_margin=4.0)
-        kernel = "knn_sweep_streamed" if crop > nnb.STREAM_BLOCK else "knn_sweep"
+        kernel = "knn_streamed" if crop > nnb.STREAM_BLOCK else "knn_bruteforce"
         micp._crop_globals(mparams, gmap, scan_l, sensor)  # warm-up: first use of its ops
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4559,14 +4559,14 @@ def main():
         b_walls.append(time.perf_counter() - t0)
         n = counts()
         calls = matcher_calls(micp, int(rb.n_iterations.max()))
-        check(n["knn_sweep_batched"] == calls and calls > 0,
-              f"batched: K2 launches {n['knn_sweep_batched']} != matcher calls {calls}")
-        check(n["knn_sweep"] == n["knn_sweep_streamed"] == 0,
+        check(n["knn_batched"] == calls and calls > 0,
+              f"batched: K2 launches {n['knn_batched']} != matcher calls {calls}")
+        check(n["knn_bruteforce"] == n["knn_streamed"] == 0,
               f"batched: K1/K3 launched during the batched call: {n}")
-        launches["knn_sweep_batched"] += n["knn_sweep_batched"]
-        by_path["knn_sweep_batched"]["batched call"] = n["knn_sweep_batched"]
+        launches["knn_batched"] += n["knn_batched"]
+        by_path["knn_batched"]["batched call"] = n["knn_batched"]
         count_own(launches, by_path, n, "batched call")
-    print(f"[count] batched: K2 launches {n['knn_sweep_batched']} == matcher calls {calls} "
+    print(f"[count] batched: K2 launches {n['knn_batched']} == matcher calls {calls} "
           f"per call, K1 and K3 launches 0")
     seq_walls = []
     for b, (scan_b, guess_b, gt_b) in enumerate(problems):
@@ -4608,14 +4608,14 @@ def main():
         walls16.append(time.perf_counter() - t0)
         n = counts()
         calls = matcher_calls(icp, int(r16.n_iterations.max()))
-        check(n["knn_sweep_batched"] == calls and calls > 0,
-              f"B = 16 pairs: K2 launches {n['knn_sweep_batched']} != matcher calls {calls}")
-        check(n["knn_sweep"] == n["knn_sweep_streamed"] == 0,
+        check(n["knn_batched"] == calls and calls > 0,
+              f"B = 16 pairs: K2 launches {n['knn_batched']} != matcher calls {calls}")
+        check(n["knn_bruteforce"] == n["knn_streamed"] == 0,
               f"B = 16 pairs: K1/K3 launched during the batched call: {n}")
-        launches["knn_sweep_batched"] += n["knn_sweep_batched"]
-        by_path["knn_sweep_batched"][f"B = {PAIR_BATCH} scan-to-scan call"] = n["knn_sweep_batched"]
+        launches["knn_batched"] += n["knn_batched"]
+        by_path["knn_batched"][f"B = {PAIR_BATCH} scan-to-scan call"] = n["knn_batched"]
         count_own(launches, by_path, n, f"B = {PAIR_BATCH} scan-to-scan call")
-    print(f"[count] B = {PAIR_BATCH} pairs: K2 launches {n['knn_sweep_batched']} == matcher "
+    print(f"[count] B = {PAIR_BATCH} pairs: K2 launches {n['knn_batched']} == matcher "
           f"calls {calls} per call, K1 and K3 launches 0")
     seq16 = [r for r, _ in results[1:]]
     for loc_l, glob_l in pairs16[len(seq16):]:
@@ -4654,16 +4654,16 @@ def main():
         # one kNN per ICP iteration, one normals fit per frame, the seed's
         calls = (sum(matcher_calls(mapper.icp, int(it)) for it in r["iterations"])
                  + (ODO_FRAMES - 1) + 1)
-        check(n["knn_sweep"] == calls,
-              f"odometry: K1 launches {n['knn_sweep']} != matcher calls + normals fits {calls}")
-        check(n["knn_sweep_streamed"] == n["knn_sweep_batched"] == 0,
+        check(n["knn_bruteforce"] == calls,
+              f"odometry: K1 launches {n['knn_bruteforce']} != matcher calls + normals fits {calls}")
+        check(n["knn_streamed"] == n["knn_batched"] == 0,
               f"odometry: K2/K3 launched: {n}")
-        launches["knn_sweep"] += n["knn_sweep"]
-        by_path["knn_sweep"][f"odometry, one run of {ODO_FRAMES} frames"] = n["knn_sweep"]
+        launches["knn_bruteforce"] += n["knn_bruteforce"]
+        by_path["knn_bruteforce"][f"odometry, one run of {ODO_FRAMES} frames"] = n["knn_bruteforce"]
         count_own(launches, by_path, n, f"odometry, one run of {ODO_FRAMES} frames")
         # every solve of the mapper's ICP (Point2Plane, plain GNParams) takes the
         # kernel, and every termination test the other
-        for name in OWN:
+        for name in ("gn_solve", "icp_terminate"):
             check(n[name] == int(r["iterations"].sum()),
                   f"odometry: {name} kernel launches {n[name]} != ICP iterations "
                   f"{int(r['iterations'].sum())}")
@@ -4679,7 +4679,7 @@ def main():
               f"({r['map_counts'][0]} after frame 1), dropped {int(r['map_state'].n_dropped)} "
               f"[JAX CPU reference: ATE {ODO_JAX['ate_m']} m, {ODO_JAX['map_points']} points, "
               f"{ODO_JAX['iterations_mean']} iterations per frame] on {smi}")
-        print(f"[count] odometry run {rep}: K1 launches {n['knn_sweep']} == "
+        print(f"[count] odometry run {rep}: K1 launches {n['knn_bruteforce']} == "
               f"{int(r['iterations'].sum())} matcher calls + {ODO_FRAMES - 1} normals fits "
               f"+ 1 (the seed's); K2 and K3 launches 0")
         check(r["poses"].shape == (ODO_FRAMES, 4, 4) and np.isfinite(r["poses"]).all(),
@@ -4796,15 +4796,15 @@ def main():
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": KERNELS[name][0],
-        "replaces": KERNELS[name][1],
+        "source": source(name),
+        "replaces": REPLACES[name],
         "launches": launches[name],
         "launches_by_path": by_path[name],
         "max_abs_err": max(errs[name]),
         **{key: shapes[name][0][key] for key in
            ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound", "library_ms")},
         "shapes": shapes[name],
-    } for name in KERNELS]}))
+    } for name in cuda_build.LIBRARIES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -75,8 +75,8 @@ def terminate_fused(pairings: Pairings, pose: Pose, prev_pose: Pose, new_pose: P
     returns the step norms [dt1, dr1, dt2, dr2] (float32 [4]) of
     ``delta_norms(pose, new_pose)`` and ``delta_norms(prev_pose,
     new_pose)``. CUDA float32 tensors only (raises otherwise); no host
-    read, nothing copied to the card. ``terminate_fused.launches`` counts
-    the launches."""
+    read, nothing copied to the card. ``cuda_build.launches["icp_terminate"]``
+    counts the launches."""
     weights = [getattr(pairings, name).weight if name in pairings.live else None
                for name in BLOCK_TYPES]
     R, t, flags, norms = _terminate_op(*pose, *prev_pose, *new_pose, *weights,
@@ -84,61 +84,31 @@ def terminate_fused(pairings: Pairings, pose: Pose, prev_pose: Pose, new_pose: P
     return Pose(R, t), flags, norms
 
 
-terminate_fused.launches = 0
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each problem's three poses and the weights of its five blocks, each
+# followed by its rows; then B, eps_t, eps_r and the outputs R, t, flags,
+# norms
+_KERNEL = cuda_build.Kernel(
+    "icp_terminate", "mp2p_icp_terminate_f32",
+    (("R", (3, 3)), ("t", (3,)), ("prev_R", (3, 3)), ("prev_t", (3,)), ("new_R", (3, 3)),
+     ("new_t", (3,)), *(a for name in BLOCK_TYPES for a in ((f"{name}_weight", (name,)), name))),
+    (_I, _F, _F, _P, _P, _P, _P))
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# the op's tensor arguments in order, each with the shape of one problem's
-# (n: the rows of its block)
-_TENSORS = (("R", (3, 3)), ("t", (3,)), ("prev_R", (3, 3)), ("prev_t", (3,)),
-            ("new_R", (3, 3)), ("new_t", (3,))) + tuple((f"{name}_weight", ("n",))
-                                                         for name in BLOCK_TYPES)
 
-
-def _launch(B: int, args, eps_t: float, eps_r: float, out_R, out_t, out_flags,
-            out_norms) -> None:
-    """One launch for B problems. ``args``: the op's eleven tensors in
-    order, each (tensor, batched), a weight None where its block is not
-    live: a batched tensor has a leading B, an unbatched one is shared by
-    every problem (stride 0). Checks every tensor, raises where the kernel
-    does not take it."""
+def _launch(shape, args, eps_t: float, eps_r: float):
+    """One launch for the problems of ``shape`` (() or (B,)): ``args`` the
+    op's eleven tensors as ``cuda_build.launch`` takes them, a weight None
+    where its block is not live. Returns (R, t, flags, norms) of that
+    shape."""
     dev = args[0][0].device
-    if dev.type != "cuda":
-        raise ValueError(f"terminate_fused runs on the card, not on {dev}: the plain "
-                         "path is terminate_plain")
-    flat = []
-    for (name, tail), a in zip(_TENSORS, args):
-        if a is None:
-            flat += [None, 0, 0]
-            continue
-        x, batched = a
-        rows = x.shape[-1] if tail == ("n",) else None
-        want = ((B,) if batched else ()) + (tail if rows is None else (rows,))
-        if (x.dtype != torch.float32 or x.device != dev or tuple(x.shape) != want
-                or not x.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 {want} on {dev}, got "
-                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
-        flat += [x.data_ptr(), x.stride(0) if batched else 0]
-        if rows is not None:
-            flat.append(rows)
-    fn = cuda_build.entry_point("icp_terminate", "mp2p_icp_terminate_f32", (
-        _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L,
-        _P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _L, _I,
-        _I, _F, _F, _P, _P, _P, _P, _P))
-    with torch.cuda.device(dev):
-        err = fn(*flat, B, eps_t, eps_r, out_R.data_ptr(), out_t.data_ptr(),
-                 out_flags.data_ptr(), out_norms.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"icp_terminate kernel launch failed: CUDA error {err}")
-    terminate_fused.launches += 1
+    B = shape[0] if shape else 1
+    out = (torch.empty(shape + (3, 3), dtype=torch.float32, device=dev),
+           torch.empty(shape + (3,), dtype=torch.float32, device=dev),
+           torch.empty(shape + (3,), dtype=torch.bool, device=dev),
+           torch.empty(shape + (4,), dtype=torch.float32, device=dev))
+    cuda_build.launch(_KERNEL, dev, B, args, B, eps_t, eps_r, *out)
     profiler.count("icp.terminate", "fused", B)
-
-
-def _outputs(shape, device):
-    return (torch.empty(shape + (3, 3), dtype=torch.float32, device=device),
-            torch.empty(shape + (3,), dtype=torch.float32, device=device),
-            torch.empty(shape + (3,), dtype=torch.bool, device=device),
-            torch.empty(shape + (4,), dtype=torch.float32, device=device))
+    return out
 
 
 @torch.library.custom_op("mp2p_icp_tpu_torch::icp_terminate", mutates_args=())
@@ -150,10 +120,7 @@ def _terminate_op(R: torch.Tensor, t: torch.Tensor, prev_R: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     tensors = (R, t, prev_R, prev_t, new_R, new_t, w_pt2pt, w_pt2ln, w_pt2pl, w_ln2ln,
                w_pl2pl)
-    out = _outputs((), R.device)
-    _launch(1, [None if x is None else (x.contiguous(), False) for x in tensors], eps_t,
-            eps_r, *out)
-    return out
+    return _launch((), [cuda_build.launch_arg(x) for x in tensors], eps_t, eps_r)
 
 
 @_terminate_op.register_vmap
@@ -161,10 +128,5 @@ def _terminate_op_vmap(info, in_dims, *args):
     """Under torch.func.vmap: one launch for the batch, one block per
     problem. An unbatched input is shared by every problem (stride 0, not
     copied)."""
-    tensors, (eps_t, eps_r) = args[:11], args[11:]
-    out = _outputs((info.batch_size,), args[0].device)
-    _launch(info.batch_size,
-            [None if x is None else
-             (x.contiguous(), False) if d is None else (x.movedim(d, 0).contiguous(), True)
-             for x, d in zip(tensors, in_dims[:11])], eps_t, eps_r, *out)
-    return out, (0, 0, 0, 0)
+    return _launch((info.batch_size,), [cuda_build.launch_arg(x, d) for x, d in
+                                        zip(args[:11], in_dims)], *args[11:]), (0, 0, 0, 0)

@@ -173,27 +173,17 @@ def knn_plain_batched(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None,
 
 # ------------------------------------------------------------------ kernels
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# r, groups, slice, S, nq, np, part_d, part_i, part_th, out_d, out_i, stream:
-# the tail of every entry point
-_SPLIT_ARGS = (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P)
-
-
-def load_kernel():
-    """The K1 entry point (``csrc/knn_bruteforce.cu``)."""
-    return cuda_build.entry_point("knn_bruteforce", "mp2p_knn_sweep_f32",
-                                  (_P, _I, _P, _I, _I) + _SPLIT_ARGS)
-
-
-def load_streamed_kernel():
-    """The K3 entry point (``csrc/knn_streamed.cu``)."""
-    return cuda_build.entry_point("knn_streamed", "mp2p_knn_sweep_streamed_f32",
-                                  (_P, _I, _P, _I, _I) + _SPLIT_ARGS)
-
-
-def load_batched_kernel():
-    """The K2 entry point (``csrc/knn_batched.cu``)."""
-    return cuda_build.entry_point("knn_batched", "mp2p_knn_sweep_batched_f32",
-                                  (_P, _I, _L, _P, _I, _L, _I, _I) + _SPLIT_ARGS)
+# r, groups, slice, S, nq, np, part_d, part_i, part_th, out_d, out_i: the
+# tail of every sweep's entry point, before the stream
+_SPLIT_ARGS = (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P)
+# the three sweeps' entry points: (q, Q, p, C, k) or, batched, (q, Q, q's
+# batch stride, p, C, p's batch stride, B, k), then the split
+K1 = cuda_build.Kernel("knn_bruteforce", "mp2p_knn_sweep_f32", (),
+                       (_P, _I, _P, _I, _I) + _SPLIT_ARGS)
+K3 = cuda_build.Kernel("knn_streamed", "mp2p_knn_sweep_streamed_f32", (),
+                       (_P, _I, _P, _I, _I) + _SPLIT_ARGS)
+K2 = cuda_build.Kernel("knn_batched", "mp2p_knn_sweep_batched_f32", (),
+                       (_P, _I, _L, _P, _I, _L, _I, _I) + _SPLIT_ARGS)
 
 
 def _check(k, **arrays):
@@ -381,19 +371,19 @@ def launch_shape(Q: int, C: int, n_sm: int, k: int = 1, B: int = 1) -> dict:
             "points_per_warp": -(-split.slice_len // split.groups)}
 
 
-def _launch_split(entry, name, q, p, k, B, head, counts=(None, None)):
+def _launch_split(kernel, q, p, k, B, head, counts=(None, None)):
     """Allocate the outputs (and the scratch when the points are split
     across blocks: the slices' lists and, for k > 1, the thresholds they
-    pool, at +inf) and launch ``entry`` on q's device and current stream.
-    ``head``: the entry point's arguments before (r, groups, slice, S, ...);
-    ``counts``: the (queries, points) count tensors of ``_count_arg``.
-    Returns (d2 [B, Q, k], idx [B, Q, k], whether a kernel was launched)."""
+    pool, at +inf) and launch ``kernel`` on q's device. ``head``: the entry
+    point's arguments before (r, groups, slice, S, ...); ``counts``: the
+    (queries, points) count tensors of ``_count_arg``. Returns (d2 [B, Q,
+    k], idx [B, Q, k]); launches nothing where Q or B is 0."""
     Q, C = q.shape[-2], p.shape[-2]
     dev = q.device
     out_d = torch.empty((B, Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, Q, k), dtype=torch.int32, device=dev)
     if Q == 0 or B == 0:
-        return out_d, out_i, False
+        return out_d, out_i
     n_sm = _sm_count(dev.index or 0)
     r = register_tile(Q, C, n_sm, k, B)
     groups, S, slice_len = sweep_split(Q, C, n_sm, k, B)
@@ -403,15 +393,9 @@ def _launch_split(entry, name, q, p, k, B, head, counts=(None, None)):
         part_i = torch.empty((S, B * Q, k), dtype=torch.int32, device=dev)
         if k > 1:
             part_th = torch.full((B * Q,), float("inf"), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = entry(*head, r, groups, slice_len, S,
-                    *(None if c is None else c.data_ptr() for c in counts),
-                    *(None if x is None else x.data_ptr() for x in (part_d, part_i, part_th)),
-                    out_d.data_ptr(), out_i.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    return out_d, out_i, True
+    cuda_build.launch(kernel, dev, B, (), *head, r, groups, slice_len, S, *counts, part_d,
+                      part_i, part_th, out_d, out_i)
+    return out_d, out_i
 
 
 def knn_sweep(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None, p_count=None):
@@ -424,21 +408,16 @@ def knn_sweep(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None, p_count=No
 
     CPU tensors run ``knn_plain``; CUDA tensors launch the Hopper kernel
     (and raise if it cannot be built or launched — there is no fallback).
-    ``knn_sweep.launches`` counts kernel launches (a sweep and the merge of
-    its slices count as one)."""
+    ``cuda_build.launches["knn_bruteforce"]`` counts the launches (a sweep
+    and the merge of its slices count as one)."""
     _count_rows(k, 1, q, p, q_count, p_count, False)
     if _check(k, q=(q, (2,)), p=(p, (2,))) == "cpu":
         return knn_plain(q, p, k, q_count, p_count)
-    out_d, out_i, launched = _launch_split(
-        load_kernel(), "knn_sweep", q, p, k, 1,
-        (q.data_ptr(), q.shape[0], p.data_ptr(), p.shape[0], k),
+    out_d, out_i = _launch_split(
+        K1, q, p, k, 1, (q, q.shape[0], p, p.shape[0], k),
         (_count_arg("q_count", q_count, 1, q.device),
          _count_arg("p_count", p_count, 1, q.device)))
-    knn_sweep.launches += launched
     return out_d[0], out_i[0]
-
-
-knn_sweep.launches = 0
 
 
 def knn_sweep_streamed(q: torch.Tensor, p: torch.Tensor, k: int,
@@ -449,18 +428,12 @@ def knn_sweep_streamed(q: torch.Tensor, p: torch.Tensor, k: int,
     ``stream_block`` points. Same result as ``knn_sweep``; it takes no
     counts yet and sweeps the whole map (the front end's ``_sweep_op``
     keeps the counts it was handed in the trace's ``knn.rows`` counter).
-    ``knn_sweep_streamed.launches`` counts kernel launches (the slice sweep
-    and its merge count as one)."""
+    ``cuda_build.launches["knn_streamed"]`` counts the launches (the slice
+    sweep and its merge count as one)."""
     if _check(k, q=(q, (2,)), p=(p, (2,))) == "cpu":
         return knn_plain_streamed(q, p, k, stream_block)
-    out_d, out_i, launched = _launch_split(
-        load_streamed_kernel(), "knn_sweep_streamed", q, p, k, 1,
-        (q.data_ptr(), q.shape[0], p.data_ptr(), p.shape[0], k))
-    knn_sweep_streamed.launches += launched
+    out_d, out_i = _launch_split(K3, q, p, k, 1, (q, q.shape[0], p, p.shape[0], k))
     return out_d[0], out_i[0]
-
-
-knn_sweep_streamed.launches = 0
 
 
 def knn_sweep_batched(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None,
@@ -473,7 +446,7 @@ def knn_sweep_batched(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None,
 
     CPU tensors run ``knn_plain_batched``; CUDA tensors launch
     ``csrc/knn_batched.cu`` once for all problems.
-    ``knn_sweep_batched.launches`` counts kernel launches."""
+    ``cuda_build.launches["knn_batched"]`` counts the launches."""
     if q.ndim != 3 and p.ndim != 3:
         raise ValueError("knn_sweep_batched needs a batched q or p; use knn_sweep")
     B = q.shape[0] if q.ndim == 3 else p.shape[0]
@@ -485,17 +458,11 @@ def knn_sweep_batched(q: torch.Tensor, p: torch.Tensor, k: int, q_count=None,
     if B > _MAX_GRID:
         raise ValueError(f"knn_sweep_batched takes at most {_MAX_GRID} problems")
     Q, C = q.shape[-2], p.shape[-2]
-    out_d, out_i, launched = _launch_split(
-        load_batched_kernel(), "knn_sweep_batched", q, p, k, B,
-        (q.data_ptr(), Q, 3 * Q if q.ndim == 3 else 0,
-         p.data_ptr(), C, 3 * C if p.ndim == 3 else 0, B, k),
+    return _launch_split(
+        K2, q, p, k, B,
+        (q, Q, 3 * Q if q.ndim == 3 else 0, p, C, 3 * C if p.ndim == 3 else 0, B, k),
         (_count_arg("q_count", q_count, B if q.ndim == 3 else 1, q.device),
          _count_arg("p_count", p_count, B if p.ndim == 3 else 1, q.device)))
-    knn_sweep_batched.launches += launched
-    return out_d, out_i
-
-
-knn_sweep_batched.launches = 0
 
 
 # ------------------------------------------- the sweep as a custom operator
@@ -514,12 +481,11 @@ def _sweep_op_vmap(info, in_dims, q, p, k, stream_block, q_count, p_count):
     """Under torch.func.vmap: one batched sweep for all problems (the JAX
     package's custom_vmap rule, nn_bruteforce.py:287-342). A count is [B]
     where it is batched, else one value for all problems."""
-    def batched(x, d):
-        return x if x is None or d is None else x.movedim(d, 0).contiguous()
-
     def sides(x, d, count, cd):
+        x, _ = cuda_build.launch_arg(x, d)
+        if count is not None:
+            count, _ = cuda_build.launch_arg(count, cd)
         # a side whose count differs by problem is given to each problem
-        x, count = batched(x, d), batched(count, cd)
         if d is None and cd is not None:
             x = x.expand(info.batch_size, *x.shape).contiguous()
         return x, count

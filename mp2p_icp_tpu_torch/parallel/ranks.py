@@ -3,10 +3,9 @@
 Each function runs on every rank of a fresh process group. It builds its
 inputs from numpy on this rank's device, drives one sharded entry point
 the way a user calls it, and returns numpy results with this rank's kernel
-launches of the counted run (the kNN sweeps' and the Gauss-Newton solve's;
-the counters set to 0 just before it and read just after it) and the
-milliseconds of ``reps`` further timed runs (host clock, the device
-synchronised around each). ``chip_smoke.py``
+launches of the counted run (``cuda_build.launches``, set to 0 just before
+it and read just after it) and the milliseconds of ``reps`` further timed
+runs (host clock, the device synchronised around each). ``chip_smoke.py``
 drives them on the card; the CPU tests on gloo ranks.
 
 Layers travel as {name: {field: array}} (``convert.pointcloud_to_numpy``),
@@ -25,15 +24,9 @@ import torch
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.core.se3 import Pose
 from mp2p_icp_tpu_torch.device import default_device
-from mp2p_icp_tpu_torch.ops import icp_terminate
+from mp2p_icp_tpu_torch.ops import cuda_build
 from mp2p_icp_tpu_torch.ops import nn_bruteforce as nnb
 from mp2p_icp_tpu_torch.parallel.mesh import make_mesh, shard_batch, world
-from mp2p_icp_tpu_torch.solvers import gauss_newton
-
-# the kernels whose launches a run counts: name -> the wrapper that counts them
-COUNTED = {"knn_sweep": nnb.knn_sweep, "knn_sweep_streamed": nnb.knn_sweep_streamed,
-           "knn_sweep_batched": nnb.knn_sweep_batched, "gn_solve": gauss_newton.gn_solve_fused,
-           "icp_terminate": icp_terminate.terminate_fused}
 
 
 def _sync():
@@ -43,14 +36,13 @@ def _sync():
 
 def _reset():
     _sync()
-    for wrapper in COUNTED.values():
-        wrapper.launches = 0
+    cuda_build.reset_launches()
     nnb.knn_sharded.gathers = 0
 
 
 def _counts() -> dict:
     _sync()
-    return {name: wrapper.launches for name, wrapper in COUNTED.items()}
+    return dict(cuda_build.launches)
 
 
 def _ms(fn, reps: int):

@@ -232,7 +232,7 @@ def gn_solve_fused(pairings: Pairings, guess: Pose, params: GNParams) -> Pose:
     blocks in one launch of ``csrc/gn_solve.cu``: every inner iteration on
     the card, the pose rounded to the guess's float32 once. CUDA tensors
     only (raises otherwise); no host read, nothing copied to the card.
-    ``gn_solve_fused.launches`` counts the launches."""
+    ``cuda_build.launches["gn_solve"]`` counts the launches."""
     pt = (pairings.pt2pt.local, pairings.pt2pt.globl, pairings.pt2pt.weight)
     pl = (pairings.pt2pl.local, pairings.pt2pl.plane_centroid,
           pairings.pt2pl.plane_normal, pairings.pt2pl.weight)
@@ -245,56 +245,30 @@ def gn_solve_fused(pairings: Pairings, guess: Pose, params: GNParams) -> Pose:
     return Pose(R, t)
 
 
-gn_solve_fused.launches = 0
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# each problem's pt2pt and pt2pl blocks, each followed by its rows, and its
+# guess; then B, the iterations, min_delta, max_cost, damping, the two pair
+# weights and the outputs R, t
+_KERNEL = cuda_build.Kernel(
+    "gn_solve", "mp2p_gn_solve_f32",
+    (("pt_local", ("pt", 3)), ("pt_global", ("pt", 3)), ("pt_weight", ("pt",)), "pt",
+     ("pl_local", ("pl", 3)), ("pl_centroid", ("pl", 3)), ("pl_normal", ("pl", 3)),
+     ("pl_weight", ("pl",)), "pl", ("R", (3, 3)), ("t", (3,))),
+    (_I, _I, _D, _D, _D, _D, _D, _P, _P))
 
-_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-# the op's tensor arguments in order, each with the shape of one problem's
-# (n: the rows of its block)
-_TENSORS = (("pt_local", ("n", 3)), ("pt_global", ("n", 3)), ("pt_weight", ("n",)),
-            ("pl_local", ("n", 3)), ("pl_centroid", ("n", 3)), ("pl_normal", ("n", 3)),
-            ("pl_weight", ("n",)), ("R", (3, 3)), ("t", (3,)))
 
-
-def _launch(B: int, args, iterations: int, min_delta: float, max_cost: float,
-            damping: float, w_pt: float, w_pl: float, out_R, out_t) -> None:
-    """One launch for B problems. ``args``: the op's nine tensors in order,
-    each None (a block that is not live: all of its tensors) or (tensor,
-    batched): a batched tensor has a leading B, an unbatched one is shared
-    by every problem (stride 0). Checks every tensor, raises where the
-    kernel does not take it."""
-    n_pt = 0 if args[2] is None else args[2][0].shape[-1]
-    n_pl = 0 if args[6] is None else args[6][0].shape[-1]
-    if (args[0] is None) != (args[2] is None) or len({a is None for a in args[3:7]}) > 1:
-        raise ValueError("a block's tensors are all given or all None")
+def _launch(shape, args, *scalars):
+    """One launch for the problems of ``shape`` (() or (B,)): ``args`` the
+    op's nine tensors as ``cuda_build.launch`` takes them, a block's all
+    None where it is not live. Returns (R, t) of that shape."""
     dev = args[7][0].device
-    if dev.type != "cuda":
-        raise ValueError(f"gn_solve_fused runs on the card, not on {dev}: the plain "
-                         "path is optimal_tf_gauss_newton")
-    rows = {"pt": n_pt, "pl": n_pl}
-    flat = []
-    for (name, tail), a in zip(_TENSORS, args):
-        if a is None:
-            flat += [None, 0]
-            continue
-        x, batched = a
-        want = ((B,) if batched else ()) + tuple(rows[name[:2]] if d == "n" else d
-                                                 for d in tail)
-        if (x.dtype != torch.float32 or x.device != dev or tuple(x.shape) != want
-                or not x.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 {want} on {dev}, got "
-                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
-        flat += [x.data_ptr(), x.stride(0) if batched else 0]
-    fn = cuda_build.entry_point("gn_solve", "mp2p_gn_solve_f32", (
-        _P, _L, _P, _L, _P, _L, _I, _P, _L, _P, _L, _P, _L, _P, _L, _I, _P, _L, _P, _L,
-        _I, _I, _D, _D, _D, _D, _D, _P, _P, _P))
-    with torch.cuda.device(dev):
-        err = fn(*flat[:6], n_pt, *flat[6:14], n_pl, *flat[14:], B, iterations, min_delta,
-                 max_cost, damping, w_pt, w_pl, out_R.data_ptr(), out_t.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gn_solve kernel launch failed: CUDA error {err}")
-    gn_solve_fused.launches += 1
-    profiler.count("gn.solve", "fused", B, n_pt + n_pl)
+    B = shape[0] if shape else 1
+    out_R = torch.empty(shape + (3, 3), dtype=torch.float32, device=dev)
+    out_t = torch.empty(shape + (3,), dtype=torch.float32, device=dev)
+    cuda_build.launch(_KERNEL, dev, B, args, B, *scalars, out_R, out_t)
+    profiler.count("gn.solve", "fused", B,
+                   sum(w[0].shape[-1] for w in (args[2], args[6]) if w is not None))
+    return out_R, out_t
 
 
 @torch.library.custom_op("mp2p_icp_tpu_torch::gn_solve", mutates_args=())
@@ -306,11 +280,8 @@ def _gn_op(pt_local: Optional[torch.Tensor], pt_global: Optional[torch.Tensor],
            w_pl: float) -> Tuple[torch.Tensor, torch.Tensor]:
     tensors = (pt_local, pt_global, pt_weight, pl_local, pl_centroid, pl_normal, pl_weight,
                R, t)
-    out_R = torch.empty((3, 3), dtype=torch.float32, device=R.device)
-    out_t = torch.empty(3, dtype=torch.float32, device=R.device)
-    _launch(1, [None if x is None else (x.contiguous(), False) for x in tensors], iterations,
-            min_delta, max_cost, damping, w_pt, w_pl, out_R, out_t)
-    return out_R, out_t
+    return _launch((), [cuda_build.launch_arg(x) for x in tensors], iterations, min_delta,
+                   max_cost, damping, w_pt, w_pl)
 
 
 @_gn_op.register_vmap
@@ -318,11 +289,5 @@ def _gn_op_vmap(info, in_dims, *args):
     """Under torch.func.vmap: one launch for the batch, one block per
     problem, each summed in the order of a single solve. An unbatched input
     is shared by every problem (stride 0, not copied)."""
-    tensors, scalars = args[:9], args[9:]
-    B = info.batch_size
-    out_R = torch.empty((B, 3, 3), dtype=torch.float32, device=args[7].device)
-    out_t = torch.empty((B, 3), dtype=torch.float32, device=args[7].device)
-    _launch(B, [None if x is None else
-                (x.contiguous(), False) if d is None else (x.movedim(d, 0).contiguous(), True)
-                for x, d in zip(tensors, in_dims[:9])], *scalars, out_R, out_t)
-    return (out_R, out_t), (0, 0)
+    return _launch((info.batch_size,), [cuda_build.launch_arg(x, d) for x, d in
+                                        zip(args[:9], in_dims)], *args[9:]), (0, 0)

@@ -59,11 +59,22 @@ def worker(args):
         if on_card:
             torch.cuda.synchronize()
 
-    sweeps = ("knn_sweep", "knn_sweep_streamed", "knn_sweep_batched")
+    def counted(reset=False):
+        """The kNN sweeps' launches (set to 0 with ``reset``); a tree from
+        before ``cuda_build.launches`` counts them on each sweep."""
+        sweeps = ("knn_sweep", "knn_sweep_streamed", "knn_sweep_batched")
+        if not hasattr(cuda_build, "launches"):
+            if reset:
+                for name in sweeps:
+                    getattr(nnb, name).launches = 0
+            return {name: getattr(nnb, name).launches for name in sweeps}
+        if reset:
+            cuda_build.reset_launches()
+        return {n: v for n, v in cuda_build.launches.items() if n.startswith("knn_")}
+
     out = {}
     for mode, extra in MODES.items():
-        for name in sweeps:
-            getattr(nnb, name).launches = 0
+        counted(reset=True)
         buf = io.StringIO()
         poses = WORK / f"poses_{mode}_{args.tag}.txt"
         sync()
@@ -77,10 +88,9 @@ def worker(args):
         out[mode] = {"ms_per_frame": 1e3 / float(re.search(r"scans/s=([0-9.]+)", text).group(1)),
                      "seconds": time.perf_counter() - t0,
                      "iterations": int(re.search(r"ICP iterations: (\d+)", text).group(1)),
-                     "launches": {n: getattr(nnb, n).launches for n in sweeps},
+                     "launches": counted(),
                      "poses": str(poses)}
-    for name in sweeps:
-        getattr(nnb, name).launches = 0
+    counted(reset=True)
     sync()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
@@ -89,7 +99,7 @@ def worker(args):
                             str(WORK / "tools.yaml"), "-v", "QUIET", "--device", args.device])
     sync()
     out["rawlog_filter"] = {"ms_per_frame": (time.perf_counter() - t0) * 1e3 / args.frames,
-                            "launches": {n: getattr(nnb, n).launches for n in sweeps}}
+                            "launches": counted()}
     print(json.dumps(out))
 
 

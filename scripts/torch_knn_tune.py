@@ -402,7 +402,7 @@ def main():
         tag = "-".join(f"{n}{v}" for n, v in settings.items())
         variants[tag] = (settings, nvcc_start(tag, edited_csrc(settings, tag), SOURCES[1:2]))
     base_procs = nvcc_start("baseline", args.baseline_csrc, SOURCES) if args.baseline_csrc else None
-    fn = nnb.load_batched_kernel()
+    fn = nnb.K2.fn
     record = cuda_build.build_record("knn_batched")
     say_ptxas("as committed", record["log"])
     check_build(fn, "as committed", dev, n_sm)

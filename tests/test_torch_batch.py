@@ -36,6 +36,7 @@ from mp2p_icp_tpu_torch.core.params import Expression
 from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.icp import ICP, ICPParameters, IterTermReason
 from mp2p_icp_tpu_torch.matchers import MatcherPointsDistanceThreshold
+from mp2p_icp_tpu_torch.ops import cuda_build
 from mp2p_icp_tpu_torch.ops import nn_bruteforce as tnb
 from mp2p_icp_tpu_torch.parallel import make_batched_align, stack_pytrees
 from mp2p_icp_tpu_torch.parity import TIE_TOL, knn_mismatch
@@ -153,9 +154,9 @@ def test_batched_sweep_checks_arguments():
         tnb.knn_sweep_batched(q, torch.zeros(3, 4, 3), 1)  # batch sizes differ
     with pytest.raises(ValueError):
         tnb.knn_sweep_batched(q, q, 9)
-    before = tnb.knn_sweep_batched.launches
+    before = cuda_build.launches["knn_batched"]
     tnb.knn_sweep_batched(q, q, 1)
-    assert tnb.knn_sweep_batched.launches == before  # CPU: no kernel
+    assert cuda_build.launches["knn_batched"] == before  # CPU: no kernel
 
 
 # -------------------------------------------------------------- align
@@ -341,9 +342,9 @@ def test_batched_kernel_matches_plain_on_card(broadcast):
     q = torch.from_numpy(rng.uniform(-60, 60, (4, 777, 3)).astype(np.float32)).cuda()
     shape = (3001, 3) if broadcast else (4, 3001, 3)
     p = torch.from_numpy(rng.uniform(-60, 60, shape).astype(np.float32)).cuda()
-    before = tnb.knn_sweep_batched.launches
+    before = cuda_build.launches["knn_batched"]
     d, i = tnb.knn_sweep_batched(q, p, 4)
     d_ref, i_ref = tnb.knn_plain_batched(q, p, 4)
     torch.cuda.synchronize()
-    assert tnb.knn_sweep_batched.launches == before + 1
+    assert cuda_build.launches["knn_batched"] == before + 1
     assert torch.equal(d, d_ref) and torch.equal(i, i_ref)

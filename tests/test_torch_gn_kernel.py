@@ -57,6 +57,7 @@ from mp2p_icp_tpu_torch.matchers import (
     MatcherPoint2Plane,
     MatcherPointsDistanceThreshold,
 )
+from mp2p_icp_tpu_torch.ops import cuda_build
 from mp2p_icp_tpu_torch.parallel import batch, make_batched_align, stack_pytrees
 from mp2p_icp_tpu_torch.solvers import gauss_newton as gn
 from mp2p_icp_tpu_torch.solvers.common import PairWeights
@@ -120,11 +121,11 @@ def test_cpu_solves_take_the_plain_path_and_are_counted():
     """A CPU solve never launches; under a trace each solve leaves one
     ``gn.solve`` record: ("plain", None, rows of its live blocks)."""
     pairings, guess = gn_problem(0, n_pt=64, n_pl=32)
-    before = gn.gn_solve_fused.launches
+    before = cuda_build.launches["gn_solve"]
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         out = SolverGaussNewton().solve(pairings, guess)
         records = [v for name, v in profiler.drain_counts() if name == "gn.solve"]
-    assert gn.gn_solve_fused.launches == before
+    assert cuda_build.launches["gn_solve"] == before
     assert records == [("plain", None, 96)]
     want = _plain(pairings, guess, GNParams())
     assert torch.equal(out.R, want.R) and torch.equal(out.t, want.t)
@@ -183,10 +184,12 @@ def test_run_matchers_sets_the_live_blocks(matchers, live, active):
 
 
 # ------------------------------------------- the wrapper's plumbing (CPU)
-def _emulated_launch(B, args, iterations, min_delta, max_cost, damping, w_pt, w_pl,
-                     out_R, out_t):
-    """``gauss_newton._launch`` with the kernel replaced by the plain path,
-    problem by problem, reading the arguments as the kernel does."""
+def _emulated_launch(kernel, dev, B, args, _B, iterations, min_delta, max_cost, damping,
+                     w_pt, w_pl, out_R, out_t):
+    """``cuda_build.launch`` of the Gauss-Newton kernel with the kernel
+    replaced by the plain path, problem by problem, reading the arguments
+    as the kernel does."""
+    assert kernel.library == "gn_solve" and _B == B
     def nth(a, b):
         return None if a is None else (a[0][b] if a[1] else a[0])
 
@@ -208,7 +211,7 @@ def _emulated_launch(B, args, iterations, min_delta, max_cost, damping, w_pt, w_
         pose = _plain(dataclasses.replace(Pairings.empty(), **blocks), se3.Pose(x[7], x[8]),
                       params)
         out_R[b], out_t[b] = pose.R, pose.t
-    gn.gn_solve_fused.launches += 1
+    cuda_build.launches["gn_solve"] += 1
 
 
 PARAMS = GNParams(max_iterations=3, pair_weights=PairWeights(pt2pt=0.5, pt2pl=2.0))
@@ -220,7 +223,7 @@ def test_wrapper_hands_the_kernel_its_blocks(monkeypatch, blocks):
     """One problem and a vmapped batch of three, through the custom
     operator and its vmap rule: equal to the plain path to the bit, so the
     blocks, weights and pose reach the kernel in its argument order."""
-    monkeypatch.setattr(gn, "_launch", _emulated_launch)
+    monkeypatch.setattr(cuda_build, "launch", _emulated_launch)
     problems = [gn_problem(s, *blocks) for s in (4, 5, 6)]
     pairings, guess = problems[0]
     one = gn.gn_solve_fused(pairings, guess, PARAMS)
@@ -228,10 +231,10 @@ def test_wrapper_hands_the_kernel_its_blocks(monkeypatch, blocks):
     assert torch.equal(one.R, want.R) and torch.equal(one.t, want.t)
     assert one.R.shape == (3, 3) and one.t.shape == (3,)
 
-    before = gn.gn_solve_fused.launches
+    before = cuda_build.launches["gn_solve"]
     out = vmap(lambda p, g: gn.gn_solve_fused(p, g, PARAMS))(
         _stack([p for p, _ in problems]), _stack([g for _, g in problems]))
-    assert gn.gn_solve_fused.launches == before + 1  # one launch for the batch
+    assert cuda_build.launches["gn_solve"] == before + 1  # one launch for the batch
     for b, (p, g) in enumerate(problems):
         want = _plain(p, g, PARAMS)
         assert torch.equal(out.R[b], want.R) and torch.equal(out.t[b], want.t)
@@ -242,11 +245,11 @@ def test_vmap_rule_shares_an_unbatched_input(monkeypatch):
     once with stride 0, and each problem is the single solve at its guess."""
     calls = []
 
-    def launch(B, args, *rest):
+    def launch(kernel, dev, B, args, *rest):
         calls.append([None if a is None else a[1] for a in args])
-        _emulated_launch(B, args, *rest)
+        _emulated_launch(kernel, dev, B, args, *rest)
 
-    monkeypatch.setattr(gn, "_launch", launch)
+    monkeypatch.setattr(cuda_build, "launch", launch)
     pairings, guess = gn_problem(7, n_pl=40)
     guesses = [se3.compose(guess, se3.from_xyz_ypr(0.01 * b, 0, 0, 0, 0, 0)) for b in range(3)]
     out = vmap(lambda g: gn.gn_solve_fused(pairings, g, PARAMS))(_stack(guesses))
@@ -260,18 +263,18 @@ def test_solver_routes_to_the_kernel_where_the_rule_says(monkeypatch):
     """SolverGaussNewton.solve calls the fused wrapper exactly where
     ``takes_kernel`` holds (the rule forced here: a CPU tensor otherwise
     never reaches it), with the iteration's kernel_param resolved."""
-    monkeypatch.setattr(gn, "_launch", _emulated_launch)
+    monkeypatch.setattr(cuda_build, "launch", _emulated_launch)
     monkeypatch.setattr("mp2p_icp_tpu_torch.solvers.solver.takes_kernel",
                         lambda live, device, kernel, prior: live <= gn.FUSED_BLOCKS)
     pairings, guess = gn_problem(8, n_pt=50, n_pl=50)
-    before = gn.gn_solve_fused.launches
+    before = cuda_build.launches["gn_solve"]
     out = SolverGaussNewton(gn_params=PARAMS).solve(pairings, guess)
-    assert gn.gn_solve_fused.launches == before + 1
+    assert cuda_build.launches["gn_solve"] == before + 1
     want = _plain(pairings, guess, PARAMS)
     assert torch.equal(out.R, want.R) and torch.equal(out.t, want.t)
     SolverGaussNewton(gn_params=PARAMS).solve(dataclasses.replace(pairings, live=ALL_BLOCKS),
                                               guess)
-    assert gn.gn_solve_fused.launches == before + 1
+    assert cuda_build.launches["gn_solve"] == before + 1
 
 
 def test_wrapper_raises_without_a_card():
@@ -385,12 +388,12 @@ def test_batch_equals_single_launches_and_runs_repeat():
     dev = _card()
     problems = [pytree.tree_map(lambda x: x.to(dev), gn_problem(30 + b, n_pl=6144))
                 for b in range(8)]
-    before = gn.gn_solve_fused.launches
+    before = cuda_build.launches["gn_solve"]
     singles = [gn.gn_solve_fused(p, g, PARAMS) for p, g in problems]
-    assert gn.gn_solve_fused.launches == before + 8
+    assert cuda_build.launches["gn_solve"] == before + 8
     P, G = _stack([p for p, _ in problems]), _stack([g for _, g in problems])
     runs = [vmap(lambda p, g: gn.gn_solve_fused(p, g, PARAMS))(P, G) for _ in range(2)]
-    assert gn.gn_solve_fused.launches == before + 10
+    assert cuda_build.launches["gn_solve"] == before + 10
     for out in runs:
         for b, one in enumerate(singles):
             assert torch.equal(out.R[b], one.R) and torch.equal(out.t[b], one.t)
@@ -424,12 +427,12 @@ def test_batched_align_equals_sequential_on_the_card(broadcast, horn_up_to):
     params = ICPParameters(max_iterations=10, crop_capacity=2048, crop_extra_margin=2.0)
     gmap = {"raw": PointCloud.from_numpy(scene, capacity=4096, device=dev)}
     l_t = [{"raw": PointCloud.from_numpy(x, capacity=512, device=dev)} for x in locals_]
-    before = gn.gn_solve_fused.launches
+    before = cuda_build.launches["gn_solve"]
     res = make_batched_align(icp, params, broadcast_globals=broadcast)(
         stack_pytrees(l_t), gmap if broadcast else stack_pytrees([gmap] * 3),
         stack_pytrees([se3.identity(device=dev)] * 3))
     gn_ran = int(res.n_iterations.max()) > horn_up_to + 1
-    assert (gn.gn_solve_fused.launches > before) == gn_ran
+    assert (cuda_build.launches["gn_solve"] > before) == gn_ran
     assert horn_up_to >= 0 or gn_ran
     for b in range(3):
         seq = icp.align(l_t[b], gmap, se3.identity(device=dev), params)
@@ -462,11 +465,11 @@ def test_fleet_equals_the_sequential_runs_on_the_card():
         poses = [se3.Pose(torch.as_tensor(gt[a, :3, :3], dtype=torch.float32, device=dev),
                           torch.as_tensor(gt[a, :3, 3], dtype=torch.float32, device=dev))
                  for a, _ in cut]
-        before = gn.gn_solve_fused.launches
+        before = cuda_build.launches["gn_solve"]
         fleet = BatchedOdometryMapper(mapper).run(
             [frames[a:b] for a, b in cut], twists=[twists[a:b] for a, b in cut],
             initial_poses=poses, dt=0.1)
-        assert gn.gn_solve_fused.launches > before
+        assert cuda_build.launches["gn_solve"] > before
         for i, (a, b) in enumerate(cut):
             seq = mapper.run(frames[a:b], twists=twists[a:b], initial_pose=poses[i], dt=0.1)
             assert np.abs(fleet["poses"][i] - seq["poses"]).max() <= 1e-5

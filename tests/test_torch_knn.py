@@ -19,8 +19,12 @@ import torch
 from mp2p_icp_tpu.ops import nn as jnn
 from mp2p_icp_tpu.ops import nn_bruteforce as jnb
 import mp2p_icp_tpu_torch
+from mp2p_icp_tpu_torch.eval.gn_problem import gn_problem
+from mp2p_icp_tpu_torch.ops import cuda_build
+from mp2p_icp_tpu_torch.ops import icp_terminate as term
 from mp2p_icp_tpu_torch.ops import nn as tnn
 from mp2p_icp_tpu_torch.ops import nn_bruteforce as tnb
+from mp2p_icp_tpu_torch.solvers import gauss_newton as gn
 from mp2p_icp_tpu_torch.parity import TIE_TOL, knn_mismatch, true_dist_sq
 
 
@@ -128,9 +132,36 @@ def test_knn_sweep_checks_arguments():
 
 
 def test_knn_cpu_path_does_not_count_launches():
-    before = tnb.knn_sweep.launches
+    before = cuda_build.launches["knn_bruteforce"]
     tnb.knn_sweep(torch.zeros(4, 3), torch.ones(5, 3), 2)
-    assert tnb.knn_sweep.launches == before
+    assert cuda_build.launches["knn_bruteforce"] == before
+
+
+@pytest.mark.parametrize("library", list(cuda_build.LIBRARIES))
+def test_every_kernel_counts_from_its_reset_and_nothing_on_the_cpu(library):
+    """The one launch count: every library's reads what it was reset to,
+    and its wrapper on CPU tensors counts nothing, whether it runs the
+    plain version (the sweeps) or is refused (the port's own kernels)."""
+    pairings, guess = gn_problem(0, n_pt=8, n_pl=8)
+    q, p = torch.zeros(4, 3), torch.ones(5, 3)
+    calls = {
+        "knn_bruteforce": lambda: tnb.knn_sweep(q, p, 2),
+        "knn_streamed": lambda: tnb.knn_sweep_streamed(q, p, 2, stream_block=2),
+        "knn_batched": lambda: tnb.knn_sweep_batched(q[None], p, 2),
+        "gn_solve": lambda: gn.gn_solve_fused(pairings, guess, gn.GNParams()),
+        "icp_terminate": lambda: term.terminate_fused(pairings, guess, guess, guess, 1e-4,
+                                                      1e-4),
+    }
+    assert calls.keys() == cuda_build.LIBRARIES.keys()
+    cuda_build.launches[library] = 7
+    cuda_build.reset_launches()
+    assert cuda_build.launches == dict.fromkeys(cuda_build.LIBRARIES, 0)
+    if library.startswith("knn_"):
+        calls[library]()
+    else:
+        with pytest.raises(ValueError, match="runs on the card"):
+            calls[library]()
+    assert cuda_build.launches[library] == 0
 
 
 def _grid_problem(Q, C, seed):

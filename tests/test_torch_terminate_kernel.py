@@ -47,6 +47,7 @@ from mp2p_icp_tpu_torch.core.pointcloud import PointCloud
 from mp2p_icp_tpu_torch.core.se3 import Pose
 from mp2p_icp_tpu_torch.icp import ICP, ICPParameters
 from mp2p_icp_tpu_torch.matchers import MatcherPointsDistanceThreshold
+from mp2p_icp_tpu_torch.ops import cuda_build
 from mp2p_icp_tpu_torch.ops import icp_terminate as term
 from mp2p_icp_tpu_torch.parallel import make_batched_align, stack_pytrees
 from mp2p_icp_tpu_torch.solvers.gauss_newton import GNParams
@@ -193,11 +194,11 @@ def test_cpu_takes_the_plain_path_equal_to_the_formulas(kind, pairs, dtype):
     rng = np.random.RandomState(KINDS.index(kind) * 10 + len(pairs))
     pose, prev, new = _triple(rng, kind, dtype)
     pairings = _pairings({"pt2pt": _weights(rng, 40, pairs), "pt2pl": _weights(rng, 24, pairs)})
-    before = term.terminate_fused.launches
+    before = cuda_build.launches["icp_terminate"]
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         got, flags = term.terminate(pairings, pose, prev, new, EPS_T, EPS_R)
         records = [v for name, v in profiler.drain_counts() if name == "icp.terminate"]
-    assert term.terminate_fused.launches == before
+    assert cuda_build.launches["icp_terminate"] == before
     assert records == [("plain", None)]
     no_pairs, solver_ok, stalled, want = _formula(pairings, pose, prev, new, EPS_T, EPS_R)
     assert flags.dtype == torch.bool and flags.tolist() == [bool(no_pairs), bool(solver_ok),
@@ -210,9 +211,12 @@ def test_cpu_takes_the_plain_path_equal_to_the_formulas(kind, pairs, dtype):
 
 
 # ------------------------------------------- the wrapper's plumbing (CPU)
-def _emulated_launch(B, args, eps_t, eps_r, out_R, out_t, out_flags, out_norms):
-    """``icp_terminate._launch`` with the kernel replaced by the plain path,
-    problem by problem, reading the arguments as the kernel does."""
+def _emulated_launch(kernel, dev, B, args, _B, eps_t, eps_r, out_R, out_t, out_flags,
+                     out_norms):
+    """``cuda_build.launch`` of the termination kernel with the kernel
+    replaced by the plain path, problem by problem, reading the arguments
+    as the kernel does."""
+    assert kernel.library == "icp_terminate" and _B == B
     def nth(a, b):
         return None if a is None else (a[0][b] if a[1] else a[0])
 
@@ -225,7 +229,7 @@ def _emulated_launch(B, args, eps_t, eps_r, out_R, out_t, out_flags, out_norms):
         kept, flags = term.terminate_plain(pairings, pose, prev, new, eps_t, eps_r)
         out_R[b], out_t[b], out_flags[b] = kept.R, kept.t, flags
         out_norms[b] = torch.stack([*se3.delta_norms(pose, new), *se3.delta_norms(prev, new)])
-    term.terminate_fused.launches += 1
+    cuda_build.launches["icp_terminate"] += 1
 
 
 def _problems(seed, n):
@@ -261,16 +265,16 @@ def test_wrapper_hands_the_kernel_its_inputs(monkeypatch):
     operator and its vmap rule: equal to the plain path to the bit, so the
     poses, weights and thresholds reach the kernel in its argument order;
     one launch for the batch."""
-    monkeypatch.setattr(term, "_launch", _emulated_launch)
+    monkeypatch.setattr(cuda_build, "launch", _emulated_launch)
     problems = _problems(1, 7)
     for p in problems:
         got = term.terminate_fused(*p, EPS_T, EPS_R)
         assert got[0].R.shape == (3, 3) and got[1].shape == (3,) and got[2].shape == (4,)
         assert _equal(got, _plain(p))
-    before = term.terminate_fused.launches
+    before = cuda_build.launches["icp_terminate"]
     P, A, PR, N = (_stack([p[i] for p in problems]) for i in range(4))
     out = vmap(lambda p, a, pr, n: term.terminate_fused(p, a, pr, n, EPS_T, EPS_R))(P, A, PR, N)
-    assert term.terminate_fused.launches == before + 1
+    assert cuda_build.launches["icp_terminate"] == before + 1
     assert out[1].shape == (7, 3) and out[1].dtype == torch.bool
     for b, p in enumerate(problems):
         assert _equal((Pose(out[0].R[b], out[0].t[b]), out[1][b], out[2][b]), _plain(p))
@@ -282,11 +286,11 @@ def test_vmap_rule_shares_unbatched_inputs(monkeypatch):
     the single test."""
     calls = []
 
-    def launch(B, args, *rest):
+    def launch(kernel, dev, B, args, *rest):
         calls.append([None if a is None else a[1] for a in args])
-        _emulated_launch(B, args, *rest)
+        _emulated_launch(kernel, dev, B, args, *rest)
 
-    monkeypatch.setattr(term, "_launch", launch)
+    monkeypatch.setattr(cuda_build, "launch", launch)
     pairings, pose, prev, _ = _problems(2, 1)[0]
     news = [se3.compose(pose, se3.from_xyz_ypr(4e-4 * b, 0, 0, 0, 0, 6e-5 * b))
             for b in range(4)]
@@ -332,18 +336,18 @@ def test_icp_routes_every_test_to_the_kernel(monkeypatch):
     guesses = stack_pytrees([guess, guess])
     plain_b = batch_run(locals_, glob, guesses)
 
-    monkeypatch.setattr(term, "_launch", _emulated_launch)
+    monkeypatch.setattr(cuda_build, "launch", _emulated_launch)
     monkeypatch.setattr(term, "takes_kernel", lambda *args: True)
-    before = term.terminate_fused.launches
+    before = cuda_build.launches["icp_terminate"]
     got = icp.align(local, glob, guess, params)
-    assert term.terminate_fused.launches == before + got.n_iterations
+    assert cuda_build.launches["icp_terminate"] == before + got.n_iterations
     assert got.n_iterations == plain.n_iterations > 3
     assert got.termination_reason == plain.termination_reason
     assert torch.equal(got.optimal_tf.R, plain.optimal_tf.R)
     assert torch.equal(got.optimal_tf.t, plain.optimal_tf.t)
-    before = term.terminate_fused.launches
+    before = cuda_build.launches["icp_terminate"]
     got_b = batch_run(locals_, glob, guesses)
-    assert term.terminate_fused.launches == before + int(got_b.n_iterations.max())
+    assert cuda_build.launches["icp_terminate"] == before + int(got_b.n_iterations.max())
     for name in ("n_iterations", "termination_reason"):
         assert torch.equal(getattr(got_b, name), getattr(plain_b, name))
     assert torch.equal(got_b.optimal_tf.R, plain_b.optimal_tf.R)
@@ -461,11 +465,11 @@ def test_batch_equals_single_launches():
     bit; one launch per test, one for the batch; a second batch repeats."""
     dev = _card()
     P, poses = _to(_many(42, 64, rows=600), dev)
-    before = term.terminate_fused.launches
+    before = cuda_build.launches["icp_terminate"]
     singles = [term.terminate_fused(*pytree.tree_map(lambda x: x[b], (P, *poses)), EPS_T, EPS_R)
                for b in range(64)]
     runs = [_fused_batch(P, poses) for _ in range(2)]
-    assert term.terminate_fused.launches == before + 66
+    assert cuda_build.launches["icp_terminate"] == before + 66
     for kept, flags, norms in runs:
         for b, one in enumerate(singles):
             assert _equal((Pose(kept.R[b], kept.t[b]), flags[b], norms[b]), one), b
@@ -503,9 +507,9 @@ def test_align_equals_the_plain_path_on_the_card(monkeypatch, batched):
             return ([(r.optimal_tf.R, r.optimal_tf.t, r.n_iterations, r.termination_reason)
                      for r in out], sum(r.n_iterations for r in out))
     want, _ = _plain_run(monkeypatch, run)
-    before = term.terminate_fused.launches
+    before = cuda_build.launches["icp_terminate"]
     got, loops = run()
-    assert term.terminate_fused.launches == before + loops
+    assert cuda_build.launches["icp_terminate"] == before + loops
     for g, w in zip(got, want):
         assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
         if batched:
@@ -546,11 +550,11 @@ def test_odometry_and_fleet_equal_the_plain_path_on_the_card(monkeypatch):
 
         for fn, key in ((single, "map"), (fleet, "maps")):
             want = _plain_run(monkeypatch, fn)
-            before = term.terminate_fused.launches
+            before = cuda_build.launches["icp_terminate"]
             got = fn()
             iters = np.asarray(got["iterations"])
             loops = int(iters.sum()) if iters.ndim == 1 else int(iters.max(axis=0).sum())
-            assert term.terminate_fused.launches == before + loops
+            assert cuda_build.launches["icp_terminate"] == before + loops
             np.testing.assert_array_equal(got["poses"], want["poses"])
             np.testing.assert_array_equal(got["iterations"], want["iterations"])
             np.testing.assert_array_equal(got["map_counts"], want["map_counts"])
